@@ -8,11 +8,13 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. card: name and power limit (``nvidia-smi``), kernel build time;
 2. labels kernel vs its plain version: 19×19 boards from seeded random
-   play (0, 60 and 200 moves) plus serpentine snakes at 9, 19 and 25 --
-   bit-exact;
+   play (0, 60 and 200 moves), serpentine snakes at 9, 13, 19 and 25,
+   and random boards at 7, 9, 13, 25 and 32 -- bit-exact;
 3. chase kernel vs its plain version: lanes harvested from real encodes
    of ladder-heavy and random 19×19 positions, seeded random entries
-   and disabled lanes -- verdicts and read cores bit-exact;
+   and disabled lanes; 1, 6 and 7 lanes with disabled lanes among live
+   ones; lanes at 7, 9, 13, 25 and 32 with ladders to every edge --
+   verdicts and read cores bit-exact;
 4. encode: 19×19 positions encoded on the card equal the CPU encode
    (plain versions) bit for bit;
 5. forward: the full-width policy (19×19, 48 planes, 12 layers × 128
@@ -37,6 +39,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,11 +54,22 @@ FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12           # float32 outside the tensor cores
-# integer operations per board point per rung of the chase kernel,
-# counted from csrc/chase.cu (liberty table ~20, prey mask and liberties
-# ~10, per option: place ~10, escaper response ~60, two try_moves ~60)
+# The bounds' work is the reference's, whatever kernel implements it.
+# Chase: integer operations per board point per rung of the reference's
+# read (rocalphago_tpu/features/ladders.py::_chase): the liberty table
+# (4 neighbour reads, the dedup of 4 roots, the empty test, ~20), the
+# prey mask and its liberty points (~10), and per chaser option, two a
+# rung: _place (~10), _escaper_response_full's own masks (five
+# dilations, the merged chaser group, the gained roots, the atari and
+# target masks, ~60) and its two try_moves (two root masks, empty2,
+# comp, two dilations, two reductions, ~60); _relabel_place's ~10 for
+# each ply is inside the rounding. Counted over the rungs chase_plain
+# reports for the run's lanes.
 CHASE_OPS_PER_POINT_RUNG = 300
-LABELS_OPS_PER_POINT_SWEEP = 6      # 4 hooks, a jump, the change test
+# Labels: per point per hook-and-jump sweep of the reference's fill
+# (4 hooks, a jump, the change test), over the sweeps labels_sweeps
+# counts for the run's boards.
+LABELS_OPS_PER_POINT_SWEEP = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -97,22 +111,33 @@ def random_positions(pygo, count: int, moves, seed: int, size: int = SIZE):
     return out
 
 
-def ladder_positions(pygo, count: int, seed: int):
-    """Ladder-heavy 19×19 boards: six standard ladder seeds along the
+def ladder_positions(pygo, count: int, seed: int, size: int = SIZE,
+                     turn: bool = False):
+    """Ladder-heavy boards: standard ladder seeds along the
     anti-diagonal (each white stone flanked on three sides, black to
-    move), plus a few seeded random stones that break some paths."""
+    move; six of them at 19x19), plus a few seeded random stones that
+    break some paths. The ladders run down and right, to the last row
+    and column; ``turn=True`` mirrors board ``i`` by ``i % 4`` so that
+    they run to every edge."""
     rng = np.random.default_rng(seed)
-    seeds = [(1, 16), (4, 13), (7, 10), (10, 7), (13, 4), (16, 1)]
+    seeds = [(r, size - 2 - r) for r in range(1, size - 1, 3)
+             if size - 2 - r >= 1]
     out = []
     for i in range(count):
-        st = pygo.GameState(size=SIZE, komi=7.5)
+        flip_r, flip_c = turn and i % 2 == 1, turn and i % 4 >= 2
+
+        def at(r, c):
+            return (size - 1 - r if flip_r else r,
+                    size - 1 - c if flip_c else c)
+
+        st = pygo.GameState(size=size, komi=7.5)
         for r, c in seeds:
-            st.do_move((r - 1, c), pygo.BLACK)
-            st.do_move((r, c), pygo.WHITE)
-            st.do_move((r, c - 1), pygo.BLACK)
-            st.do_move((r + 1, c - 1), pygo.BLACK)
+            st.do_move(at(r - 1, c), pygo.BLACK)
+            st.do_move(at(r, c), pygo.WHITE)
+            st.do_move(at(r, c - 1), pygo.BLACK)
+            st.do_move(at(r + 1, c - 1), pygo.BLACK)
         for _ in range(i % 5):
-            mv = tuple(int(v) for v in rng.integers(0, SIZE, 2))
+            mv = tuple(int(v) for v in rng.integers(0, size, 2))
             if st.board[mv] == 0 and st.is_legal(mv):
                 st.do_move(mv, pygo.WHITE if rng.random() < 0.5
                            else pygo.BLACK)
@@ -202,7 +227,35 @@ def phase_card():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  nvcc {name}: {line.strip()}")
+    for name, counts in sass_sizes(_build).items():
+        log(f"  sass {name}: " + ", ".join(
+            f"{fn} {k} instructions" for fn, k in counts.items()))
     return card
+
+
+def sass_sizes(build) -> dict:
+    """Instructions per kernel instance in each built library (the code a
+    launch fetches), from ``cuobjdump -sass``; empty without it."""
+    tool = os.path.join(os.path.dirname(build.KernelLibraries.nvcc()),
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = {}
+    for name in build.SOURCES:
+        sass = subprocess.run([tool, "-sass", build.KERNELS._target(name)[1]],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"ILi(\d+)E", line)
+                fn = ("generic" if not m or m.group(1) == "0"
+                      else f"size {m.group(1)}")
+                counts[fn] = 0
+            elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S.*;", line):
+                counts[fn] += 1
+        out[name] = counts
+    return out
 
 
 def phase_labels(pygo, dev):
@@ -212,10 +265,21 @@ def phase_labels(pygo, dev):
     boards = np.stack([np.asarray(s.board, np.int8).reshape(-1)
                        for s in sts])
     cases = [(SIZE, boards)]
-    for size in (9, 19, 25):
+    for size in (9, 13, 19, 25):
         snake = serpentine(size)
         cases.append((size, np.stack([snake, -snake,
                                       np.ones_like(snake)])))
+    # random boards at the other sizes; 7 and 32 take the kernel's
+    # generic instance, and 33 boards are no multiple of the boards per
+    # block
+    for i, size in enumerate((7, 9, 13, 25, 32)):
+        sts = random_positions(pygo, 30, (0, size * size // 3,
+                                          size * size // 2), SEED + 40 + i,
+                               size)
+        snake = serpentine(size)
+        cases.append((size, np.stack(
+            [np.asarray(s.board, np.int8).reshape(-1) for s in sts]
+            + [snake, -snake, np.ones_like(snake)])))
     worst = 0
     for size, b in cases:
         t = torch.as_tensor(b, device=dev)
@@ -227,8 +291,8 @@ def phase_labels(pygo, dev):
               f"labels kernel differs from plain at size {size}: "
               f"{int((got != want).sum())} points")
         worst = max(worst, err)
-    log(f"labels: {len(boards)} 19x19 boards + serpentines at 9/19/25 "
-        "bit-exact vs plain")
+    log(f"labels: {len(boards)} 19x19 boards, serpentines at 9/13/19/25, "
+        "33 boards each at 7/9/13/25/32 bit-exact vs plain")
     return worst
 
 
@@ -254,11 +318,12 @@ class LaneRecorder:
         self.mod.chase = self.inner
 
 
-def entry_lanes(pygo, torchgo, dev, count: int, seed: int):
+def entry_lanes(pygo, torchgo, dev, count: int, seed: int,
+                size: int = SIZE, moves=(40, 90, 140)):
     """Every 2-liberty group of random positions as a chase entry
     (board, carried labels, a prey point of the group)."""
-    cfg = torchgo.GoConfig(size=SIZE)
-    sts = random_positions(pygo, count, (40, 90, 140), seed)
+    cfg = torchgo.GoConfig(size=size)
+    sts = random_positions(pygo, count, moves, seed, size)
     st = torchgo.seed_labels(cfg, torchgo.from_pygo(
         cfg, sts, device=dev, with_labels=False))
     libs = torchgo.lib_counts_from_labels(cfg, st.board, st.labels)
@@ -270,42 +335,92 @@ def entry_lanes(pygo, torchgo, dev, count: int, seed: int):
             p.int().contiguous())
 
 
-def phase_chase(pygo, torchgo, dev):
+def encode_lanes(pygo, torchgo, dev, sts, size: int = SIZE):
+    """The lanes one encode of ``sts`` sends to the chase."""
     from rocalphago_tpu_torch.features.api import Preprocess
     from rocalphago_tpu_torch.ops import chase as C
 
-    cfg = torchgo.GoConfig(size=SIZE)
-    pre = Preprocess(cfg=cfg, device=dev)
+    cfg = torchgo.GoConfig(size=size)
+    with LaneRecorder(C) as rec:
+        Preprocess(cfg=cfg, device=dev).states_to_tensor(
+            torchgo.seed_labels(cfg, torchgo.from_pygo(
+                cfg, sts, device=dev, with_labels=False)))
+    return tuple(torch.cat(x) for x in zip(*rec.lanes))
+
+
+def check_chase(C, boards, labels, prey, size: int, what: str):
+    """Kernel against plain on one lane set: verdicts and read cores
+    bit-exact, disabled lanes False. Returns the plain verdicts."""
+    got_c, got_core = C.chase(boards, labels, prey, size, 40,
+                              collect_core=True)
+    want_c, want_core = C.chase_plain(boards, labels, prey, size, 40,
+                                      collect_core=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got_c, want_c),
+          f"chase {what}: verdicts differ on "
+          f"{int((got_c != want_c).sum())} lanes")
+    check(torch.equal(got_core, want_core),
+          f"chase {what}: cores differ on "
+          f"{int((got_core != want_core).any(1).sum())} lanes")
+    check(not got_c[prey < 0].any(), f"chase {what}: a disabled lane "
+          "read True")
+    return want_c
+
+
+def phase_chase(pygo, torchgo, dev):
+    from rocalphago_tpu_torch.ops import chase as C
+
     sts = (ladder_positions(pygo, 24, SEED + 1)
            + random_positions(pygo, 40, (60, 120, 200), SEED + 2))
-    with LaneRecorder(C) as rec:
-        pre.states_to_tensor(torchgo.seed_labels(cfg, torchgo.from_pygo(
-            cfg, sts, device=dev, with_labels=False)))
-    eb = torch.cat([b for b, _, _ in rec.lanes])
-    el = torch.cat([lab for _, lab, _ in rec.lanes])
-    ep = torch.cat([p for _, _, p in rec.lanes])
+    eb, el, ep = encode_lanes(pygo, torchgo, dev, sts)
     rb, rl, rp = entry_lanes(pygo, torchgo, dev, 48, SEED + 3)
     boards = torch.cat([eb, rb, rb[:64]])
     labels = torch.cat([el, rl, rl[:64]])
     prey = torch.cat([ep, rp, torch.full((64,), -1, dtype=torch.int32,
                                          device=dev)])   # disabled lanes
-    got_c, got_core = C.chase(boards, labels, prey, SIZE, 40,
-                              collect_core=True)
-    want_c, want_core = C.chase_plain(boards, labels, prey, SIZE, 40,
-                                      collect_core=True)
-    torch.cuda.synchronize()
-    check(torch.equal(got_c, want_c),
-          f"chase verdicts differ on {int((got_c != want_c).sum())} lanes")
-    check(torch.equal(got_core, want_core),
-          f"chase cores differ on "
-          f"{int((got_core != want_core).any(1).sum())} lanes")
-    check(not got_c[-64:].any(), "a disabled lane read True")
+    want_c = check_chase(C, boards, labels, prey, SIZE, "19x19")
     enc_live = int((ep >= 0).sum())
     check(enc_live > 0 and bool(want_c.any()) and not bool(want_c.all()),
           "the chase inputs lack live encode lanes or an outcome")
     log(f"chase: {len(prey)} lanes ({enc_live} live from encodes, "
         f"{len(rp)} random entries, 64 disabled), "
         f"{int(want_c.sum())} captured; verdicts and cores bit-exact")
+
+    # lane counts that are no multiple of the lanes per block, with
+    # disabled lanes among the live ones of a block
+    live = torch.nonzero(prey >= 0)[:, 0]
+    odd = []
+    for k in (1, 6, 7):
+        pick = live[torch.arange(k, device=dev) * 5 % len(live)]
+        p = prey[pick].clone()
+        p[1::3] = -1
+        odd.append(int(check_chase(C, boards[pick].contiguous(),
+                                   labels[pick].contiguous(), p, SIZE,
+                                   f"{k} lanes").sum()))
+    log(f"chase: 1, 6 and 7 lanes (lanes 1 and 4 disabled), "
+        f"{odd} captured; bit-exact")
+
+    # other board sizes (7 and 32 take the kernel's generic instance),
+    # ladders to every edge, every third lane disabled
+    seen = []
+    for i, size in enumerate((7, 9, 13, 25, 32)):
+        scale = size * size / (SIZE * SIZE)
+        moves = tuple(max(4, int(m * scale)) for m in (40, 90, 140))
+        sts = (ladder_positions(pygo, 8, SEED + 10 + i, size, turn=True)
+               + random_positions(pygo, 16, moves, SEED + 20 + i, size))
+        eb, el, ep = encode_lanes(pygo, torchgo, dev, sts, size)
+        rb, rl, rp = entry_lanes(pygo, torchgo, dev, 16, SEED + 30 + i,
+                                 size, moves)
+        boards = torch.cat([eb, rb])
+        labels = torch.cat([el, rl])
+        prey = torch.cat([ep, rp])
+        prey[1::3] = -1
+        want_c = check_chase(C, boards, labels, prey, size,
+                             f"{size}x{size}")
+        check(bool((prey >= 0).any()), f"no live chase lane at {size}")
+        seen.append(f"{size}x{size} {len(prey)} lanes "
+                    f"{int(want_c.sum())} captured")
+    log("chase: " + ", ".join(seen) + "; verdicts and cores bit-exact")
     return 0
 
 
@@ -470,6 +585,10 @@ def phase_timings(pygo, torchgo, dev, card):
         _, rungs = C.chase_plain(cb, cl, cp, SIZE, return_rungs=True)
         ch_bound = bound(cb.numel() * 5 + cp.numel() * 5,
                          int(rungs.sum()) * n * CHASE_OPS_PER_POINT_RUNG)
+        d = int(torch.argmax(rungs))
+        deep_ms = cuda_ms(lambda: C.chase(cb[d:d + 1], cl[d:d + 1],
+                                          cp[d:d + 1], SIZE), 100,
+                          queued=True)
         rows[batch] = dict(labels=(lab_ms, lab_plain, lab_bound),
                            chase=(ch_ms, ch_plain, ch_bound),
                            lanes=len(cp), live=int((cp >= 0).sum()),
@@ -482,7 +601,8 @@ def phase_timings(pygo, torchgo, dev, card):
             f"{rows[batch]['rungs']} rungs) kernel {ch_ms:.4f} ms (host "
             f"wall per call {ch_wall:.4f} ms), plain "
             f"{ch_plain:.3f} ms, bound {ch_bound[0]:.6f} ms "
-            f"({ch_bound[1]})")
+            f"({ch_bound[1]}); deepest lane {int(rungs[d])} rungs, "
+            f"{deep_ms:.4f} ms alone")
     return rows
 
 

@@ -10,11 +10,15 @@ rungs. A lane with a negative prey point is disabled and reads False.
 ``collect_core=True`` also returns each lane's read core (the prey's
 stones, the prey point and every cell a rung changed).
 
-Bound on the card: the latency of a rung's chain of block-wide
-decisions, not bytes or operations -- see the note at the top of
-``csrc/chase.cu`` for what the kernel's design does about it (one
-block per lane with its own rung loop, shared-memory board and liberty
-table, barrier-fused reductions).
+Bound on the card: the latency of a rung's chain of dependent
+lane-wide decisions, not bytes or operations -- see the note at the top
+of ``csrc/chase.cu`` for what the kernel's design does about it (one
+warp per lane, four lanes per block, no block barrier; thread ``r``
+holds row ``r`` of every mask as a bitboard, so a dilation, a count or
+a "first point" is a warp shuffle, reduction or ballot; carried labels
+and a per-root liberty table in the warp's shared memory). Boards are
+at most 32 wide: the launch refuses a larger size and the wrapper
+raises.
 """
 
 from __future__ import annotations

@@ -6,10 +6,14 @@ kernel) and is the function of ``jaxgo.compute_labels`` (its XLA twin):
 int8 boards ``[B, N]`` → int32 ``[B, N]``, each point the minimum flat
 index of its same-colour group, ``N`` for empty points.
 
-Bound on the card: latency of dependent sweeps, not bytes or
+Bound on the card: latency of dependent iterations, not bytes or
 operations -- see the note at the top of ``csrc/labels.cu`` for what
-the kernel's design does about it (shared-memory sweeps, pointer
-jumping, a block-wide convergence test).
+the kernel's design does about it (one warp per board, four boards per
+block; thread ``r`` holds row ``r``'s colours as bitboards and its
+labels in registers; an iteration is a min-scan along each row's runs
+and a vertical exchange by warp shuffles, ended by ``__any_sync``; no
+shared memory, no barrier). Boards are at most 32 wide: the launch
+refuses a larger size and the wrapper raises.
 """
 
 from __future__ import annotations

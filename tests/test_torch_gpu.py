@@ -69,7 +69,7 @@ def snake(size):
     return b.reshape(-1)
 
 
-@pytest.mark.parametrize("size", [9, 19, 25])
+@pytest.mark.parametrize("size", [9, 13, 19, 25])
 def test_labels_kernel_matches_plain(cuda_device, size):
     boards = np.stack([np.asarray(s.board, np.int8).reshape(-1) for s in
                        random_positions(size, 64, 0, size * size // 2, 1)]
@@ -100,7 +100,7 @@ def encode_lanes(device, size, states):
     return [torch.cat(x) for x in zip(*seen)]
 
 
-@pytest.mark.parametrize("size", [9, 19])
+@pytest.mark.parametrize("size", [9, 13, 19, 25])
 def test_chase_kernel_matches_plain(cuda_device, size):
     boards, labs, prey = encode_lanes(
         cuda_device, size, random_positions(size, 48, 10, size * 8, 2))
@@ -116,6 +116,24 @@ def test_chase_kernel_matches_plain(cuda_device, size):
     assert torch.equal(cap, pcap) and torch.equal(core, pcore)
     assert not cap[-8:].any() and not core[-8:].any()
     assert cap.any()
+
+
+@pytest.mark.parametrize("lanes", [1, 6, 7])
+def test_chase_kernel_odd_lane_counts(cuda_device, lanes):
+    """Lane counts that are no multiple of the kernel's lanes per
+    block, with disabled lanes between live ones of one block."""
+    boards, labs, prey = encode_lanes(
+        cuda_device, 19, random_positions(19, 48, 10, 152, 2))
+    live = torch.nonzero(prey >= 0)[:, 0]
+    pick = live[torch.arange(lanes, device=cuda_device) * 7 % len(live)]
+    prey = prey[pick].clone()
+    prey[1::3] = -1
+    boards, labs = boards[pick].contiguous(), labs[pick].contiguous()
+    cap, core = chase.chase(boards, labs, prey, 19, 40, collect_core=True)
+    pcap, pcore = chase.chase_plain(boards, labs, prey, 19, 40,
+                                    collect_core=True)
+    assert torch.equal(cap, pcap) and torch.equal(core, pcore)
+    assert not cap[prey < 0].any() and not core[prey < 0].any()
 
 
 def test_card_encode_equals_cpu_encode(cuda_device):
