@@ -6,29 +6,51 @@ and check it end to end.
 
 Phases, in order; any failure exits non-zero before the result line:
 
-1. card: name and power limit (``nvidia-smi``), kernel build time;
-2. labels kernel vs its plain version: 19×19 boards from seeded random
+1. card: name and power limit (``nvidia-smi``), kernel build time (the
+   three sources, one ``nvcc`` each, in parallel);
+2. tree kernel vs its plain version: search trees grown at 9×9 and
+   19×19, batch 1, 7 and 64, with terminal nodes, forced first edges, a
+   slab that fills and roots moved down the tree -- every descent's node
+   and action and every backup's slabs bit-exact;
+3. labels kernel vs its plain version: 19×19 boards from seeded random
    play (0, 60 and 200 moves), serpentine snakes at 9, 13, 19 and 25,
-   and random boards at 7, 9, 13, 25 and 32 -- bit-exact;
-3. chase kernel vs its plain version: lanes harvested from real encodes
+   random boards at 7, 9, 13, 25 and 32, and region boards (9 where
+   empty, 0 elsewhere, as area scoring sends them) at 9, 19 and 32 --
+   bit-exact;
+4. chase kernel vs its plain version: lanes harvested from real encodes
    of ladder-heavy and random 19×19 positions, seeded random entries
    and disabled lanes; 1, 6 and 7 lanes with disabled lanes among live
    ones; lanes at 7, 9, 13, 25 and 32 with ladders to every edge --
    verdicts and read cores bit-exact;
-4. encode: 19×19 positions encoded on the card equal the CPU encode
+5. encode: 19×19 positions encoded on the card equal the CPU encode
    (plain versions) bit for bit;
-5. forward: the full-width policy (19×19, 48 planes, 12 layers × 128
-   filters, fresh seeded weights), float32 with TF32 off, card vs CPU
-   within ``FORWARD_ATOL``/``FORWARD_RTOL``, at batch 8 and 256;
-6. GTP, the main path: that net saved as a spec, loaded by the GTP
-   player factory (``build_player``: the card, bfloat16), and a scripted
-   session through ``run_gtp`` with a ladder on the board and
+6. forward: the full-width policy and value nets (19×19, 48 and 49
+   planes, 12 layers × 128 filters, the value net's FCN head, fresh
+   seeded weights), float32 with TF32 off, card vs CPU within
+   ``FORWARD_ATOL``/``FORWARD_RTOL``, at batch 8 and 256;
+7. greedy GTP, slice 1's path: the policy saved as a spec, loaded by the
+   GTP player factory (``build_player``: the card, bfloat16), and a
+   scripted session through ``run_gtp`` with a ladder on the board and
    ``GENMOVES`` genmoves for both colours; every reply a legal vertex,
-   no illegal move from the player, and both kernels launched during it
-   (launch counts reset just before, read just after);
-7. timings with CUDA events at the main path's shapes (one state per
-   genmove) and at batch 8 and 256, beside each plain version and each
-   kernel's roofline bound; p50 genmove latency.
+   no illegal move from the player, and the labels and chase kernels
+   launched during it (launch counts reset just before, read just
+   after);
+8. device search: 8 roots searched together at full width (float32)
+   give the visits each gets alone; a chunk of simulations at batch 1
+   and 8 (bfloat16) runs under ``torch.cuda.set_sync_debug_mode
+   ("error")``, so makes no device→host sync;
+9. device-search GTP, this slice's main path: both nets saved as specs
+   and loaded by ``build_player("device-mcts", ...)``, a scripted
+   session of ``SEARCH_GENMOVES`` genmoves at 100 simulations, then
+   ``TIMED_GENMOVES`` under ``time_settings 0 1 1`` (the deadline
+   armed); every reply a legal vertex, and the labels, chase and tree
+   kernels launched during it (counts reset just before, read just
+   after);
+10. timings with CUDA events at the main path's shapes (one state per
+    genmove or simulation) and at batch 8 and 256, beside each plain
+    version and each kernel's roofline bound; the greedy genmove p50;
+    the device-search genmove p50 and simulations per second, the
+    stages of a simulation, and a profile of one chunk.
 
 The last three lines are the card (as ``nvidia-smi`` prints it), the
 kernel table as JSON, and ``{"ok": true, "device": {...}}``.
@@ -50,6 +72,10 @@ import torch
 SIZE = 19
 SEED = 20261017
 GENMOVES = 12            # per colour
+SEARCH_GENMOVES = 6      # device-search genmoves at 100 simulations
+TIMED_GENMOVES = 4       # then under time_settings 0 1 1
+SEARCH_CHECK_SIMS = 16   # simulations of the batched-vs-alone check
+CHUNK = 8                # simulations per chunk (the player's default)
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -280,6 +306,18 @@ def phase_labels(pygo, dev):
         cases.append((size, np.stack(
             [np.asarray(s.board, np.int8).reshape(-1) for s in sts]
             + [snake, -snake, np.ones_like(snake)])))
+    # region boards, as area scoring labels them: 9 where the point is
+    # empty, 0 elsewhere (so the empty regions are the groups)
+    regions = []
+    for i, size in enumerate((9, 19, 32)):
+        sts = random_positions(pygo, 33, (0, size * size // 4,
+                                          size * size // 2,
+                                          size * size * 3 // 4),
+                               SEED + 50 + i, size)
+        b = np.stack([np.asarray(s.board, np.int8).reshape(-1)
+                      for s in sts])
+        cases.append((size, np.where(b == 0, 9, 0).astype(np.int8)))
+        regions.append(size)
     worst = 0
     for size, b in cases:
         t = torch.as_tensor(b, device=dev)
@@ -292,7 +330,8 @@ def phase_labels(pygo, dev):
               f"{int((got != want).sum())} points")
         worst = max(worst, err)
     log(f"labels: {len(boards)} 19x19 boards, serpentines at 9/13/19/25, "
-        "33 boards each at 7/9/13/25/32 bit-exact vs plain")
+        "33 boards each at 7/9/13/25/32, and 33 region boards (9 and 0) "
+        f"each at {regions} bit-exact vs plain")
     return worst
 
 
@@ -424,6 +463,133 @@ def phase_chase(pygo, torchgo, dev):
     return 0
 
 
+def grow_trees(T, dev, size: int, batch: int, max_nodes: int, sims: int,
+               seed: int, forced: bool = False, c_puct: float = 5.0):
+    """Grow ``batch`` search trees of ``(size² + 1)`` actions for ``sims``
+    simulations, on the card through the tree kernel and on the CPU
+    through its plain versions, from the same seeded priors, terminal
+    flags and values; check every descent's node and action and every
+    backup's slabs bit-exact. In a batch of more than one, game 0's
+    root is terminal (it backs up nothing); a slab of ``max_nodes``
+    smaller than ``sims`` fills. ``forced`` forces a random first edge
+    on every other game; a small ``c_puct`` follows the values more and
+    grows deeper trees. Returns
+    the CPU slabs and the levels walked by each simulation's descent."""
+    a_n = size * size + 1
+    rng = np.random.default_rng(seed)
+    shape = (batch, max_nodes, a_n)
+    cpu = dict(prior=torch.zeros(shape), visits=torch.zeros(
+        shape, dtype=torch.int32), value_sum=torch.zeros(shape),
+        child=torch.full(shape, -1, dtype=torch.int32),
+        done=torch.zeros((batch, max_nodes), dtype=torch.bool),
+        parent=torch.full((batch, max_nodes), -1, dtype=torch.int32),
+        paction=torch.zeros((batch, max_nodes), dtype=torch.int32))
+
+    def prior_rows(k):
+        # peaked priors, so that the descents go deep
+        p = rng.random((k, a_n)) ** 16 * (rng.random((k, a_n)) < 0.3)
+        p[:, -1] += 1e-3
+        return torch.as_tensor(p / p.sum(1, keepdims=True),
+                               dtype=torch.float32)
+
+    cpu["prior"][:, 0] = prior_rows(batch)
+    cpu["done"][0, 0] = batch > 1
+    gpu = {k: v.to(dev) for k, v in cpu.items()}
+    n_nodes = np.ones(batch, np.int64)
+    root = torch.zeros(batch, dtype=torch.int32)
+    levels = []
+    for _ in range(sims):
+        ra = torch.full((batch,), -1, dtype=torch.int32)
+        if forced:
+            ra[1::2] = torch.as_tensor(rng.integers(0, a_n, batch // 2),
+                                       dtype=torch.int32)
+        args = [cpu[k] for k in ("prior", "visits", "value_sum", "child",
+                                 "done")]
+        want = T.descend_plain(*args, root, ra, c_puct)
+        got = T.descend(*[gpu[k] for k in ("prior", "visits", "value_sum",
+                                           "child", "done")],
+                        root.to(dev), ra.to(dev), c_puct)
+        check(torch.equal(got[0].cpu(), want[0])
+              and torch.equal(got[1].cpu(), want[1]),
+              f"tree descend differs at {size}x{size}, batch {batch}")
+        node, action = want
+        depth = np.zeros(batch, np.int64)
+        for b in range(batch):
+            x = int(node[b])
+            while cpu["parent"][b, x] >= 0:
+                x = int(cpu["parent"][b, x])
+                depth[b] += 1
+        levels.append(depth + 1)
+        rows = prior_rows(batch)
+        term = torch.as_tensor(rng.random(batch) < 0.1)
+        start_n, start_a = node.clone(), action.clone()
+        for b in range(batch):
+            nd, a = int(node[b]), int(action[b])
+            if a < 0:
+                start_n[b] = cpu["parent"][b, nd]
+                start_a[b] = cpu["paction"][b, nd]
+                continue
+            if n_nodes[b] >= max_nodes:
+                continue
+            i = int(n_nodes[b])
+            n_nodes[b] += 1
+            for d in (cpu, gpu):
+                d["prior"][b, i] = rows[b].to(d["prior"].device)
+                d["done"][b, i] = bool(term[b])
+                d["parent"][b, i] = nd
+                d["paction"][b, i] = a
+                d["child"][b, nd, a] = i
+        values = torch.as_tensor(rng.uniform(-1, 1, batch),
+                                 dtype=torch.float32)
+        T.backup_plain(cpu["visits"], cpu["value_sum"], cpu["parent"],
+                       cpu["paction"], start_n, start_a, values)
+        T.backup(gpu["visits"], gpu["value_sum"], gpu["parent"],
+                 gpu["paction"], start_n.to(dev), start_a.to(dev),
+                 values.to(dev))
+        for k in ("visits", "value_sum"):
+            check(torch.equal(gpu[k].cpu(), cpu[k]),
+                  f"tree backup: {k} differs at {size}x{size}, batch "
+                  f"{batch}")
+    check(batch == 1 or int(cpu["visits"][0].sum()) == 0,
+          "a terminal root backed up")
+    return cpu, np.stack(levels)
+
+
+def phase_tree(dev):
+    """Tree kernel against its plain version on grown trees: 9×9 and
+    19×19, batch 1, 7 and 64, terminal nodes, a forced first edge, a
+    slab that fills, and descents from roots moved down the tree."""
+    from rocalphago_tpu_torch.ops import tree as T
+
+    seen = []
+    for size in (9, 19):
+        for batch, m, sims in ((1, 64, 48), (7, 48, 64), (64, 24, 40)):
+            for forced, c_puct in ((False, 5.0), (True, 0.5)):
+                cpu, levels = grow_trees(T, dev, size, batch, m, sims,
+                                         SEED + size + batch + forced,
+                                         forced, c_puct)
+            # roots moved to a random expanded node of each game
+            root = torch.as_tensor(
+                [int(np.random.default_rng(b).integers(
+                    0, max(1, int((cpu["parent"][b] >= 0).sum()) + 1)))
+                 for b in range(batch)], dtype=torch.int32)
+            free = torch.full((batch,), -1, dtype=torch.int32)
+            args = [cpu[k] for k in ("prior", "visits", "value_sum",
+                                     "child", "done")]
+            want = T.descend_plain(*args, root, free, 5.0)
+            got = T.descend(*[x.to(dev) for x in args], root.to(dev),
+                            free.to(dev), 5.0)
+            check(torch.equal(got[0].cpu(), want[0])
+                  and torch.equal(got[1].cpu(), want[1]),
+                  f"tree descend from moved roots differs at {size}")
+            seen.append(f"{size}x{size} batch {batch} slab {m} "
+                        f"({int((cpu['parent'] >= 0).sum())} nodes, "
+                        f"deepest {int(levels.max())} levels)")
+    log("tree: descend and backup bit-exact vs plain at every simulation: "
+        + ", ".join(seen))
+    return 0
+
+
 def phase_encode(pygo, torchgo, dev):
     from rocalphago_tpu_torch.features.api import Preprocess
 
@@ -445,43 +611,69 @@ def phase_encode(pygo, torchgo, dev):
 
 
 def phase_forward(torchgo, dev):
-    from rocalphago_tpu_torch.models.policy import CNNPolicy
+    from rocalphago_tpu_torch.models import CNNPolicy, CNNValue
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    gpu = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
-                    seed=SEED, device=dev, dtype=torch.float32)
-    cpu = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
-                    seed=SEED, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(SEED)
-    for batch in (8, 256):
-        planes = torch.as_tensor(
-            (rng.random((batch, SIZE, SIZE, 48)) < 0.3).astype(np.float32))
-        g = gpu.forward(planes.to(dev)).cpu()
-        c = cpu.forward(planes)
-        check(bool(torch.isfinite(g).all()), "non-finite logits")
-        err = float((g - c).abs().max())
-        check(torch.allclose(g, c, atol=FORWARD_ATOL, rtol=FORWARD_RTOL),
-              f"forward batch {batch}: max abs err {err}")
-        log(f"forward: batch {batch}, 12x128 fp32 (TF32 off), card vs CPU "
-            f"max abs err {err:.3g} (max |logit| "
-            f"{float(c.abs().max()):.3g})")
+    for cls, planes_n, what in ((CNNPolicy, 48, "policy logit"),
+                                (CNNValue, 49, "value")):
+        gpu = cls(board=SIZE, layers=12, filters_per_layer=128,
+                  seed=SEED, device=dev, dtype=torch.float32)
+        cpu = cls(board=SIZE, layers=12, filters_per_layer=128,
+                  seed=SEED, device="cpu", dtype=torch.float32)
+        for batch in (8, 256):
+            planes = torch.as_tensor((rng.random(
+                (batch, SIZE, SIZE, planes_n)) < 0.3).astype(np.float32))
+            g = gpu.forward(planes.to(dev)).cpu()
+            c = cpu.forward(planes)
+            check(bool(torch.isfinite(g).all()), f"non-finite {what}s")
+            err = float((g - c).abs().max())
+            check(torch.allclose(g, c, atol=FORWARD_ATOL,
+                                 rtol=FORWARD_RTOL),
+                  f"{what} forward batch {batch}: max abs err {err}")
+            log(f"forward: {what}s, batch {batch}, 12x128 fp32 (TF32 off), "
+                f"card vs CPU max abs err {err:.3g} (max |{what}| "
+                f"{float(c.abs().max()):.3g})")
+
+
+class Timed(io.StringIO):
+    """Input stream that stamps when each line is handed out."""
+
+    def __init__(self, text):
+        super().__init__(text)
+        self.stamps = []
+
+    def __iter__(self):
+        while line := self.readline():
+            self.stamps.append(time.monotonic())
+            yield line
+
+
+def model_specs(dev):
+    """The full-width nets saved as specs (fresh weights from the seed):
+    the 19×19 ``CNNPolicy`` and the ``CNNValue`` with its FCN head."""
+    from rocalphago_tpu_torch.models import CNNPolicy, CNNValue
+
+    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "smoke_model")
+    os.makedirs(model_dir, exist_ok=True)
+    specs = (os.path.join(model_dir, "policy19.json"),
+             os.path.join(model_dir, "value19.json"))
+    CNNPolicy(board=SIZE, layers=12, filters_per_layer=128, seed=SEED,
+              device=dev).save_model(specs[0])
+    CNNValue(board=SIZE, layers=12, filters_per_layer=128, seed=SEED + 1,
+             device=dev).save_model(specs[1])
+    return specs
 
 
 def phase_gtp(dev, counters):
     from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
-    from rocalphago_tpu_torch.models.policy import CNNPolicy
     from rocalphago_tpu_torch.search.players import build_player
 
     # the user's route: a saved spec, loaded by the GTP entry's player
     # factory on its default device (the card) and working type (bf16)
-    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "build", "smoke_model")
-    os.makedirs(model_dir, exist_ok=True)
-    spec = os.path.join(model_dir, "policy19.json")
-    CNNPolicy(board=SIZE, layers=12, filters_per_layer=128, seed=SEED,
-              device=dev).save_model(spec)
-    player = build_player("greedy", spec)
+    player = build_player("greedy", model_specs(dev)[0])
     net = player.policy
     check(net.device.type == "cuda" and net.module.dtype == torch.bfloat16,
           f"the GTP player runs on {net.device} in {net.module.dtype}")
@@ -490,18 +682,6 @@ def phase_gtp(dev, counters):
              "play w D4", "play b D3", "play w Q16", "play b E3"]
     moves = [f"genmove {c}" for _ in range(GENMOVES) for c in "bw"]
     script = "\n".join(setup + moves + ["final_score", "quit"]) + "\n"
-
-    class Timed(io.StringIO):
-        """Input stream that stamps when each line is handed out."""
-
-        def __init__(self, text):
-            super().__init__(text)
-            self.stamps = []
-
-        def __iter__(self):
-            while line := self.readline():
-                self.stamps.append(time.monotonic())
-                yield line
 
     instream, out = Timed(script), io.StringIO()
     for c in counters:
@@ -606,6 +786,322 @@ def phase_timings(pygo, torchgo, dev, card):
     return rows
 
 
+def searcher(pol, val, n_sim: int, max_nodes=None):
+    from rocalphago_tpu_torch.search.device_mcts import make_device_mcts
+
+    return make_device_mcts(pol.cfg, pol.feature_list, val.feature_list,
+                            pol.module, val.module, n_sim=n_sim,
+                            max_nodes=max_nodes)
+
+
+def bridged(torchgo, cfg, sts, dev):
+    return torchgo.seed_labels(cfg, torchgo.from_pygo(
+        cfg, sts, device=dev, with_labels=False))
+
+
+def phase_batched_search(pygo, torchgo, dev):
+    """8 roots searched together give the visits each gets alone: the
+    full-width nets in float32 (TF32 off; bfloat16 rounds differently at
+    batch 1 and 8, and its ties would be broken by that), 16
+    simulations."""
+    from rocalphago_tpu_torch.models import CNNPolicy, CNNValue
+
+    pol = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                    seed=SEED, device=dev, dtype=torch.float32)
+    val = CNNValue(board=SIZE, layers=12, filters_per_layer=128,
+                   seed=SEED + 1, device=dev, dtype=torch.float32)
+    search = searcher(pol, val, SEARCH_CHECK_SIMS)
+    sts = (random_positions(pygo, 6, (0, 30, 80, 130, 180, 230), SEED + 8)
+           + ladder_positions(pygo, 2, SEED + 9))
+    together, _ = search(bridged(torchgo, pol.cfg, sts, dev))
+    alone = torch.cat([search(bridged(torchgo, pol.cfg, [st], dev))[0]
+                       for st in sts])
+    torch.cuda.synchronize()
+    check(bool((together.sum(1) == SEARCH_CHECK_SIMS).all()),
+          f"batched search ran {together.sum(1).tolist()} simulations")
+    check(torch.equal(together, alone),
+          "a batch of 8 roots searched together differs from each root "
+          f"alone in {int((together != alone).any(1).sum())} roots")
+    log(f"search: 8 roots at 19x19 full width (fp32), {SEARCH_CHECK_SIMS} "
+        "simulations, visits batched == alone on every root "
+        f"({int((together > 0).sum())} visited root edges)")
+
+
+def phase_sync_free(pygo, torchgo, dev, pol, val):
+    """One chunk of simulations makes no device→host sync: run under
+    ``torch.cuda.set_sync_debug_mode("error")`` at batch 1 and 8, full
+    width, bfloat16. Returns the batch-8 tree."""
+    search = searcher(pol, val, CHUNK)
+    tree = None
+    for batch in (1, 8):
+        sts = random_positions(pygo, batch, (20, 90, 160, 230),
+                               SEED + 10 + batch)
+        tree = search.init(bridged(torchgo, pol.cfg, sts, dev))
+        search.simulate(tree)        # warm: cached tables, cuDNN
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(CHUNK):
+                search.simulate(tree)
+        except RuntimeError as e:
+            raise SmokeFailure(f"a host sync inside a chunk (batch "
+                               f"{batch}): {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        visits, _ = search.root_stats(tree)
+        check(bool((visits.sum(1) == CHUNK + 1).all()),
+              f"sync-free chunk: visits {visits.sum(1).tolist()}")
+    log(f"search: a chunk of {CHUNK} simulations at batch 1 and 8 "
+        "(19x19, full width, bf16) ran with no device->host sync")
+    return tree
+
+
+def build_player_nets(specs):
+    """The full-width nets as the device-search player loads them."""
+    from rocalphago_tpu_torch.search.players import build_player
+
+    return build_player("device-mcts", specs[0], value_path=specs[1])
+
+
+def phase_search_gtp(dev, specs, counters):
+    """The main path: the device-search player built from the saved
+    specs by the GTP player factory, a scripted session at 100
+    simulations a move, then moves under ``time_settings 0 1 1`` (the
+    deadline armed)."""
+    from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
+    from rocalphago_tpu_torch.search.players import build_player
+
+    player = build_player("device-mcts", specs[0], value_path=specs[1])
+    for net in (player.policy, player.value):
+        check(net.device.type == "cuda" and net.module.dtype == torch.bfloat16,
+              f"the device-search nets run on {net.device} in "
+              f"{net.module.dtype}")
+    check(player.value.module.head == "fcn" and player.n_sim == 100,
+          "the device-search player is not the FCN / 100-playout default")
+    setup = ["boardsize 19", "clear_board", "komi 7.5", "play b C4",
+             "play w D4", "play b D3", "play w Q16", "play b E3"]
+    searched = [f"genmove {'wb'[i % 2]}" for i in range(SEARCH_GENMOVES)]
+    timed = [f"genmove {'wb'[i % 2]}" for i in range(TIMED_GENMOVES)]
+    script = "\n".join(setup + searched + ["time_settings 0 1 1"] + timed
+                       + ["final_score", "quit"]) + "\n"
+    runs = []
+    inner = player.get_move
+
+    def recorded(state):
+        move = inner(state)
+        runs.append((player.last_n_sim, player.last_deadline_hit,
+                     player.reuses))
+        return move
+
+    player.get_move = recorded
+    instream, out = Timed(script), io.StringIO()
+    for c in counters:
+        c.launches = 0
+    engine = run_gtp(player, instream, out)
+    torch.cuda.synchronize()
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    player.get_move = inner
+    replies = [r for r in out.getvalue().split("\n\n") if r.strip()]
+    cmds = setup + searched + ["time_settings 0 1 1"] + timed
+    check(len(replies) == len(cmds) + 2,
+          f"{len(replies)} replies to {len(cmds) + 2} commands")
+    for cmd, reply in zip(cmds, replies):
+        check(reply.startswith("="), f"{cmd!r} -> {reply!r}")
+        if cmd.startswith("genmove"):
+            check(vertex_to_move(reply[1:].strip(), SIZE) is not None,
+                  f"genmove passed: {reply!r}")
+    check(engine.illegal_from_player == 0,
+          f"illegal_from_player = {engine.illegal_from_player}")
+    for name, n in launches.items():
+        check(n > 0, f"the {name} kernel was not launched by the "
+              "device-search genmoves")
+    check([r[0] for r in runs[:SEARCH_GENMOVES]] == [100] * SEARCH_GENMOVES,
+          f"simulations per searched move: {[r[0] for r in runs]}")
+    stamps = instream.stamps
+    g0 = len(setup)
+    lat = [stamps[i + 1] - stamps[i] for i in range(g0, g0 + SEARCH_GENMOVES)]
+    p50 = sorted(lat)[len(lat) // 2] * 1e3
+    # the first search pays the value net's first launches; the rate
+    # is over the others
+    sims_per_s = (sum(r[0] for r in runs[1:SEARCH_GENMOVES])
+                  / sum(lat[1:]))
+    t0 = g0 + SEARCH_GENMOVES + 1
+    tlat = [stamps[i + 1] - stamps[i] for i in range(t0, t0 + TIMED_GENMOVES)]
+    log(f"device-search gtp: {SEARCH_GENMOVES} genmoves at 100 simulations "
+        f"on the 19x19 12x128 bf16 policy and FCN value nets, all legal "
+        f"vertices; launches {launches}; genmove p50 {p50:.1f} ms (each "
+        f"{[round(x * 1e3, 1) for x in lat]} ms), {sims_per_s:.1f} "
+        f"simulations/s; reuses {runs[SEARCH_GENMOVES - 1][2]}")
+    log(f"device-search gtp under time_settings 0 1 1: simulations "
+        f"{[r[0] for r in runs[SEARCH_GENMOVES:]]}, deadline hit "
+        f"{[r[1] for r in runs[SEARCH_GENMOVES:]]}, genmove ms "
+        f"{[round(x * 1e3, 1) for x in tlat]}")
+    return dict(launches=launches, p50=p50, sims_per_s=sims_per_s,
+                player=player, state=engine.state)
+
+
+def sim_stages(torchgo, search, tree, reps: int):
+    """Host milliseconds of each stage of a simulation, synchronised
+    after every stage (the stages of ``DeviceMCTS.simulate``)."""
+    from rocalphago_tpu_torch.ops import tree as T
+    from rocalphago_tpu_torch.search import device_mcts as D
+    from rocalphago_tpu_torch.features.planes import encode
+    from rocalphago_tpu_torch.search.selfplay import sensible_mask
+
+    cfg = search.cfg
+    free = torch.full_like(tree.n_nodes, -1)
+    sums: dict = {}
+
+    def lap(name, t):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sums[name] = sums.get(name, 0.0) + (now - t) * 1e3
+        return now
+
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            node, action = T.descend(tree.prior, tree.visits,
+                                     tree.value_sum, tree.child,
+                                     tree.states.done, tree.root, free,
+                                     search.c_puct)
+            t = lap("descend (tree kernel)", t)
+            parent = D._state_at(tree.states, node)
+            safe = torch.where(action >= 0, action, cfg.num_points)
+            stepped = torchgo.step(cfg, parent, safe)
+            expanding = action >= 0
+            leaf = torchgo.where_rows(expanding, stepped, parent)
+            t = lap("step", t)
+            gd = torchgo.group_data(cfg, leaf.board, labels=leaf.labels)
+            planes = encode(cfg, leaf, search.value_features, gd=gd)
+            sens = sensible_mask(cfg, leaf, gd)
+            t = lap("analysis + encode (chase kernel)", t)
+            logits = search.policy_fn(planes[..., :search.n_policy_planes])
+            masked = torch.where(sens, logits,
+                                 torch.finfo(logits.dtype).min)
+            board_p = torch.softmax(masked, dim=-1)
+            t = lap("policy forward + softmax", t)
+            values = search.value_fn(planes).float()
+            t = lap("value forward", t)
+            term = D._terminal_value(cfg, leaf)
+            t = lap("terminal scoring (labels kernel)", t)
+            any_sens = sens.any(dim=-1, keepdim=True)
+            priors = torch.cat([torch.where(any_sens, board_p, 0.0),
+                                torch.where(any_sens, 0.0, 1.0)], -1)
+            values = torch.where(leaf.done, term, values)
+            search.apply_sim(tree, D.SimStep(node, safe.int(), expanding,
+                                             leaf), priors, values)
+            lap("apply + backup (tree kernel)", t)
+    return {k: v / reps for k, v in sums.items()}
+
+
+def tree_levels(tree, node) -> np.ndarray:
+    """Levels from each game's root down to ``node`` (the descent's
+    reads), counted on the host."""
+    parent = tree.parent.cpu().numpy()
+    root = tree.root.cpu().numpy()
+    out = []
+    for b, x in enumerate(node.cpu().numpy()):
+        depth = 1
+        while x != root[b] and parent[b, x] >= 0:
+            x = parent[b, x]
+            depth += 1
+        out.append(depth)
+    return np.asarray(out)
+
+
+def tree_timing(tree, c_puct: float):
+    """(kernel ms, plain ms, (bound ms, by), levels) of one descent and
+    one backup of the path it found, on the card, for a tree."""
+    from rocalphago_tpu_torch.ops import tree as T
+
+    b, _, a = tree.prior.shape
+    free = torch.full_like(tree.n_nodes, -1)
+    args = (tree.prior, tree.visits, tree.value_sum, tree.child,
+            tree.states.done, tree.root, free, c_puct)
+    node, action = T.descend(*args)
+    ar = torch.arange(b, device=node.device)
+    start = torch.where(action >= 0, node,
+                        tree.parent[ar, node.long()]).contiguous()
+    start_a = torch.where(action >= 0, action,
+                          tree.paction[ar, node.long()]).contiguous()
+    values = torch.zeros((b,), dtype=torch.float32, device=node.device)
+    visits, vsum = tree.visits.clone(), tree.value_sum.clone()
+    back = (visits, vsum, tree.parent, tree.paction, start, start_a, values)
+    ms = (cuda_ms(lambda: T.descend(*args), 200, queued=True)
+          + cuda_ms(lambda: T.backup(*back), 200, queued=True))
+    plain = (cuda_ms(lambda: T.descend_plain(*args), 5)
+             + cuda_ms(lambda: T.backup_plain(*back), 5))
+    levels = tree_levels(tree, node)
+    # descend: each level reads one node's prior, visits and value_sum
+    # rows, its child pointer and done flag; backup: each level reads
+    # and writes one visit count and value sum and reads parent/paction
+    bytes_moved = int(levels.sum()) * (a * 12 + 5 + 16 + 8) + b * 24
+    return ms, plain, bound(bytes_moved, int(levels.sum()) * a * 12), levels
+
+
+def phase_search_timings(torchgo, dev, card, main, tree8):
+    """Where a device-search move's time goes: the stages of a
+    simulation at the main path's shape (one game), the kernel count and
+    device time of a chunk (profiler), and the tree kernel's time beside
+    its bound at batch 1 and 8."""
+    player, state = main["player"], main["state"]
+    cfg, search = player._searcher_for(float(state.komi))
+    tree = search.init(bridged(torchgo, cfg, [state], dev))
+    for _ in range(24):
+        search.simulate(tree)
+    stages = sim_stages(torchgo, search, tree, 16)
+    log(f"simulation stages at batch 1 [{card}], host ms with a sync after "
+        "each: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.2f} ms")
+    prof = profile_chunk(search, tree)
+    tree_ms, tree_plain, tree_bound, levels = tree_timing(tree,
+                                                          search.c_puct)
+    t8 = tree_timing(tree8, search.c_puct)
+    log(f"tree kernel [{card}]: batch 1 ({int(tree.n_nodes.sum())} nodes, "
+        f"{int(levels.sum())} levels) descend + backup {tree_ms:.4f} ms, "
+        f"plain {tree_plain:.3f} ms, bound {tree_bound[0]:.6f} ms "
+        f"({tree_bound[1]}); batch 8 ({int(t8[3].sum())} levels) "
+        f"{t8[0]:.4f} ms, plain {t8[1]:.3f} ms, bound {t8[2][0]:.6f} ms")
+    return dict(stages=stages, profile=prof,
+                tree=(tree_ms, tree_plain, tree_bound))
+
+
+def profile_chunk(search, tree):
+    """Kernel launches and device busy time per simulation over one
+    chunk, from ``torch.profiler``; None where the trace shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CHUNK):
+            search.simulate(tree)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    if not kernels or busy <= 0:
+        log("profiler: no device time in the trace; launches not measured")
+        return None
+    out = dict(launches=len(kernels) / CHUNK, busy_ms=busy / CHUNK,
+               wall_ms=wall / CHUNK)
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    log(f"profiler, one chunk of {CHUNK} simulations at batch 1: "
+        f"{out['launches']:.0f} kernels per simulation, device busy "
+        f"{out['busy_ms']:.3f} of {out['wall_ms']:.2f} ms (idle share "
+        f"{1 - out['busy_ms'] / out['wall_ms']:.3f}, the profiler on); "
+        "top: " + ", ".join(f"{e.key[:40]} x{e.count // CHUNK} "
+                            f"{e.device_time_total / 1e3 / CHUNK:.3f} ms"
+                            for e in top[:6]))
+    return out
+
+
 def labels_sweeps(boards: torch.Tensor) -> int:
     """Sweeps the hook-and-jump fill needs on these boards (the same
     iteration the kernel runs, counted on the plain version's loop)."""
@@ -636,6 +1132,7 @@ def main() -> int:
         from rocalphago_tpu_torch.engine import pygo, torchgo
         from rocalphago_tpu_torch.ops import chase as C
         from rocalphago_tpu_torch.ops import labels as L
+        from rocalphago_tpu_torch.ops import tree as T
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -644,25 +1141,41 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t0 = time.monotonic()
     card = phase_card()
-    err = {"labels": phase_labels(pygo, dev),
+    err = {"tree": phase_tree(dev),
+           "labels": phase_labels(pygo, dev),
            "chase": phase_chase(pygo, torchgo, dev)}
     phase_encode(pygo, torchgo, dev)
     phase_forward(torchgo, dev)
-    launches, p50 = phase_gtp(dev, (L, C))
+    greedy_launches, p50 = phase_gtp(dev, (L, C))
+    phase_batched_search(pygo, torchgo, dev)
+    specs = model_specs(dev)
+    player = build_player_nets(specs)
+    tree8 = phase_sync_free(pygo, torchgo, dev, player.policy, player.value)
+    main_path = phase_search_gtp(dev, specs, (L, C, T))
     rows = phase_timings(pygo, torchgo, dev, card)
+    search_rows = phase_search_timings(torchgo, dev, card, main_path, tree8)
+    rows[1]["tree"] = search_rows["tree"]
     kernels = []
     for name, src, replaces in (
             ("labels", "rocalphago_tpu_torch/csrc/labels.cu",
              "rocalphago_tpu/ops/labels.py:154"),
             ("chase", "rocalphago_tpu_torch/csrc/chase.cu",
-             "rocalphago_tpu/ops/chase.py:342")):
+             "rocalphago_tpu/ops/chase.py:342"),
+            ("tree", "rocalphago_tpu_torch/csrc/tree.cu",
+             "rocalphago_tpu/search/device_mcts.py:322 and :370 "
+             "(lax.while_loop, not a Pallas kernel)")):
         ms, plain_ms, (bound_ms, bound_by) = rows[1][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": main_path["launches"][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
+    log(f"greedy session launches {greedy_launches}; device-search session "
+        f"launches {main_path['launches']}")
+    log(f"device-search genmove p50 {main_path['p50']:.2f} ms at 100 "
+        f"simulations, {main_path['sims_per_s']:.1f} simulations/s on "
+        f"{card}")
     log(f"genmove p50 {p50:.2f} ms on {card}; smoke took "
         f"{time.monotonic() - t0:.0f} s")
     print(card)

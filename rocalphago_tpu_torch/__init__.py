@@ -3,9 +3,11 @@
 A second package beside the JAX reference. It imports ``torch`` and
 never ``jax``, ``flax`` or anything of ``rocalphago_tpu``: host
 modules it needs (the rules oracle, the Zobrist tables, the feature
-names) are copied, not imported. Every Pallas kernel of the reference
-that lies on a ported path has a hand-written CUDA C++ twin under
-``csrc/``, built at first use by :mod:`.ops._build`.
+names, the move clock and deadline) are copied, not imported. Every
+Pallas kernel of the reference that lies on a ported path has a
+hand-written CUDA C++ twin under ``csrc/``, built at first use by
+:mod:`.ops._build`; so do the device search's two tree walks, which the
+reference runs as ``lax.while_loop``s.
 
 Entry points (model loading, :class:`~.features.api.Preprocess`, the
 GTP ``main``) run on the CUDA card unless the caller passes

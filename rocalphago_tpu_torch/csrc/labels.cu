@@ -3,7 +3,9 @@
 // Replaces the TPU kernel rocalphago_tpu/ops/labels.py::pallas_labels
 // (body _label_kernel): every point gets the minimum flat index of its
 // same-colour 4-connected group, empty points get N = size * size.
-// Boards hold -1, 0 and +1.
+// A board point holds 0 (empty) or a colour: any value > 0 is one
+// colour, any value < 0 the other. Game boards hold -1, 0 and +1; area
+// scoring labels its empty regions on boards of 9 (empty) and 0.
 //
 // What bounds it on an H100: neither bytes nor operations. A 19x19
 // board is 361 bytes in and 1,444 bytes out, and an iteration is a

@@ -8,11 +8,14 @@ always, optional positional superko, area scoring), and every integer
 output -- labels, liberty counts, group sizes, per-group Zobrist XORs,
 legality -- is bit-identical to it (``tests/test_torch_engine.py``).
 
-What the slice needs and no more: state construction from the host
-oracle (:func:`from_pygo`), the full flood fill (:func:`compute_labels`,
-which is the labels kernel of :mod:`rocalphago_tpu_torch.ops.labels`),
-the loop-free group analysis on carried labels and legality. Stepping,
-scoring and eval signatures wait for the self-play slice.
+State construction (:func:`new_states`, :func:`from_pygo` from the
+host oracle), the full flood fill (:func:`compute_labels`, which is the
+labels kernel of :mod:`rocalphago_tpu_torch.ops.labels`), the loop-free
+group analysis on carried labels, legality, stepping (:func:`step`),
+the eval signature and area scoring (:func:`area_scores`, whose empty
+regions are one more labels launch). No function here reads a tensor
+back to the host, so a batch of searches steps, scores and analyses
+its leaves without a device→host sync.
 
 Zobrist hashes are uint32 pairs in the reference. Torch's ``uint32``
 supports few operations, so the port holds them in int64 tensors whose
@@ -161,6 +164,28 @@ def _color_idx(color: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # state construction
 # --------------------------------------------------------------------------
+
+
+def new_states(cfg: GoConfig, batch: int, *, device) -> GoState:
+    """A batch of fresh games on ``device`` (every field materialised,
+    so the batch can be written in place)."""
+    n, h = cfg.num_points, cfg.max_history
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return GoState(
+        board=full((batch, n), 0, torch.int8),
+        turn=full((batch,), BLACK, torch.int8),
+        ko=full((batch,), -1, torch.int32),
+        pass_count=full((batch,), 0, torch.int8),
+        done=full((batch,), False, torch.bool),
+        step_count=full((batch,), 0, torch.int32),
+        hash=full((batch, 2), 0, torch.int64),
+        hash_history=full((batch, h, 2), 0, torch.int64),
+        stone_ages=full((batch, n), -1, torch.int32),
+        prisoners=full((batch, 2), 0, torch.int32),
+        labels=full((batch, n), n, torch.int32))
 
 
 def from_pygo(cfg: GoConfig, states, *, device, with_history: bool = True,
@@ -417,3 +442,192 @@ def legal_mask(cfg: GoConfig, state: GoState,
         ok = ok & ~seen
     live = ~state.done[:, None]
     return torch.cat([ok & live, live], dim=1)
+
+
+# --------------------------------------------------------------------------
+# eval signature
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _signature_tables(size: int, device: str):
+    """The eval-signature key families as int64 tensors on ``device``."""
+    return zobrist_tables.SignatureTables(*(
+        torch.as_tensor(t.astype(np.int64), device=device)
+        for t in zobrist_tables.signature_tables(size)))
+
+
+def eval_signature(cfg: GoConfig, state: GoState) -> torch.Tensor:
+    """int64 ``[B, 2]`` (uint32 words) key under which the evaluation of
+    each state may be cached: the carried position hash XOR one
+    age-bucket key per stone XOR the ko, turn and done keys -- every
+    input of the feature planes and the terminal value, as in the
+    reference. Not valid under ``cfg.enforce_superko``."""
+    n = cfg.num_points
+    tabs = _signature_tables(cfg.size, str(state.board.device))
+    bucket = torch.clamp(state.step_count[:, None] - 1 - state.stone_ages,
+                         0, zobrist_tables.AGE_BUCKETS - 1).long()
+    iota = torch.arange(n, device=state.board.device)
+    keys = tabs.age[iota[None, :], bucket]                   # [B, N, 2]
+    occupied = (state.board != 0) & (state.stone_ages >= 0)
+    sig = state.hash ^ _xor_reduce_masked(keys, occupied)
+    sig = sig ^ tabs.ko[state.ko.long() + 1]
+    sig = sig ^ torch.where((state.turn == WHITE)[:, None], tabs.turn, 0)
+    return sig ^ torch.where(state.done[:, None], tabs.done, 0)
+
+
+# --------------------------------------------------------------------------
+# step
+# --------------------------------------------------------------------------
+
+
+def where_rows(cond: torch.Tensor, new: GoState, old: GoState) -> GoState:
+    """Per-row select of two batched states: row ``i`` of ``new`` where
+    ``cond[i]``, else of ``old``."""
+    return GoState(*(torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)),
+                                 a, b) for a, b in zip(new, old)))
+
+
+def _set_history(cfg: GoConfig, state: GoState,
+                 key: torch.Tensor) -> torch.Tensor:
+    """``hash_history`` with ``key`` written at slot ``step_count % H``
+    of each row."""
+    slot = (state.step_count.long() % cfg.max_history)
+    at = torch.arange(cfg.max_history,
+                      device=key.device)[None, :] == slot[:, None]
+    return torch.where(at[:, :, None], key[:, None, :], state.hash_history)
+
+
+def step(cfg: GoConfig, state: GoState, action: torch.Tensor,
+         gd: GroupData | None = None) -> GoState:
+    """Play ``action[i]`` (flat index, ``N`` = pass) for each row's
+    player to move; the reference's ``jaxgo.step`` row by row. Assumes
+    the action is legal; an action on an occupied point degrades to a
+    pass, and a finished game is frozen (any action leaves it
+    unchanged). Both branches are computed for every row and selected
+    per row. Pass ``gd`` (the :func:`group_data` of ``state.board`` on
+    its carried labels) to reuse an analysis already made."""
+    n = cfg.num_points
+    action = action.long()
+    pt = torch.clamp(action, max=n - 1)
+    occupied = state.board.gather(1, pt[:, None])[:, 0] != 0
+    is_pass = (action >= n) | occupied
+    new = where_rows(is_pass, _step_pass(cfg, state),
+                     _step_place(cfg, state, pt, gd))
+    return where_rows(state.done, state, new)
+
+
+def _step_pass(cfg: GoConfig, state: GoState) -> GoState:
+    pc = state.pass_count + 1
+    return state._replace(
+        turn=-state.turn,
+        ko=torch.full_like(state.ko, -1),
+        pass_count=pc,
+        done=pc >= 2,
+        step_count=state.step_count + 1,
+        hash_history=_set_history(cfg, state, state.hash))
+
+
+def _step_place(cfg: GoConfig, state: GoState, action: torch.Tensor,
+                gd: GroupData | None = None) -> GoState:
+    """Place a stone at board point ``action[i]`` (< N) of every row."""
+    n = cfg.num_points
+    board, me = state.board, state.turn
+    if gd is None:
+        gd = group_data(cfg, board, labels=state.labels)
+    my = neighbors_for(cfg.size, board.device)[action]          # [B, 4]
+    nbr_color = pad_points(board, 0).gather(1, my)
+    nbr_root = pad_points(gd.labels.long(), n).gather(1, my)
+
+    # opponent neighbour groups in atari: their one liberty is `action`
+    cap_roots = torch.where(
+        (nbr_color == -me[:, None])
+        & (gd.lib_counts.gather(1, nbr_root) == 1), nbr_root, -2)
+    captured = (gd.labels[:, :, None] == cap_roots[:, None, :]).any(dim=2)
+    num_captured = captured.sum(dim=1, dtype=torch.int32)
+
+    at = (torch.arange(n, device=board.device)[None, :]
+          == action[:, None])
+    board2 = torch.where(at, me[:, None], torch.where(captured, 0, board))
+
+    # simple ko: a lone new stone, exactly one capture, one liberty left
+    placed_alone = ~(nbr_color == me[:, None]).any(dim=1)
+    p_libs = (pad_points(board2, 1).gather(1, my) == 0).sum(dim=1)
+    ko_point = _first_true(captured)
+    ko = torch.where((num_captured == 1) & placed_alone & (p_libs == 1),
+                     ko_point, -1).int()
+
+    zob = zobrist_for(cfg.size, board.device)
+    ci = _color_idx(me)
+    cap_keys = torch.where((me == BLACK)[:, None, None], zob[None, :, 1, :],
+                           zob[None, :, 0, :])              # [B, N, 2]
+    new_hash = (state.hash ^ zob[action, ci, :]
+                ^ _xor_reduce_masked(cap_keys, captured))
+
+    opp = torch.arange(2, device=board.device)[None, :] == _color_idx(
+        -me)[:, None]
+    prisoners = state.prisoners + torch.where(opp, num_captured[:, None], 0)
+    ages = torch.where(at, state.step_count[:, None],
+                       torch.where(captured, -1, state.stone_ages))
+    return state._replace(
+        board=board2,
+        turn=-me,
+        ko=ko,
+        pass_count=torch.zeros_like(state.pass_count),
+        step_count=state.step_count + 1,
+        hash=new_hash,
+        hash_history=_set_history(cfg, state, new_hash),
+        stone_ages=ages,
+        prisoners=prisoners.int(),
+        labels=relabel_after_place(cfg, board, gd.labels, action, me,
+                                   captured))
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True of each row, 0 when none (``argmax`` of
+    a bool row)."""
+    n = mask.shape[-1]
+    idx = torch.where(mask, torch.arange(n, device=mask.device),
+                      n).min(dim=-1).values
+    return torch.where(idx == n, 0, idx)
+
+
+# --------------------------------------------------------------------------
+# scoring
+# --------------------------------------------------------------------------
+
+
+def area_scores(cfg: GoConfig, state: GoState):
+    """Area scores ``(black, white + komi)``, float32 ``[B]`` each:
+    empty regions bordering exactly one colour count for it. The
+    regions are labelled by one :func:`compute_labels` call (one labels
+    kernel launch on the card) over boards holding 9 where the point is
+    empty and 0 elsewhere."""
+    n = cfg.num_points
+    board = state.board
+    b = board.shape[0]
+    empty = board == 0
+    region = compute_labels(cfg, torch.where(empty, 9, 0).to(torch.int8))
+    nbr_color = pad_points(board, 0)[:, neighbors_for(cfg.size,
+                                                      board.device)]
+    region = region.long()
+
+    def touches(color):
+        pts = empty & (nbr_color == color).any(dim=2)
+        by_region = torch.zeros((b, n + 1), dtype=torch.int8,
+                                device=board.device).scatter_reduce(
+            1, region, pts.to(torch.int8), reduce="amax") > 0
+        return by_region.gather(1, region)
+
+    t_b, t_w = touches(BLACK), touches(WHITE)
+    terr_b = (empty & t_b & ~t_w).sum(dim=1)
+    terr_w = (empty & t_w & ~t_b).sum(dim=1)
+    black = (board == BLACK).sum(dim=1) + terr_b
+    white = (board == WHITE).sum(dim=1) + terr_w
+    return black.float(), white.float() + cfg.komi
+
+
+def winner(cfg: GoConfig, state: GoState) -> torch.Tensor:
+    """int32 ``[B]``: +1 black wins, -1 white wins, 0 draw."""
+    black, white = area_scores(cfg, state)
+    return torch.sign(black - white).int()

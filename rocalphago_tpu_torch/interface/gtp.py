@@ -4,8 +4,11 @@
 Commands: the GTP 2 administrative set (``protocol_version name
 version known_command list_commands quit``), setup (``boardsize
 clear_board komi fixed_handicap place_free_handicap
-set_free_handicap``), play (``play genmove undo``) and ``showboard
-final_score``. The reference's resilience ladder, time commands,
+set_free_handicap``), play (``play genmove undo``), time
+(``time_settings time_left``) and ``showboard final_score``. Before
+every genmove the engine hands the moving colour's budget in seconds
+to the player's ``set_move_time`` (the device-search player turns it
+into simulations and a deadline). The reference's resilience ladder,
 operator probes and serve pool are not ported yet, so this engine
 behaves like the reference under ``--no-resilient``: a player error
 is a ``? error`` reply, never a silent fallback move.
@@ -13,12 +16,15 @@ is a ``? error`` reply, never a silent fallback move.
 Run it as::
 
     python -m rocalphago_tpu_torch.interface.gtp --policy spec.json
+    python -m rocalphago_tpu_torch.interface.gtp --player device-mcts \
+        --policy policy.json --value value.json [--playouts 100]
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 from rocalphago_tpu_torch.engine import pygo
 
@@ -120,6 +126,13 @@ class GTPEngine:
         self.komi = 7.5
         self.state = pygo.GameState(size=self.size, komi=self.komi)
         self._undo_stack: list = []
+        self._time_settings = None    # (main_s, byo_s, byo_stones)
+        # color -> (seconds, stones, spent-at-report, genmoves-at-
+        # report): the pair at the end ages a report that is not
+        # repeated every move
+        self._time_left: dict = {}
+        self._time_spent: dict = {}   # color -> own genmove seconds
+        self._genmoves: dict = {}     # color -> genmove count
         self._commands = sorted(m[4:] for m in dir(self)
                                 if m.startswith("cmd_"))
 
@@ -146,8 +159,14 @@ class GTPEngine:
     # ------------------------------------------------------------ setup
 
     def _new_game(self):
+        from rocalphago_tpu_torch.search.players import reset_player
+
         self.state = pygo.GameState(size=self.size, komi=self.komi)
         self._undo_stack.clear()
+        self._time_left = {}          # a fresh game, fresh clocks
+        self._time_spent = {}
+        self._genmoves = {}
+        reset_player(self.player)
 
     def cmd_boardsize(self, args):
         from rocalphago_tpu_torch.search.players import player_board
@@ -217,7 +236,10 @@ class GTPEngine:
             raise
         return ""
 
-    def _generate(self):
+    def _generate(self, color):
+        set_time = getattr(self.player, "set_move_time", None)
+        if set_time is not None:
+            set_time(self._move_budget_s(color))
         move = self.player.get_move(self.state)
         if move is not None and not self.state.is_legal(move):
             # final guard: count it, then pass
@@ -229,12 +251,17 @@ class GTPEngine:
         color = parse_color(args[0])
         prev = self.state.current_player
         self.state.current_player = color
+        t0 = time.monotonic()
         try:
-            move = self._generate()
+            move = self._generate(color)
             self._apply_move(move, color)
         except Exception:
             self.state.current_player = prev
             raise
+        finally:
+            self._time_spent[color] = (self._time_spent.get(color, 0.0)
+                                       + time.monotonic() - t0)
+            self._genmoves[color] = self._genmoves.get(color, 0) + 1
         return move_to_vertex(move, self.size)
 
     def cmd_undo(self, args):
@@ -242,7 +269,87 @@ class GTPEngine:
             raise ValueError("cannot undo")
         self.state = self._undo_stack.pop()
         self.state.komi = self.komi
+        # no player reset: the device player's subtree walk sees the
+        # history go back and builds a fresh tree on its own
         return ""
+
+    # ------------------------------------------------------------- time
+
+    def cmd_time_settings(self, args):
+        # GTP 2: main_time byo_yomi_time byo_yomi_stones (canadian)
+        main, byo_t, byo_s = (float(args[0]), float(args[1]),
+                              int(args[2]))
+        if main < 0 or byo_t < 0 or byo_s < 0:
+            raise ValueError("time arguments must be non-negative")
+        self._time_settings = (main, byo_t, byo_s)
+        self._time_left = {}
+        self._time_spent = {}         # a re-issued clock starts fresh
+        self._genmoves = {}
+        return ""
+
+    def cmd_time_left(self, args):
+        color = parse_color(args[0])
+        # snapshot our own spend and move counters so that the report
+        # ages: one report must not freeze the budget for the game
+        self._time_left[color] = (
+            float(args[1]), int(args[2]),
+            self._time_spent.get(color, 0.0),
+            self._genmoves.get(color, 0))
+        return ""
+
+    def _est_moves_left(self) -> float:
+        """Moves each player still has to make: a game runs ~0.75·N²
+        plies, floored so that late budgets never spike."""
+        total = 0.75 * self.size * self.size
+        return max(10.0, (total - self.state.turns_played) / 2.0)
+
+    def _move_budget_s(self, color):
+        """Seconds this genmove may spend, or None (no time control).
+
+        In byo-yomi (``time_left`` with stones > 0) the period's time
+        left splits evenly over its stones left; in main time the clock
+        left splits over the estimated moves left. A report is aged by
+        the engine's own spend since it came. Idempotent per position:
+        the byo-yomi rebase rewrites the ledger from the report, so
+        repeated queries agree."""
+        settings = self._time_settings
+        left = self._time_left.get(color)
+        if left is not None:
+            t, stones, spent0, moves0 = left
+            rem = min(t, t - (self._time_spent.get(color, 0.0) - spent0))
+            if stones > 0:                     # canadian byo-yomi
+                made = self._genmoves.get(color, 0) - moves0
+                if rem > 0 and made < stones:
+                    return rem / (stones - made)
+                if rem > 0 and made >= stones:
+                    # every reported stone went down with time to spare:
+                    # a new period began; rebase the report to it
+                    if settings is not None and settings[2] > 0:
+                        byo_t, byo_s = settings[1], settings[2]
+                        self._time_left[color] = (
+                            byo_t, byo_s, spent0 + t, moves0 + stones)
+                        return self._move_budget_s(color)
+                # the period's time is gone with stones owed: minimum
+                # budget until the controller reports again
+                return 0.0
+            if rem > 0:
+                return rem / self._est_moves_left()
+            if settings is not None and settings[2] > 0:
+                return settings[1] / settings[2]
+            return 0.0
+        if settings is not None:
+            main, byo_t, byo_s = settings
+            if main > 0:
+                # no report: the engine runs its own clock down
+                rem = main - self._time_spent.get(color, 0.0)
+                if rem > 0:
+                    return rem / self._est_moves_left()
+                if byo_s > 0:
+                    return byo_t / byo_s
+                return 0.0
+            if byo_s > 0:
+                return byo_t / byo_s
+        return None
 
     # ------------------------------------------------------ observation
 
@@ -310,12 +417,15 @@ def run_gtp(player, instream=None, outstream=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="GTP engine over the PyTorch port's policy players")
+        description="GTP engine over the PyTorch port's players")
     ap.add_argument("--policy", required=True,
                     help="policy model JSON spec (the reference's format)")
+    ap.add_argument("--value", help="value model JSON spec (device-mcts)")
     ap.add_argument("--player", default="greedy",
-                    choices=("greedy", "probabilistic"))
+                    choices=("greedy", "probabilistic", "device-mcts"))
     ap.add_argument("--temperature", type=float, default=0.1)
+    ap.add_argument("--playouts", type=int, default=100,
+                    help="simulations per move (device-mcts)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on "
                          "the CPU)")
@@ -323,8 +433,9 @@ def main(argv=None):
     from rocalphago_tpu_torch.search.players import build_player
 
     try:
-        player = build_player(a.player, a.policy,
-                              temperature=a.temperature, device=a.device)
+        player = build_player(a.player, a.policy, value_path=a.value,
+                              temperature=a.temperature,
+                              playouts=a.playouts, device=a.device)
     except ValueError as e:
         raise SystemExit(str(e))
     run_gtp(player)

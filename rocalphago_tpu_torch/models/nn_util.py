@@ -39,18 +39,22 @@ SPEC_FORMAT = 2
 
 
 class ConvTrunk(nn.Module):
-    """The AlphaGo conv trunk: a ``filter_width_1`` first layer, then
-    ``layers - 2`` more of ``filter_width_K``, ReLU, SAME padding
-    (symmetric, ``width // 2``). Computes in ``dtype``; NCHW in and
-    out."""
+    """The AlphaGo conv trunk: ``layers - 1`` convolutions, a
+    ``filter_width_1`` first one and then ``filter_width_K``, ReLU, SAME
+    padding (symmetric, ``width // 2``); at ``layers=1`` it is empty, as
+    in the reference. Computes in ``dtype``; NCHW in and out, with
+    ``out_channels`` channels out."""
 
     def __init__(self, input_planes: int, layers: int = 12,
                  filters_per_layer: int = 128, filter_width_1: int = 5,
                  filter_width_K: int = 3, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        widths = [filter_width_1] + [filter_width_K] * (layers - 2)
-        chans = [input_planes] + [filters_per_layer] * (layers - 1)
+        convs = layers - 1
+        widths = ([filter_width_1] + [filter_width_K] * (convs - 1)
+                  if convs > 0 else [])
+        chans = [input_planes] + [filters_per_layer] * (convs - 1)
+        self.out_channels = filters_per_layer if convs > 0 else input_planes
         self.convs = nn.ModuleList(
             nn.Conv2d(cin, filters_per_layer, w, padding=w // 2)
             for cin, w in zip(chans, widths))
@@ -97,13 +101,15 @@ def neuralnet(cls):
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Fresh weights from ``generator``: conv kernels normal with
-    variance 2/fan_in, biases zero."""
+    variance 2/fan_in, dense kernels with variance 1/fan_in (Flax's
+    default), biases zero."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
+                gain = 2.0 if isinstance(m, nn.Conv2d) else 1.0
                 w = torch.randn(m.weight.shape, generator=generator)
-                m.weight.copy_(w * math.sqrt(2.0 / fan_in))
+                m.weight.copy_(w * math.sqrt(gain / fan_in))
                 m.bias.zero_()
 
 

@@ -38,7 +38,7 @@ class PolicyNet(nn.Module):
         self.dtype = dtype
         self.trunk = ConvTrunk(input_planes, layers, filters_per_layer,
                                filter_width_1, filter_width_K, dtype)
-        self.head = PointHead(filters_per_layer, board, head, dtype)
+        self.head = PointHead(self.trunk.out_channels, board, head, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(x.permute(0, 3, 1, 2)))

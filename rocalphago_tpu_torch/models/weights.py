@@ -12,7 +12,11 @@ param tree onto the port's modules (:func:`params_from_flax`) and back
 * ``trunk/conv{i}/kernel`` HWIO ↔ ``trunk.convs.{i-1}.weight`` OIHW,
   ``bias`` as is;
 * ``head/conv/kernel`` and ``bias`` ↔ ``head.conv.weight``/``bias``;
-* ``head/position_bias`` (legacy ``bias`` head) ↔ ``head.position_bias``.
+* ``head/position_bias`` (legacy ``bias`` head) ↔ ``head.position_bias``;
+* the value net's top-level modules ``head_conv`` and ``own_conv``
+  (1×1 convs, HWIO ↔ OIHW) and ``dense1``, ``dense2`` and
+  ``score_dense`` (Flax ``Dense`` kernels are ``[in, out]``, an
+  ``nn.Linear`` weight ``[out, in]``: transposed both ways).
 """
 
 from __future__ import annotations
@@ -168,29 +172,48 @@ def write_flax_msgpack(path: str, tree: dict) -> None:
 # --------------------------------------------------------------------------
 
 
-def _tensor(a, hwio: bool = False) -> torch.Tensor:
+#: the value net's top-level modules: 1×1 convs and dense layers
+VALUE_CONVS = ("head_conv", "own_conv")
+VALUE_DENSES = ("dense1", "dense2", "score_dense")
+
+
+def _tensor(a, hwio: bool = False, transpose: bool = False) -> torch.Tensor:
     a = np.asarray(a)
-    return torch.from_numpy(np.array(a.transpose(3, 2, 0, 1) if hwio else a))
+    if hwio:
+        a = a.transpose(3, 2, 0, 1)
+    elif transpose:
+        a = a.T
+    return torch.from_numpy(np.array(a))
 
 
 def params_from_flax(tree: dict) -> dict:
-    """The reference's policy param tree (``{"params": {...}}`` or its
-    inner dict) as numpy → a ``state_dict`` of the port's
-    :class:`~.policy.PolicyNet`."""
+    """The reference's policy or value param tree (``{"params": {...}}``
+    or its inner dict) as numpy → a ``state_dict`` of the port's
+    :class:`~.policy.PolicyNet` or :class:`~.value.ValueNet`."""
     params = tree.get("params", tree)
     sd = {}
-    for name, leaf in params["trunk"].items():
+    for name, leaf in params.get("trunk", {}).items():
         if not name.startswith("conv"):
             raise ValueError(f"unsupported trunk module {name!r} "
                              "(global pooling waits for a later slice)")
         i = int(name[len("conv"):]) - 1
         sd[f"trunk.convs.{i}.weight"] = _tensor(leaf["kernel"], hwio=True)
         sd[f"trunk.convs.{i}.bias"] = _tensor(leaf["bias"])
-    head = params["head"]
-    sd["head.conv.weight"] = _tensor(head["conv"]["kernel"], hwio=True)
-    sd["head.conv.bias"] = _tensor(head["conv"]["bias"])
-    if "position_bias" in head:
-        sd["head.position_bias"] = _tensor(head["position_bias"])
+    if "head" in params:
+        head = params["head"]
+        sd["head.conv.weight"] = _tensor(head["conv"]["kernel"], hwio=True)
+        sd["head.conv.bias"] = _tensor(head["conv"]["bias"])
+        if "position_bias" in head:
+            sd["head.position_bias"] = _tensor(head["position_bias"])
+    for name in VALUE_CONVS + VALUE_DENSES:
+        if name in params:
+            sd[f"{name}.weight"] = _tensor(
+                params[name]["kernel"], hwio=name in VALUE_CONVS,
+                transpose=name in VALUE_DENSES)
+            sd[f"{name}.bias"] = _tensor(params[name]["bias"])
+    unknown = set(params) - {"trunk", "head", *VALUE_CONVS, *VALUE_DENSES}
+    if unknown:
+        raise ValueError(f"unsupported modules {sorted(unknown)}")
     return sd
 
 
@@ -201,19 +224,31 @@ def params_to_flax(state_dict: dict) -> dict:
     def arr(t):
         return t.detach().to("cpu", torch.float32).numpy()
 
-    trunk, head = {}, {}
+    def leaf(t, kind):
+        a = arr(t)
+        if kind == "conv":
+            return a.transpose(2, 3, 1, 0).copy()
+        return a.T.copy() if kind == "dense" else a
+
+    out: dict = {}
     for key, t in state_dict.items():
         parts = key.split(".")
         if parts[0] == "trunk":
-            conv = trunk.setdefault(f"conv{int(parts[2]) + 1}", {})
-            conv["kernel" if parts[3] == "weight" else "bias"] = (
-                arr(t).transpose(2, 3, 1, 0).copy()
-                if parts[3] == "weight" else arr(t))
-        elif parts[1] == "conv":
-            head.setdefault("conv", {})[
-                "kernel" if parts[2] == "weight" else "bias"] = (
-                arr(t).transpose(2, 3, 1, 0).copy()
-                if parts[2] == "weight" else arr(t))
+            conv = out.setdefault("trunk", {}).setdefault(
+                f"conv{int(parts[2]) + 1}", {})
+            conv["kernel" if parts[3] == "weight" else "bias"] = leaf(
+                t, "conv" if parts[3] == "weight" else "bias")
+        elif parts[0] == "head":
+            head = out.setdefault("head", {})
+            if parts[1] == "conv":
+                head.setdefault("conv", {})[
+                    "kernel" if parts[2] == "weight" else "bias"] = leaf(
+                    t, "conv" if parts[2] == "weight" else "bias")
+            else:
+                head["position_bias"] = arr(t)
         else:
-            head["position_bias"] = arr(t)
-    return {"params": {"trunk": trunk, "head": head}}
+            kind = "conv" if parts[0] in VALUE_CONVS else "dense"
+            out.setdefault(parts[0], {})[
+                "kernel" if parts[1] == "weight" else "bias"] = leaf(
+                t, kind if parts[1] == "weight" else "bias")
+    return {"params": out}

@@ -4,7 +4,11 @@ PyTorch version and the wrapper the engine calls.
 Replaces ``rocalphago_tpu/ops/labels.py::pallas_labels`` (the TPU
 kernel) and is the function of ``jaxgo.compute_labels`` (its XLA twin):
 int8 boards ``[B, N]`` → int32 ``[B, N]``, each point the minimum flat
-index of its same-colour group, ``N`` for empty points.
+index of its same-colour group, ``N`` for empty points. A point holds 0
+(empty) or a colour, any value > 0 being one colour and any value < 0
+the other: game boards hold -1, 0 and +1, and area scoring
+(``torchgo.area_scores``) labels its empty regions on boards of 9 where
+the point is empty and 0 elsewhere.
 
 Bound on the card: latency of dependent iterations, not bytes or
 operations -- see the note at the top of ``csrc/labels.cu`` for what

@@ -1,1 +1,2 @@
-"""Host-facing agents over the port's nets."""
+"""Host-facing agents over the port's nets: the policy players and the
+device-search player."""

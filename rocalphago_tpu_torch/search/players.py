@@ -1,6 +1,6 @@
-"""Host-facing agents over the policy net: the port of
-``search/players.py`` for the greedy and probabilistic players (the
-search players wait for the device-search slice)."""
+"""Host-facing agents: the port of ``search/players.py`` for the greedy
+and probabilistic policy players, and the factory that also builds the
+device-search player (:class:`~.device_mcts.DeviceMCTSPlayer`)."""
 
 from __future__ import annotations
 
@@ -81,19 +81,29 @@ class ProbabilisticPolicyPlayer:
         return out
 
 
-def build_player(kind: str, policy_path: str, temperature: float = 0.67,
+def build_player(kind: str, policy_path: str, value_path: str | None = None,
+                 temperature: float = 0.67, playouts: int = 100,
                  device=None):
-    """A ``greedy`` or ``probabilistic`` player over a saved policy
-    spec, on CUDA unless ``device`` names another device."""
+    """A ``greedy``, ``probabilistic`` or ``device-mcts`` player over
+    saved model specs, on CUDA unless ``device`` names another device.
+    ``device-mcts`` needs a value net and searches ``playouts``
+    simulations per move."""
     from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
 
-    if kind not in ("greedy", "probabilistic"):
+    if kind not in ("greedy", "probabilistic", "device-mcts"):
         raise ValueError(f"unknown player kind {kind!r} (this port has "
-                         "greedy and probabilistic)")
+                         "greedy, probabilistic and device-mcts)")
     policy = NeuralNetBase.load_model(policy_path, device=device)
     if kind == "greedy":
         return GreedyPolicyPlayer(policy)
-    return ProbabilisticPolicyPlayer(policy, temperature=temperature)
+    if kind == "probabilistic":
+        return ProbabilisticPolicyPlayer(policy, temperature=temperature)
+    from rocalphago_tpu_torch.search.device_mcts import DeviceMCTSPlayer
+
+    if not value_path:
+        raise ValueError(f"{kind} player needs a value model")
+    value = NeuralNetBase.load_model(value_path, device=device)
+    return DeviceMCTSPlayer(value, policy, n_sim=playouts)
 
 
 def player_board(player) -> int | None:
@@ -102,3 +112,10 @@ def player_board(player) -> int | None:
     if board is None:
         board = getattr(getattr(player, "policy", None), "board", None)
     return board
+
+
+def reset_player(player) -> None:
+    """Clear any per-game search state (a new game starts)."""
+    reset = getattr(player, "reset", None)
+    if callable(reset):
+        reset()

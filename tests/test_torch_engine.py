@@ -168,3 +168,73 @@ def test_relabel_after_place_matches_reference(size):
         # and it is the fill of the new board
         np.testing.assert_array_equal(
             got[0].numpy(), torch_states(size, [after]).labels[0].numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def ref_step_fns(size):
+    cfg = jaxgo.GoConfig(size=size, komi=5.5)
+    with jax.enable_checks(False):
+        fns = (jax.jit(jax.vmap(lambda s, a: jaxgo.step(cfg, s, a))),
+               jax.jit(jax.vmap(lambda s: jaxgo.legal_mask(cfg, s))),
+               jax.jit(jax.vmap(lambda s: jaxgo.area_scores(cfg, s))),
+               jax.jit(jax.vmap(lambda s: jaxgo.winner(cfg, s))),
+               jax.jit(jax.vmap(lambda s: jaxgo.eval_signature(cfg, s))))
+    return cfg, fns
+
+
+def assert_states_equal(got, want, what):
+    for name in jaxgo.GoState._fields:
+        np.testing.assert_array_equal(
+            getattr(got, name).numpy().astype(np.int64),
+            np.asarray(getattr(want, name)).astype(np.int64),
+            err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("size,plies", [(5, 70), (9, 110)])
+def test_step_scores_and_signature_match_reference(size, plies):
+    """Seeded random games stepped in lockstep by both engines from
+    fresh states: every field after every step, the area scores, the
+    winner and the eval signature bit-identical. The action stream has
+    captures, kos, passes (and so ended games, which later actions must
+    leave frozen) and plays on occupied points (a pass)."""
+    cfg, (r_step, r_legal, r_scores, r_winner, r_sig) = ref_step_fns(size)
+    tcfg = torchgo.GoConfig(size=size, komi=5.5)
+    n = size * size
+    batch = 8
+    rng = np.random.default_rng(size)
+    ref = jaxgo.new_states(cfg, batch)
+    got = torchgo.new_states(tcfg, batch, device="cpu")
+    assert_states_equal(got, ref, "new_states")
+    seen_ko = seen_capture = False
+    with jax.enable_checks(False):
+        for ply in range(plies):
+            legal = np.asarray(r_legal(ref))
+            np.testing.assert_array_equal(
+                torchgo.legal_mask(tcfg, got).numpy(), legal)
+            actions = np.empty(batch, np.int32)
+            for i in range(batch):
+                board_moves = np.flatnonzero(legal[i, :n])
+                occupied = np.flatnonzero(np.asarray(ref.board[i]) != 0)
+                r = rng.random()
+                if r < 0.02 + 0.1 * ply / plies or not board_moves.size:
+                    actions[i] = n                       # pass
+                elif r < 0.05 + 0.1 * ply / plies and occupied.size:
+                    actions[i] = rng.choice(occupied)    # degrades to pass
+                else:
+                    actions[i] = rng.choice(board_moves)
+            ref = r_step(ref, actions)
+            got = torchgo.step(tcfg, got, torch.as_tensor(actions))
+            assert_states_equal(got, ref, f"ply {ply}")
+            seen_ko |= bool((np.asarray(ref.ko) >= 0).any())
+            seen_capture |= bool(np.asarray(ref.prisoners).any())
+            b, w = torchgo.area_scores(tcfg, got)
+            rb, rw = r_scores(ref)
+            np.testing.assert_array_equal(b.numpy(), np.asarray(rb))
+            np.testing.assert_array_equal(w.numpy(), np.asarray(rw))
+            np.testing.assert_array_equal(
+                torchgo.winner(tcfg, got).numpy(), np.asarray(r_winner(ref)))
+            np.testing.assert_array_equal(
+                torchgo.eval_signature(tcfg, got).numpy(),
+                np.asarray(r_sig(ref)).astype(np.int64))
+    assert seen_ko and seen_capture
+    assert bool(np.asarray(ref.done).any())

@@ -23,7 +23,7 @@ from rocalphago_tpu_torch.engine import pygo, torchgo
 from rocalphago_tpu_torch.features import Preprocess
 from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
 from rocalphago_tpu_torch.models import CNNPolicy
-from rocalphago_tpu_torch.ops import chase, labels
+from rocalphago_tpu_torch.ops import chase, labels, tree
 from rocalphago_tpu_torch.search.players import GreedyPolicyPlayer
 
 pytestmark = pytest.mark.gpu
@@ -159,3 +159,117 @@ def test_genmove_launches_both_kernels(cuda_device):
              if r.startswith("= ")]
     assert len(moves) == 2 and engine.illegal_from_player == 0
     assert all(vertex_to_move(v, 19) is not None for v in moves)
+
+
+@pytest.mark.parametrize("size", [9, 19, 32])
+def test_labels_kernel_region_boards(cuda_device, size):
+    """Boards as area scoring labels them: 9 where empty, 0 elsewhere."""
+    boards = np.stack([np.asarray(s.board, np.int8).reshape(-1) for s in
+                       random_positions(size, 33, 0, size * size * 3 // 4,
+                                        4)])
+    t = torch.as_tensor(np.where(boards == 0, 9, 0).astype(np.int8),
+                        device=cuda_device)
+    assert torch.equal(labels.labels(t, size), labels.labels_plain(t, size))
+
+
+def fake_search(size, feats):
+    """A device search with the reference's fakes (uniform logits, a
+    stone-count value): exact on any device, so the card's search, with
+    every kernel, must equal the CPU's."""
+    from rocalphago_tpu_torch.search.device_mcts import make_device_mcts
+
+    n = size * size
+
+    def policy(planes):
+        return torch.zeros((planes.shape[0], n), device=planes.device)
+
+    def value(planes):
+        return (planes[..., 0].sum(dim=(1, 2))
+                - planes[..., 1].sum(dim=(1, 2))) / n
+
+    return make_device_mcts(torchgo.GoConfig(size=size), feats,
+                            feats + ("color",), policy, value, n_sim=24,
+                            max_nodes=20)
+
+
+def test_device_search_on_the_card_equals_the_cpu(cuda_device):
+    """The full 48-plane encode (chase kernel), terminal scoring (labels
+    kernel) and the tree walks (tree kernel) on the card give the CPU's
+    tree, slab full and terminal leaves included."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+
+    cfg = torchgo.GoConfig(size=9)
+    states = random_positions(9, 5, 0, 60, 5)
+    played_out = pygo.GameState(size=9)
+    for mv in [None, None]:
+        played_out.do_move(mv)
+    before = {m: m.launches for m in (labels, chase, tree)}
+    trees = []
+    for device in (cuda_device, torch.device("cpu")):
+        search = fake_search(9, DEFAULT_FEATURES)
+        roots = torchgo.seed_labels(cfg, torchgo.from_pygo(
+            cfg, states + [played_out], device=device, with_labels=False))
+        t = search.init(roots)
+        t = search.run_sims(t, 24)
+        trees.append(t)
+    for name in ("prior", "visits", "value_sum", "child", "parent",
+                 "paction", "n_nodes"):
+        assert torch.equal(getattr(trees[0], name).cpu(),
+                           getattr(trees[1], name)), name
+    assert all(m.launches > before[m] for m in before)
+    assert int(trees[1].n_nodes.max()) == 20
+    assert int(trees[1].visits[-1].sum()) == 0       # the finished game
+
+
+@pytest.mark.parametrize("batch", [1, 7, 64])
+def test_tree_kernel_matches_plain(cuda_device, batch):
+    """Descents (free and with a forced first edge) and backups on a
+    random tree slab with terminal nodes, kernel against plain."""
+    rng = np.random.default_rng(batch)
+    m, a = 24, 362
+    prior = rng.random((batch, m, a)) ** 8 * (rng.random((batch, m, a))
+                                              < 0.3)
+    prior = torch.as_tensor(prior / prior.sum(-1, keepdims=True) + 0.0,
+                            dtype=torch.float32)
+    visits = torch.as_tensor(rng.integers(0, 4, (batch, m, a)) * (
+        prior.numpy() > 0), dtype=torch.int32)
+    value_sum = torch.as_tensor(rng.uniform(-1, 1, (batch, m, a)),
+                                dtype=torch.float32) * (visits > 0)
+    # node i > 0 hangs under a random earlier node's random edge
+    parent = torch.full((batch, m), -1, dtype=torch.int32)
+    paction = torch.zeros((batch, m), dtype=torch.int32)
+    child = torch.full((batch, m, a), -1, dtype=torch.int32)
+    for b in range(batch):
+        for i in range(1, m):
+            p = int(rng.integers(0, i))
+            e = int(rng.choice(np.flatnonzero(prior[b, p].numpy() > 0)))
+            if child[b, p, e] < 0:
+                parent[b, i], paction[b, i], child[b, p, e] = p, e, i
+    done = torch.as_tensor(rng.random((batch, m)) < 0.15)
+    root = torch.as_tensor(rng.integers(0, 3, batch), dtype=torch.int32)
+    forced = torch.as_tensor(np.where(rng.random(batch) < 0.5,
+                                      rng.integers(0, a, batch), -1),
+                             dtype=torch.int32)
+    cpu = (prior, visits, value_sum, child, done, root)
+    gpu = tuple(x.to(cuda_device) for x in cpu)
+    for ra in (torch.full((batch,), -1, dtype=torch.int32), forced):
+        before = tree.launches
+        got = tree.descend(*gpu, ra.to(cuda_device), 5.0)
+        assert tree.launches == before + 1
+        want = tree.descend_plain(*cpu, ra, 5.0)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    node, action = want
+    start = torch.where(action >= 0, node, parent[torch.arange(batch),
+                                                  node.long()])
+    start_a = torch.where(action >= 0, action,
+                          paction[torch.arange(batch), node.long()])
+    values = torch.as_tensor(rng.uniform(-1, 1, batch), dtype=torch.float32)
+    gv, gs = tree.backup(visits.clone().to(cuda_device),
+                         value_sum.clone().to(cuda_device),
+                         parent.to(cuda_device), paction.to(cuda_device),
+                         start.to(cuda_device), start_a.to(cuda_device),
+                         values.to(cuda_device))
+    pv, ps = tree.backup_plain(visits.clone(), value_sum.clone(), parent,
+                               paction, start, start_a, values)
+    assert torch.equal(gv.cpu(), pv) and torch.equal(gs.cpu(), ps)

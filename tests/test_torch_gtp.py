@@ -6,7 +6,10 @@ reference's ``run_gtp(..., resilient=False)`` with its module cloned to
 float32: the transcripts must be identical, every byte (the greedy
 player's argmax over logits that agree to ~1e-6, see
 ``tests/test_torch_models.py``). Then one 19×19 genmove on a tiny
-fresh net, the protocol's error replies, and the command line.
+fresh net, the protocol's error replies, and the command line. The time
+commands hand the player the same per-move budgets as the reference
+engine's; the device-search player serves a session from the command
+line on the CPU.
 """
 
 import io
@@ -14,14 +17,16 @@ import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from rocalphago_tpu.interface.gtp import GTPEngine as RefEngine
 from rocalphago_tpu.interface.gtp import run_gtp as ref_run_gtp
 from rocalphago_tpu.models import NeuralNetBase as RefNet
 from rocalphago_tpu.search.players import GreedyPolicyPlayer as RefGreedy
 from rocalphago_tpu_torch.interface import gtp
-from rocalphago_tpu_torch.models import CNNPolicy, NeuralNetBase
+from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
 from rocalphago_tpu_torch.search.players import (
     GreedyPolicyPlayer,
     ProbabilisticPolicyPlayer,
@@ -86,7 +91,9 @@ def test_protocol_replies():
     engine = gtp.GTPEngine(GreedyPolicyPlayer(net))
     assert engine.handle("7 name") == ("=7 rocalphago-tpu-torch\n\n", False)
     assert engine.handle("list_commands")[0].count("\n") > 10
-    assert engine.handle("known_command time_left")[0] == "= false\n\n"
+    assert engine.handle("known_command time_left")[0] == "= true\n\n"
+    assert engine.handle("known_command kgs-genmove_cleanup")[0] == \
+        "= false\n\n"
     assert engine.handle("undo")[0].startswith("? cannot undo")
     assert engine.handle("genmove x")[0].startswith("?")
     assert engine.handle("quit") == ("=\n\n", True)
@@ -111,3 +118,73 @@ def test_command_line_on_the_cpu(monkeypatch, capsys):
     replies = capsys.readouterr().out.split("\n\n")
     assert replies[0] == "=" and replies[1].startswith("= ")
     assert gtp.vertex_to_move(replies[1][2:], 9) is not None
+
+
+class BudgetRecorder:
+    """A stub player that passes and records every move budget."""
+
+    board = 9
+
+    def __init__(self):
+        self.budgets = []
+        self.resets = 0
+
+    def set_move_time(self, seconds):
+        self.budgets.append(seconds)
+
+    def get_move(self, state):
+        return None
+
+    def reset(self):
+        self.resets += 1
+
+
+TIME_SCRIPT = [
+    "boardsize 9", "genmove b", "time_settings 300 30 5", "genmove b",
+    "genmove w", "time_left b 100 0", "genmove b", "time_left w 20 3",
+    "genmove w", "genmove w", "genmove w", "genmove w", "time_left b 0 0",
+    "genmove b", "time_settings 0 10 2", "genmove b", "clear_board",
+    "genmove w", "time_settings 1 0 0", "genmove b", "time_settings -1 0 0",
+    "undo", "genmove b"]
+
+
+def test_time_commands_give_the_reference_budgets():
+    port, ref = BudgetRecorder(), BudgetRecorder()
+    engine = gtp.GTPEngine(port)
+    with jax.enable_checks(False):
+        ref_engine = RefEngine(ref, resilient=False)
+        for cmd in TIME_SCRIPT:
+            got, want = engine.handle(cmd), ref_engine.handle(cmd)
+            assert got[0].split()[0] == want[0].split()[0], (cmd, got, want)
+    assert len(port.budgets) == len(ref.budgets) == 13
+    assert port.budgets[0] is None and ref.budgets[0] is None
+    # the engines' own spend is wall time, so the budgets agree to the
+    # microseconds a stub genmove takes
+    np.testing.assert_allclose(port.budgets[1:], ref.budgets[1:],
+                               rtol=1e-3, atol=1e-3)
+    assert port.budgets[4] == pytest.approx(20 / 3)   # 20 s / 3 stones
+    assert port.budgets[9] == 5.0           # byo-yomi 10 s / 2 stones
+    assert port.resets == 2                 # boardsize, clear_board
+
+
+def test_device_mcts_player_on_the_command_line(tmp_path, monkeypatch,
+                                                capsys):
+    policy = str(tmp_path / "policy.json")
+    value = str(tmp_path / "value.json")
+    CNNPolicy(board=9, layers=2, filters_per_layer=4, seed=1,
+              device="cpu").save_model(policy)
+    CNNValue(board=9, layers=2, filters_per_layer=4, seed=2,
+             device="cpu").save_model(value)
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        "boardsize 9\ngenmove b\ngenmove w\ntime_settings 0 1 1\n"
+        "genmove b\nquit\n"))
+    gtp.main(["--player", "device-mcts", "--policy", policy, "--value",
+              value, "--playouts", "8", "--device", "cpu"])
+    replies = capsys.readouterr().out.split("\n\n")
+    moves = [replies[i] for i in (1, 2, 4)]
+    for r in moves:
+        assert r.startswith("= ") and gtp.vertex_to_move(r[2:], 9)
+    assert replies[3] == "="
+    with pytest.raises(SystemExit, match="needs a value model"):
+        gtp.main(["--player", "device-mcts", "--policy", policy,
+                  "--device", "cpu"])

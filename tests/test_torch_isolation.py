@@ -21,12 +21,14 @@ import torch
 from rocalphago_tpu_torch import resolve_device
 from rocalphago_tpu_torch.features import Preprocess
 from rocalphago_tpu_torch.interface import gtp
-from rocalphago_tpu_torch.models import CNNPolicy, NeuralNetBase
-from rocalphago_tpu_torch.ops import chase, labels
+from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
+from rocalphago_tpu_torch.ops import chase, labels, tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rocalphago_tpu_torch")
 SPEC = os.path.join(ROOT, "results/zero_r5/target_compare/puct/policy.json")
+VALUE_SPEC = os.path.join(ROOT,
+                          "results/zero_r5/target_compare/puct/value.json")
 FORBIDDEN = ("jax", "jaxlib", "flax", "rocalphago_tpu")
 
 
@@ -94,6 +96,11 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gtp.main(["--policy", SPEC])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        CNNValue(board=5, layers=2, filters_per_layer=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gtp.main(["--player", "device-mcts", "--policy", SPEC, "--value",
+                  VALUE_SPEC])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         Preprocess(device="cuda")
 
 
@@ -107,6 +114,17 @@ def test_kernel_wrappers_do_not_fall_back():
         chase.chase(boards, torch.zeros((2, 81), dtype=torch.int32,
                                         device="meta"),
                     torch.zeros((2,), dtype=torch.int32, device="meta"), 9)
+    slab = {k: torch.zeros((2, 4, 82), dtype=d, device="meta")
+            for k, d in (("prior", torch.float32), ("visits", torch.int32),
+                         ("value_sum", torch.float32),
+                         ("child", torch.int32))}
+    rows = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    games = torch.zeros((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tree.descend(*slab.values(), rows.bool(), games, games, 5.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tree.backup(slab["visits"], slab["value_sum"], rows, rows, games,
+                    games, games.float())
 
 
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):
