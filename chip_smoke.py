@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero before the result line:
    three sources, one ``nvcc`` each, in parallel);
 2. tree kernel vs its plain version: search trees grown at 9×9 and
    19×19, batch 1, 7 and 64, with terminal nodes, forced first edges, a
-   slab that fills and roots moved down the tree -- every descent's node
+   slab that fills, the main path's slab (batch 1, 200 nodes, 100
+   simulations) and roots moved down the tree -- every descent's node
    and action and every backup's slabs bit-exact;
 3. labels kernel vs its plain version: 19×19 boards from seeded random
    play (0, 60 and 200 moves), serpentine snakes at 9, 13, 19 and 25,
@@ -50,7 +51,9 @@ Phases, in order; any failure exits non-zero before the result line:
     genmove or simulation) and at batch 8 and 256, beside each plain
     version and each kernel's roofline bound; the greedy genmove p50;
     the device-search genmove p50 and simulations per second, the
-    stages of a simulation, and a profile of one chunk.
+    stages of a simulation, and a profile of one chunk; the tree kernel
+    held against its plain version once more on the tree the GTP
+    session's last search left and on each tree it is timed on.
 
 The last three lines are the card (as ``nvidia-smi`` prints it), the
 kernel table as JSON, and ``{"ok": true, "device": {...}}``.
@@ -463,6 +466,20 @@ def phase_chase(pygo, torchgo, dev):
     return 0
 
 
+def tree_levels(parent, root, node) -> np.ndarray:
+    """Levels from each game's root down to ``node`` (a descent's
+    reads), counted on the host from the ``parent`` slab."""
+    parent, root = parent.cpu().numpy(), root.cpu().numpy()
+    out = []
+    for b, x in enumerate(node.cpu().numpy()):
+        depth = 1
+        while x != root[b] and parent[b, x] >= 0:
+            x = parent[b, x]
+            depth += 1
+        out.append(depth)
+    return np.asarray(out)
+
+
 def grow_trees(T, dev, size: int, batch: int, max_nodes: int, sims: int,
                seed: int, forced: bool = False, c_puct: float = 5.0):
     """Grow ``batch`` search trees of ``(size² + 1)`` actions for ``sims``
@@ -513,13 +530,7 @@ def grow_trees(T, dev, size: int, batch: int, max_nodes: int, sims: int,
               and torch.equal(got[1].cpu(), want[1]),
               f"tree descend differs at {size}x{size}, batch {batch}")
         node, action = want
-        depth = np.zeros(batch, np.int64)
-        for b in range(batch):
-            x = int(node[b])
-            while cpu["parent"][b, x] >= 0:
-                x = int(cpu["parent"][b, x])
-                depth[b] += 1
-        levels.append(depth + 1)
+        levels.append(tree_levels(cpu["parent"], root, node))
         rows = prior_rows(batch)
         term = torch.as_tensor(rng.random(batch) < 0.1)
         start_n, start_a = node.clone(), action.clone()
@@ -558,12 +569,14 @@ def grow_trees(T, dev, size: int, batch: int, max_nodes: int, sims: int,
 def phase_tree(dev):
     """Tree kernel against its plain version on grown trees: 9×9 and
     19×19, batch 1, 7 and 64, terminal nodes, a forced first edge, a
-    slab that fills, and descents from roots moved down the tree."""
+    slab that fills, the main path's slab (batch 1, 200 nodes, 100
+    simulations), and descents from roots moved down the tree."""
     from rocalphago_tpu_torch.ops import tree as T
 
     seen = []
     for size in (9, 19):
-        for batch, m, sims in ((1, 64, 48), (7, 48, 64), (64, 24, 40)):
+        for batch, m, sims in ((1, 64, 48), (1, 200, 100), (7, 48, 64),
+                               (64, 24, 40)):
             for forced, c_puct in ((False, 5.0), (True, 0.5)):
                 cpu, levels = grow_trees(T, dev, size, batch, m, sims,
                                          SEED + size + batch + forced,
@@ -857,22 +870,13 @@ def phase_sync_free(pygo, torchgo, dev, pol, val):
     return tree
 
 
-def build_player_nets(specs):
-    """The full-width nets as the device-search player loads them."""
-    from rocalphago_tpu_torch.search.players import build_player
-
-    return build_player("device-mcts", specs[0], value_path=specs[1])
-
-
-def phase_search_gtp(dev, specs, counters):
-    """The main path: the device-search player built from the saved
-    specs by the GTP player factory, a scripted session at 100
+def phase_search_gtp(player, counters):
+    """The main path: the device-search player that the GTP player
+    factory built from the saved specs, a scripted session at 100
     simulations a move, then moves under ``time_settings 0 1 1`` (the
     deadline armed)."""
     from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
-    from rocalphago_tpu_torch.search.players import build_player
 
-    player = build_player("device-mcts", specs[0], value_path=specs[1])
     for net in (player.policy, player.value):
         check(net.device.type == "cuda" and net.module.dtype == torch.bfloat16,
               f"the device-search nets run on {net.device} in "
@@ -997,44 +1001,52 @@ def sim_stages(torchgo, search, tree, reps: int):
     return {k: v / reps for k, v in sums.items()}
 
 
-def tree_levels(tree, node) -> np.ndarray:
-    """Levels from each game's root down to ``node`` (the descent's
-    reads), counted on the host."""
-    parent = tree.parent.cpu().numpy()
-    root = tree.root.cpu().numpy()
-    out = []
-    for b, x in enumerate(node.cpu().numpy()):
-        depth = 1
-        while x != root[b] and parent[b, x] >= 0:
-            x = parent[b, x]
-            depth += 1
-        out.append(depth)
-    return np.asarray(out)
-
-
-def tree_timing(tree, c_puct: float):
-    """(kernel ms, plain ms, (bound ms, by), levels) of one descent and
-    one backup of the path it found, on the card, for a tree."""
+def check_tree_walks(tree, c_puct: float, what: str):
+    """One descent of ``tree`` and one backup of the path it found,
+    through the tree kernel and through its plain versions on the same
+    card tensors: node, action and both backed-up slabs bit-exact.
+    Returns the descent's arguments, the backup's (on copies of the
+    slabs) and the node reached."""
     from rocalphago_tpu_torch.ops import tree as T
 
-    b, _, a = tree.prior.shape
+    b = tree.prior.shape[0]
     free = torch.full_like(tree.n_nodes, -1)
     args = (tree.prior, tree.visits, tree.value_sum, tree.child,
             tree.states.done, tree.root, free, c_puct)
     node, action = T.descend(*args)
+    want = T.descend_plain(*args)
+    check(torch.equal(node, want[0]) and torch.equal(action, want[1]),
+          f"tree descend differs from plain on {what}")
     ar = torch.arange(b, device=node.device)
     start = torch.where(action >= 0, node,
                         tree.parent[ar, node.long()]).contiguous()
     start_a = torch.where(action >= 0, action,
                           tree.paction[ar, node.long()]).contiguous()
-    values = torch.zeros((b,), dtype=torch.float32, device=node.device)
-    visits, vsum = tree.visits.clone(), tree.value_sum.clone()
-    back = (visits, vsum, tree.parent, tree.paction, start, start_a, values)
+    values = torch.linspace(-1, 1, b, dtype=torch.float32,
+                            device=node.device)
+    back = (tree.visits.clone(), tree.value_sum.clone(), tree.parent,
+            tree.paction, start, start_a, values)
+    plain = (tree.visits.clone(), tree.value_sum.clone()) + back[2:]
+    T.backup(*back)
+    T.backup_plain(*plain)
+    check(torch.equal(back[0], plain[0]) and torch.equal(back[1], plain[1]),
+          f"tree backup differs from plain on {what}")
+    return args, back, node
+
+
+def tree_timing(tree, c_puct: float, what: str):
+    """(kernel ms, plain ms, (bound ms, by), levels) of one descent and
+    one backup of the path it found, on the card, for a tree (checked
+    against the plain versions first)."""
+    from rocalphago_tpu_torch.ops import tree as T
+
+    b, _, a = tree.prior.shape
+    args, back, node = check_tree_walks(tree, c_puct, what)
     ms = (cuda_ms(lambda: T.descend(*args), 200, queued=True)
           + cuda_ms(lambda: T.backup(*back), 200, queued=True))
     plain = (cuda_ms(lambda: T.descend_plain(*args), 5)
              + cuda_ms(lambda: T.backup_plain(*back), 5))
-    levels = tree_levels(tree, node)
+    levels = tree_levels(tree.parent, tree.root, node)
     # descend: each level reads one node's prior, visits and value_sum
     # rows, its child pointer and done flag; backup: each level reads
     # and writes one visit count and value sum and reads parent/paction
@@ -1057,9 +1069,16 @@ def phase_search_timings(torchgo, dev, card, main, tree8):
         "each: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.2f} ms")
     prof = profile_chunk(search, tree)
-    tree_ms, tree_plain, tree_bound, levels = tree_timing(tree,
-                                                          search.c_puct)
-    t8 = tree_timing(tree8, search.c_puct)
+    # the tree the GTP session's last search left (subtree reuse
+    # carries it), at the shape the session launched the kernel on
+    carried = player._carry[3]
+    check_tree_walks(carried, search.c_puct, "the GTP session's tree")
+    tree_ms, tree_plain, tree_bound, levels = tree_timing(
+        tree, search.c_puct, "the main path's slab")
+    t8 = tree_timing(tree8, search.c_puct, "the batch-8 chunk's tree")
+    log(f"tree kernel: descend and backup bit-exact vs plain on the GTP "
+        f"session's tree ({int(carried.n_nodes.sum())} of "
+        f"{carried.prior.shape[1]} nodes) and the trees timed below")
     log(f"tree kernel [{card}]: batch 1 ({int(tree.n_nodes.sum())} nodes, "
         f"{int(levels.sum())} levels) descend + backup {tree_ms:.4f} ms, "
         f"plain {tree_plain:.3f} ms, bound {tree_bound[0]:.6f} ms "
@@ -1133,6 +1152,7 @@ def main() -> int:
         from rocalphago_tpu_torch.ops import chase as C
         from rocalphago_tpu_torch.ops import labels as L
         from rocalphago_tpu_torch.ops import tree as T
+        from rocalphago_tpu_torch.search.players import build_player
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -1149,9 +1169,9 @@ def main() -> int:
     greedy_launches, p50 = phase_gtp(dev, (L, C))
     phase_batched_search(pygo, torchgo, dev)
     specs = model_specs(dev)
-    player = build_player_nets(specs)
+    player = build_player("device-mcts", specs[0], value_path=specs[1])
     tree8 = phase_sync_free(pygo, torchgo, dev, player.policy, player.value)
-    main_path = phase_search_gtp(dev, specs, (L, C, T))
+    main_path = phase_search_gtp(player, (L, C, T))
     rows = phase_timings(pygo, torchgo, dev, card)
     search_rows = phase_search_timings(torchgo, dev, card, main_path, tree8)
     rows[1]["tree"] = search_rows["tree"]

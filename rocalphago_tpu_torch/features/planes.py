@@ -175,16 +175,6 @@ def _one_hot8(value: torch.Tensor, lo: int,
     return F.one_hot(idx, 8).float() * active[..., None].float()
 
 
-def needs_member(features: tuple) -> bool:
-    """Whether these features need ``group_data(with_member=True)`` --
-    callers precomputing a shared ``gd`` for :func:`encode` must match
-    this. Always False: :func:`candidate_info` builds packed bitmaps
-    straight from ``gd.labels``, so no plane reads the dense member
-    rows. Kept as the one place that says so."""
-    del features
-    return False
-
-
 def needs_candidates(features: tuple) -> bool:
     """Whether these features need :func:`candidate_info`."""
     return any(f in ("capture_size", "self_atari_size",

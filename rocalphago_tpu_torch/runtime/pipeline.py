@@ -13,34 +13,30 @@ returns, so the pipeline has nothing to wait for.
 
 from __future__ import annotations
 
-from collections import deque
-
 import torch
-
-#: chunks the host may run ahead of the card
-DEPTH = 1
 
 
 class ChunkPipeline:
-    """A window of at most :data:`DEPTH` dispatched, unfinished chunks
-    on ``device``'s current stream."""
+    """At most one dispatched, unfinished chunk on ``device``'s current
+    stream."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._inflight: deque = deque()
+        self._prev: torch.cuda.Event | None = None
 
     def push(self) -> None:
-        """Mark the end of a dispatched chunk; wait until at most
-        :data:`DEPTH` chunks are unfinished."""
+        """Mark the end of a dispatched chunk; wait until the chunk
+        before it has finished."""
         if self.device.type != "cuda":
             return
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        self._inflight.append(event)
-        while len(self._inflight) > DEPTH:
-            self._inflight.popleft().synchronize()
+        if self._prev is not None:
+            self._prev.synchronize()
+        self._prev = event
 
     def drain(self) -> None:
-        """Wait for every chunk in flight."""
-        while self._inflight:
-            self._inflight.popleft().synchronize()
+        """Wait for the chunk in flight."""
+        if self._prev is not None:
+            self._prev.synchronize()
+            self._prev = None

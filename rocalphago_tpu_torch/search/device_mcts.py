@@ -45,7 +45,7 @@ from rocalphago_tpu_torch.engine.torchgo import (
     step,
     winner,
 )
-from rocalphago_tpu_torch.features.planes import encode, needs_member
+from rocalphago_tpu_torch.features.planes import encode
 from rocalphago_tpu_torch.features.pyfeatures import output_planes
 from rocalphago_tpu_torch.ops import tree as tree_ops
 from rocalphago_tpu_torch.runtime.deadline import Deadline
@@ -143,8 +143,9 @@ class DeviceMCTS:
         moves (the rest filled with the type's minimum first); pass has
         probability 1 exactly when no move is sensible. Values are the
         value net's where live, the terminal outcome where done."""
+        # no plane reads the dense member rows: the encode builds its
+        # candidate bitmaps from the labels
         gd = group_data(self.cfg, states.board,
-                        with_member=needs_member(self.value_features),
                         with_zxor=self.cfg.enforce_superko,
                         labels=states.labels)
         planes = encode(self.cfg, states, self.value_features, gd=gd)
@@ -393,8 +394,7 @@ class DeviceMCTSPlayer:
 
     def __init__(self, value_net, policy_net, n_sim: int = 100,
                  max_nodes: int | None = None, c_puct: float = 5.0,
-                 sim_chunk: int = 8, gumbel: bool = False,
-                 reuse: bool = True):
+                 sim_chunk: int = 8, gumbel: bool = False):
         if gumbel:
             raise NotImplementedError(
                 "the Gumbel root search is not ported yet (a later "
@@ -408,7 +408,6 @@ class DeviceMCTSPlayer:
         self._n_sim = n_sim
         self._max_nodes = max_nodes
         self._c_puct = c_puct
-        self._reuse = reuse
         self._carry = None
         self.reuses = 0
         self._clock = MoveClock()
@@ -501,8 +500,7 @@ class DeviceMCTSPlayer:
             self._clock.move_time if self._clock.rate is not None
             else None)
         t0 = time.monotonic()
-        tree = (self._reused_tree(search, state, komi, root)
-                if self._reuse else None)
+        tree = self._reused_tree(search, state, komi, root)
         if tree is not None:
             self.reuses += 1
         else:
@@ -515,8 +513,7 @@ class DeviceMCTSPlayer:
         visits, _ = search.root_stats(tree)
         counts = visits[0].cpu().numpy()
         action = int(np.argmax(counts))
-        if self._reuse:
-            self._carry = (komi, state.size, state.turns_played, tree)
+        self._carry = (komi, state.size, state.turns_played, tree)
         self.last_deadline_hit = ran < eff
         self.deadline_hits += int(self.last_deadline_hit)
         self._clock.note(skey, ran, time.monotonic() - t0)
