@@ -53,10 +53,37 @@ Phases, in order; any failure exits non-zero before the result line:
     the device-search genmove p50 and simulations per second, the
     stages of a simulation, and a profile of one chunk; the tree kernel
     held against its plain version once more on the tree the GTP
-    session's last search left and on each tree it is timed on.
+    session's last search left and on each tree it is timed on;
+11. policy self-play, this slice's headline path: 19×19, two fresh
+    12 × 128 bf16 policies, batch 256, up to 300 plies in segments of
+    10, stopping when every game is over. An untimed segment; a segment
+    under ``set_sync_debug_mode("error")``; the timed run (games per
+    minute under the reference's metric name, board-plies/s, mean game
+    length, the pipeline's ``host_gap_frac``; chase and labels launched,
+    counts reset just before and read just after); its first 8 games
+    replayed on the CPU port (every action sensible there, the same
+    live rows, boards, done flags and winners); ``winner`` on the card
+    against ``host_winners``; the chase kernel on the lanes of one of
+    its batch-256 encodes and the labels kernel on its final region
+    boards, bit-exact and timed; the stages of a ply and a profile of a
+    segment;
+12. search self-play: the device-search player's nets, batch 8, 32
+    simulations a move, Dirichlet noise (α 0.03, ε 0.25), forced
+    playouts (k 2), recorded targets, 8 plies (plies/s, simulations/s;
+    every target sums to 1; all three kernels launched); the tree kernel
+    with forced playouts bit-exact against its plain version and timed
+    on a grown batch-8 slab and on a batch-256 slab grown from phase
+    11's positions (that one also with ``forced_k`` 0, the PUCT walk);
+13. the self-play CLI (``python -m
+    rocalphago_tpu_torch.interface.selfplay_cli``) on the committed 9×9
+    nets, policy mode and search mode, into ``build/smoke_selfplay``;
+    every SGF parses with the port's reader and replays legally.
 
-The last three lines are the card (as ``nvidia-smi`` prints it), the
-kernel table as JSON, and ``{"ok": true, "device": {...}}``.
+The kernel line's launches are phases 11 and 12 together, its times
+those at their shapes (chase at 1,536 lanes, labels at 256 region
+boards, the tree at batch 8). The last three lines are the card (as
+``nvidia-smi`` prints it), the kernel table as JSON, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -65,6 +92,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +107,15 @@ SEARCH_GENMOVES = 6      # device-search genmoves at 100 simulations
 TIMED_GENMOVES = 4       # then under time_settings 0 1 1
 SEARCH_CHECK_SIMS = 16   # simulations of the batched-vs-alone check
 CHUNK = 8                # simulations per chunk (the player's default)
+SP_BATCH = 256           # policy self-play: games in lockstep
+SP_MAX_MOVES = 300       # the reference's headline game length
+SP_CHUNK = 10            # plies per segment
+SP_REPLAY = 8            # games of the card run replayed on the CPU
+SS_BATCH, SS_SIMS, SS_PLIES = 8, 32, 8     # search self-play
+SS_ALPHA, SS_EPS, SS_FORCED_K = 0.03, 0.25, 2.0
+SS_TREE256_SIMS = 16     # simulations of the batch-256 tree timed
+CLI_TIMEOUT_S = 300
+PUCT_DIR = os.path.join("results", "zero_r5", "target_compare", "puct")
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -1001,7 +1038,7 @@ def sim_stages(torchgo, search, tree, reps: int):
     return {k: v / reps for k, v in sums.items()}
 
 
-def check_tree_walks(tree, c_puct: float, what: str):
+def check_tree_walks(tree, c_puct: float, what: str, forced_k: float = 0.0):
     """One descent of ``tree`` and one backup of the path it found,
     through the tree kernel and through its plain versions on the same
     card tensors: node, action and both backed-up slabs bit-exact.
@@ -1012,7 +1049,7 @@ def check_tree_walks(tree, c_puct: float, what: str):
     b = tree.prior.shape[0]
     free = torch.full_like(tree.n_nodes, -1)
     args = (tree.prior, tree.visits, tree.value_sum, tree.child,
-            tree.states.done, tree.root, free, c_puct)
+            tree.states.done, tree.root, free, c_puct, forced_k)
     node, action = T.descend(*args)
     want = T.descend_plain(*args)
     check(torch.equal(node, want[0]) and torch.equal(action, want[1]),
@@ -1034,14 +1071,14 @@ def check_tree_walks(tree, c_puct: float, what: str):
     return args, back, node
 
 
-def tree_timing(tree, c_puct: float, what: str):
+def tree_timing(tree, c_puct: float, what: str, forced_k: float = 0.0):
     """(kernel ms, plain ms, (bound ms, by), levels) of one descent and
     one backup of the path it found, on the card, for a tree (checked
     against the plain versions first)."""
     from rocalphago_tpu_torch.ops import tree as T
 
     b, _, a = tree.prior.shape
-    args, back, node = check_tree_walks(tree, c_puct, what)
+    args, back, node = check_tree_walks(tree, c_puct, what, forced_k)
     ms = (cuda_ms(lambda: T.descend(*args), 200, queued=True)
           + cuda_ms(lambda: T.backup(*back), 200, queued=True))
     plain = (cuda_ms(lambda: T.descend_plain(*args), 5)
@@ -1068,7 +1105,9 @@ def phase_search_timings(torchgo, dev, card, main, tree8):
     log(f"simulation stages at batch 1 [{card}], host ms with a sync after "
         "each: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.2f} ms")
-    prof = profile_chunk(search, tree)
+    prof = profile_device(lambda: search.simulate(tree), CHUNK,
+                          f"one chunk of {CHUNK} simulations at batch 1",
+                          "simulation")
     # the tree the GTP session's last search left (subtree reuse
     # carries it), at the shape the session launched the kernel on
     carried = player._carry[3]
@@ -1088,18 +1127,18 @@ def phase_search_timings(torchgo, dev, card, main, tree8):
                 tree=(tree_ms, tree_plain, tree_bound))
 
 
-def profile_chunk(search, tree):
-    """Kernel launches and device busy time per simulation over one
-    chunk, from ``torch.profiler``; None where the trace shows no
-    device time."""
+def profile_device(step_fn, units: int, what: str, unit: str):
+    """Kernel launches and device busy time per ``unit`` over ``units``
+    calls of ``step_fn``, from ``torch.profiler``; None where the trace
+    shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(CHUNK):
-            search.simulate(tree)
+        for _ in range(units):
+            step_fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -1108,17 +1147,357 @@ def profile_chunk(search, tree):
     if not kernels or busy <= 0:
         log("profiler: no device time in the trace; launches not measured")
         return None
-    out = dict(launches=len(kernels) / CHUNK, busy_ms=busy / CHUNK,
-               wall_ms=wall / CHUNK)
+    out = dict(launches=len(kernels) / units, busy_ms=busy / units,
+               wall_ms=wall / units)
+    out["idle"] = 1 - out["busy_ms"] / out["wall_ms"]
     top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-    log(f"profiler, one chunk of {CHUNK} simulations at batch 1: "
-        f"{out['launches']:.0f} kernels per simulation, device busy "
-        f"{out['busy_ms']:.3f} of {out['wall_ms']:.2f} ms (idle share "
-        f"{1 - out['busy_ms'] / out['wall_ms']:.3f}, the profiler on); "
-        "top: " + ", ".join(f"{e.key[:40]} x{e.count // CHUNK} "
-                            f"{e.device_time_total / 1e3 / CHUNK:.3f} ms"
-                            for e in top[:6]))
+    log(f"profiler, {what}: {out['launches']:.0f} kernels per {unit}, "
+        f"device busy {out['busy_ms']:.3f} of {out['wall_ms']:.2f} ms "
+        f"(idle share {out['idle']:.3f}, the profiler on); top: "
+        + ", ".join(f"{e.key[:40]} x{e.count // units} "
+                    f"{e.device_time_total / 1e3 / units:.3f} ms"
+                    for e in top[:6]))
     return out
+
+
+# ------------------------------------------------------------ self-play
+
+
+def ply_stages(torchgo, ply, states, t: int, generator, reps: int):
+    """Host milliseconds of each stage of one self-play ply (the stages
+    of ``Ply.__call__``), synchronised after every stage."""
+    from rocalphago_tpu_torch.features.planes import encode
+    from rocalphago_tpu_torch.search import selfplay as S
+
+    cfg = ply.cfg
+    sums: dict = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sums[name] = sums.get(name, 0.0) + (now - t0) * 1e3
+        return now
+
+    swap = t % 2 == 1
+    half = ply.batch // 2
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gd = torchgo.group_data(cfg, states.board, labels=states.labels)
+            t0 = lap("analysis", t0)
+            planes = encode(cfg, states, ply.features, gd=gd)
+            t0 = lap("encode (chase kernel)", t0)
+            rolled = S._half_swap(planes, swap)
+            logits = S._half_swap(torch.cat(
+                [ply.policy_a(rolled[:half]), ply.policy_b(rolled[half:])]),
+                swap)
+            t0 = lap("two forwards", t0)
+            sens = S.sensible_mask(cfg, states, gd)
+            masked = torch.where(sens, logits / ply.temperature,
+                                 torch.finfo(logits.dtype).min)
+            action = ply.sample(masked, sens, generator)
+            t0 = lap("mask + sample", t0)
+            ply.advance(states, action, gd)
+            lap("step", t0)
+    return {k: v / reps for k, v in sums.items()}
+
+
+def replay_on_cpu(torchgo, cfg, features, actions, live, played):
+    """Replay a card run's actions ``[T, B]`` on the CPU port (plain
+    versions): every action of a ply the card played (``played[t]``;
+    the rest are the zero padding after every game ended) sensible
+    there, the same ``live`` rows. Returns the CPU's final states."""
+    from rocalphago_tpu_torch.search import selfplay as S
+
+    n = cfg.num_points
+    b = actions.shape[1]
+    ply = S.Ply(cfg, features, None, None, b, 1.0)
+    st = torchgo.new_states(cfg, b, device="cpu")
+    for t in range(actions.shape[0]):
+        gd = torchgo.group_data(cfg, st.board, labels=st.labels)
+        sens = S.sensible_mask(cfg, st, gd)
+        a = actions[t]
+        at = sens.gather(1, a.clamp(max=n - 1).long()[:, None])[:, 0]
+        ok = torch.where(a < n, at, ~sens.any(dim=1))
+        check(not played[t] or bool(ok.all()),
+              f"replay ply {t}: a card action is not sensible on the CPU")
+        st, lv = ply.advance(st, a, gd)
+        check(torch.equal(lv, live[t]), f"replay ply {t}: live differs")
+    return st
+
+
+def kernel_row(fn, plain_fn, bytes_moved, ops, reps: int = 100):
+    """(kernel ms, plain ms, (bound ms, by)) of one kernel call on the
+    card, CUDA events around back-to-back launches."""
+    return (cuda_ms(fn, reps, queued=True), cuda_ms(plain_fn, 3),
+            bound(bytes_moved, ops))
+
+
+def phase_policy_selfplay(torchgo, dev, card, counters):
+    """Policy self-play at full width, this slice's headline: 19×19,
+    two fresh 12 × 128 bf16 policies, batch 256, up to 300 plies in
+    segments of 10, stopping when every game is over. One untimed run of
+    a segment, one segment with no device→host sync, then the timed
+    run, its first games replayed on the CPU, its winners scored on the
+    host, the chase and labels kernels held against their plain
+    versions on its lanes and region boards, a stage breakdown and a
+    profile of a ply."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.ops import chase as C
+    from rocalphago_tpu_torch.ops import labels as L
+    from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
+    from rocalphago_tpu_torch.search import selfplay as S
+
+    cfg = torchgo.GoConfig(size=SIZE)
+    n = cfg.num_points
+    nets = [CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                      seed=SEED + 20 + i, device=dev) for i in range(2)]
+    for net in nets:
+        check(net.device.type == "cuda"
+              and net.module.dtype == torch.bfloat16,
+              f"a self-play net runs on {net.device} in {net.module.dtype}")
+    args = (cfg, DEFAULT_FEATURES, nets[0].module, nets[1].module, SP_BATCH)
+    gen = torch.Generator(device=dev)
+    warm = S.make_selfplay_chunked(*args, max_moves=SP_CHUNK,
+                                   chunk=SP_CHUNK, device=dev)(
+        gen.manual_seed(SEED))
+    torch.cuda.synchronize()
+    run = S.make_selfplay_chunked(*args, max_moves=SP_MAX_MOVES,
+                                  chunk=SP_CHUNK, device=dev)
+
+    # one segment with no device->host sync, on the warm run's games
+    states = warm.final
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(SP_CHUNK, 2 * SP_CHUNK):
+            states, _, _ = run.ply(states, gen, t)
+    except RuntimeError as e:
+        raise SmokeFailure(f"a host sync inside a self-play segment: "
+                           f"{e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"policy self-play: a segment of {SP_CHUNK} plies at batch "
+        f"{SP_BATCH} ran with no device->host sync")
+
+    # the timed run: the path's launches counted from zero
+    pipe = ChunkPipeline(dev)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = run(gen.manual_seed(SEED + 1), stop_when_done=True, pipeline=pipe)
+    winners = res.winners.cpu()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    num_moves = res.num_moves.cpu()
+    check(res.actions.shape == (SP_MAX_MOVES, SP_BATCH),
+          f"self-play actions {tuple(res.actions.shape)}")
+    for name, k in launches.items():
+        check(k > 0, f"the {name} kernel was not launched by self-play")
+    games_per_min = SP_BATCH * 60.0 / wall
+    board_plies = int(num_moves.sum())
+    plies_run = int(res.live.any(dim=1).sum())
+    log(f"policy self-play [{card}]: {SP_BATCH} games, 19x19 12x128 bf16, "
+        f"{plies_run} plies in {wall:.2f} s: selfplay_19x19_games_per_min "
+        f"(the port's) {games_per_min:.2f}, {board_plies / wall:.1f} "
+        f"board-plies/s, {plies_run / wall:.2f} plies/s, mean game "
+        f"{float(num_moves.float().mean()):.1f} plies "
+        f"({int(res.final.done.sum())} of {SP_BATCH} games over), "
+        f"host_gap_frac {pipe.host_gap_frac:.4f}; launches {launches}")
+
+    # the card's result, replayed on the CPU and scored on the host
+    cpu = replay_on_cpu(torchgo, cfg, DEFAULT_FEATURES,
+                        res.actions[:, :SP_REPLAY].cpu(),
+                        res.live[:, :SP_REPLAY].cpu(),
+                        res.live.any(dim=1).tolist())
+    for name in ("board", "done", "turn", "labels"):
+        check(torch.equal(getattr(res.final, name)[:SP_REPLAY].cpu(),
+                          getattr(cpu, name)),
+              f"replayed games: {name} differs from the card's")
+    check(torch.equal(winners[:SP_REPLAY], torchgo.winner(cfg, cpu)),
+          "replayed games: winners differ")
+    host = S.host_winners(cfg, res.final.board)
+    check(np.array_equal(host, winners.numpy()),
+          f"winner on the card differs from host_winners in "
+          f"{int((host != winners.numpy()).sum())} games")
+    log(f"policy self-play: the first {SP_REPLAY} games replayed on the CPU "
+        "(every action sensible there; the live rows, so num_moves, and "
+        f"boards, done flags and winners equal); winners of all {SP_BATCH} "
+        "== host_winners")
+
+    # the kernels at this path's shapes: lanes of a real batch-256 encode
+    # and the final boards' empty regions
+    final = res.final
+    with LaneRecorder(C) as rec:
+        run.ply.logits(final, plies_run)
+    cb, cl, cp = rec.lanes[0]
+    want_c = check_chase(C, cb, cl, cp, SIZE, f"self-play {len(cp)} lanes")
+    _, rungs = C.chase_plain(cb, cl, cp, SIZE, return_rungs=True)
+    chase_row = kernel_row(
+        lambda: C.chase(cb, cl, cp, SIZE), lambda: C.chase_plain(
+            cb, cl, cp, SIZE), cb.numel() * 5 + cp.numel() * 5,
+        int(rungs.sum()) * n * CHASE_OPS_PER_POINT_RUNG)
+    regions = torch.where(final.board == 0, 9, 0).to(torch.int8)
+    check(torch.equal(L.labels(regions, SIZE), L.labels_plain(regions, SIZE)),
+          "labels kernel differs from plain on the self-play regions")
+    labels_row = kernel_row(
+        lambda: L.labels(regions, SIZE), lambda: L.labels_plain(
+            regions, SIZE), regions.numel() * 5,
+        labels_sweeps(regions) * regions.numel()
+        * LABELS_OPS_PER_POINT_SWEEP)
+    log(f"self-play kernels [{card}]: chase {len(cp)} lanes "
+        f"({int((cp >= 0).sum())} live, {int(want_c.sum())} captured, "
+        f"{int(rungs.sum())} rungs) bit-exact, {chase_row[0]:.4f} ms, plain "
+        f"{chase_row[1]:.3f} ms, bound {chase_row[2][0]:.6f} ms "
+        f"({chase_row[2][1]}); labels on {SP_BATCH} region boards "
+        f"bit-exact, {labels_row[0]:.4f} ms, plain {labels_row[1]:.3f} ms, "
+        f"bound {labels_row[2][0]:.6f} ms ({labels_row[2][1]})")
+
+    stages = ply_stages(torchgo, run.ply, final, plies_run, gen, 3)
+    log(f"self-play ply stages at batch {SP_BATCH} [{card}], host ms with a "
+        "sync after each: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.2f} ms")
+    holder = [final, plies_run]
+
+    def one_ply():
+        holder[0], _, _ = run.ply(holder[0], gen, holder[1])
+        holder[1] += 1
+
+    prof = profile_device(one_ply, SP_CHUNK,
+                          f"a segment of {SP_CHUNK} plies at batch "
+                          f"{SP_BATCH}", "ply")
+    return dict(launches=launches, games_per_min=games_per_min,
+                wall=wall, final=final, stages=stages, profile=prof,
+                chase=chase_row, labels=labels_row)
+
+
+def phase_search_selfplay(torchgo, dev, card, counters, player, states256):
+    """Search self-play: the full-width policy and FCN value nets the
+    device-search player loaded, batch 8, 32 simulations a move in
+    chunks of 8, Dirichlet root noise, forced playouts, recorded
+    targets, 8 plies. Then the tree kernel with forced playouts against
+    its plain version on a grown batch-8 slab and on a batch-256 slab
+    grown from the policy self-play's positions, both timed."""
+    from rocalphago_tpu_torch.search.device_mcts import (
+        make_device_mcts,
+        make_mcts_selfplay,
+    )
+
+    pol, val = player.policy, player.value
+    cfg = pol.cfg
+    run = make_mcts_selfplay(
+        cfg, pol.feature_list, val.feature_list, pol.module, val.module,
+        batch=SS_BATCH, max_moves=SS_PLIES, n_sim=SS_SIMS, sim_chunk=CHUNK,
+        record_visits=True, dirichlet_alpha=SS_ALPHA, noise_frac=SS_EPS,
+        forced_k=SS_FORCED_K, device=dev)
+    # untimed: the searcher's first launches
+    run.search_ply(torchgo.new_states(cfg, SS_BATCH, device=dev))
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    t0 = time.perf_counter()
+    final, actions, live, targets = run(gen, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    for name, k in launches.items():
+        check(k > 0, f"the {name} kernel was not launched by search "
+              "self-play")
+    plies = actions.shape[0]
+    check(plies == SS_PLIES and targets.shape == (
+        SS_PLIES, SS_BATCH, cfg.num_points + 1)
+        and targets.dtype == torch.float32,
+        f"search self-play: {plies} plies, targets "
+        f"{tuple(targets.shape)} {targets.dtype}")
+    sums = targets.sum(-1)[live]
+    check(bool(((sums - 1).abs() < 1e-5).all()),
+          f"a recorded target does not sum to 1: {sums.tolist()}")
+    log(f"search self-play [{card}]: batch {SS_BATCH}, {SS_SIMS} "
+        f"simulations a move, forced_k {SS_FORCED_K}, Dir({SS_ALPHA}) "
+        f"eps {SS_EPS}, {plies} plies in {wall:.2f} s: "
+        f"{plies / wall:.3f} plies/s, {plies * SS_SIMS / wall:.1f} "
+        f"simulations/s ({plies * SS_SIMS * SS_BATCH / wall:.1f} game "
+        f"simulations/s); every target sums to 1; launches {launches}")
+
+    # the tree kernel with forced playouts on grown slabs
+    gamma = torch.as_tensor(np.random.default_rng(SEED + 3).gamma(
+        SS_ALPHA, size=(SS_BATCH, cfg.num_points + 1)),
+        dtype=torch.float32).to(dev)
+    tree8 = run.add_root_noise(run.search.init(final), gamma)
+    tree8, _ = run.search.run_sims_chunked(tree8, CHUNK, owned=True)
+    t8 = tree_timing(tree8, run.search.c_puct, "a batch-8 self-play slab",
+                     SS_FORCED_K)
+    search256 = make_device_mcts(
+        cfg, pol.feature_list, val.feature_list, pol.module, val.module,
+        n_sim=SS_TREE256_SIMS, forced_k=SS_FORCED_K)
+    tree256 = search256.init(states256)
+    tree256, _ = search256.run_sims_chunked(tree256, CHUNK, owned=True)
+    t256 = tree_timing(tree256, search256.c_puct,
+                       "a batch-256 self-play slab", SS_FORCED_K)
+    p256 = tree_timing(tree256, search256.c_puct,
+                       "a batch-256 self-play slab, plain PUCT")
+    log(f"tree kernel, forced_k {SS_FORCED_K} [{card}]: bit-exact vs plain; "
+        f"batch 8 ({int(tree8.n_nodes.sum())} nodes, {int(t8[3].sum())} "
+        f"levels) descend + backup {t8[0]:.4f} ms, plain {t8[1]:.3f} ms, "
+        f"bound {t8[2][0]:.6f} ms; batch 256 ({int(tree256.n_nodes.sum())} "
+        f"nodes, {int(t256[3].sum())} levels) {t256[0]:.4f} ms, plain "
+        f"{t256[1]:.3f} ms, bound {t256[2][0]:.6f} ms ({t256[2][1]}); "
+        f"the same slab with forced_k 0 ({int(p256[3].sum())} levels) "
+        f"{p256[0]:.4f} ms, plain {p256[1]:.3f} ms, bound "
+        f"{p256[2][0]:.6f} ms")
+    return dict(launches=launches, wall=wall, plies=plies,
+                tree8=t8[:3], tree256=t256[:3])
+
+
+def phase_selfplay_cli(pygo):
+    """The self-play CLI as a user runs it, on the committed 9×9 nets:
+    policy mode and search mode, into ``build/``; every SGF parses back
+    with the port's reader and replays legally on the rules oracle."""
+    from rocalphago_tpu_torch.data import sgf
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    policy = os.path.join(root, PUCT_DIR, "policy.json")
+    value = os.path.join(root, PUCT_DIR, "value.json")
+    for mode, games, extra in (
+            ("policy", 16, ["--chunk", "20"]),
+            ("search", 4, ["--search-sims", "16", "--value", value,
+                           "--max-moves", "20", "--dirichlet-alpha",
+                           "0.03"])):
+        out = os.path.join(root, "build", "smoke_selfplay", mode)
+        shutil.rmtree(out, ignore_errors=True)
+        cmd = [sys.executable, "-m",
+               "rocalphago_tpu_torch.interface.selfplay_cli", "--policy",
+               policy, "--games", str(games), "--out", out, "--seed",
+               str(SEED)] + extra
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"selfplay_cli ({mode}) exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(summary["sgf_files"] == games,
+              f"selfplay_cli ({mode}) wrote {summary.get('sgf_files')} SGFs")
+        lengths = []
+        for g in range(games):
+            with open(os.path.join(out, f"selfplay-{g:05d}.sgf")) as f:
+                game = sgf.parse(f.read())
+            st = pygo.GameState(size=game.size, komi=game.komi)
+            for color, move in game.moves:
+                check(st.is_legal(move), f"selfplay_cli ({mode}) game {g}: "
+                      f"illegal {move}")
+                st.do_move(move, color)
+            lengths.append(len(game.moves))
+        check(float(np.mean(lengths)) == summary["mean_moves"],
+              f"selfplay_cli ({mode}): SGF lengths {lengths} against "
+              f"mean_moves {summary['mean_moves']}")
+        log(f"selfplay_cli {mode}: {summary} ({wall:.1f} s with start-up); "
+            f"every SGF parses and replays legally")
 
 
 def labels_sweeps(boards: torch.Tensor) -> int:
@@ -1175,6 +1554,16 @@ def main() -> int:
     rows = phase_timings(pygo, torchgo, dev, card)
     search_rows = phase_search_timings(torchgo, dev, card, main_path, tree8)
     rows[1]["tree"] = search_rows["tree"]
+    sp = phase_policy_selfplay(torchgo, dev, card, (L, C))
+    ss = phase_search_selfplay(torchgo, dev, card, (L, C, T), player,
+                               sp["final"])
+    phase_selfplay_cli(pygo)
+    # this slice's paths: policy self-play (labels, chase) and search
+    # self-play (all three); the kernels timed at their shapes
+    launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
+                for k in ss["launches"]}
+    shapes = {"labels": sp["labels"], "chase": sp["chase"],
+              "tree": ss["tree8"]}
     kernels = []
     for name, src, replaces in (
             ("labels", "rocalphago_tpu_torch/csrc/labels.cu",
@@ -1184,15 +1573,18 @@ def main() -> int:
             ("tree", "rocalphago_tpu_torch/csrc/tree.cu",
              "rocalphago_tpu/search/device_mcts.py:322 and :370 "
              "(lax.while_loop, not a Pallas kernel)")):
-        ms, plain_ms, (bound_ms, bound_by) = rows[1][name]
+        ms, plain_ms, (bound_ms, bound_by) = shapes[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_path["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
     log(f"greedy session launches {greedy_launches}; device-search session "
-        f"launches {main_path['launches']}")
+        f"launches {main_path['launches']}; policy self-play launches "
+        f"{sp['launches']}; search self-play launches {ss['launches']}")
+    log(f"selfplay_19x19_games_per_min (the port's) {sp['games_per_min']:.2f} "
+        f"at batch {SP_BATCH} on {card}")
     log(f"device-search genmove p50 {main_path['p50']:.2f} ms at 100 "
         f"simulations, {main_path['sims_per_s']:.1f} simulations/s on "
         f"{card}")

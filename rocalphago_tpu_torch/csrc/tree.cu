@@ -38,6 +38,16 @@
 // gathers the two per-node scalars of c_puct * p * sqrt(n + 1) first).
 // The backup's float add is __fadd_rn too. Both walks are bounded by M levels (a slab of M nodes
 // is a tree, so no walk is longer).
+//
+// Forced playouts (forced_k > 0, the reference's _select_action_root):
+// at the root of a free descent, the pass that scores the edges also
+// keeps the largest deficit floor - n_a over prior-supported edges,
+// floor = sqrt(p * (N * forced_k)) (N the root's visit total; the order
+// XLA compiles sqrt(forced_k * p * N) to), and a second butterfly takes
+// its argmax, ties to the lowest index. A positive deficit wins over
+// PUCT. Every lane holds the same node, so the root test is uniform
+// across the warp; at forced_k = 0 the deficit is never computed and
+// the walk is the plain PUCT walk.
 
 #include <climits>
 #include <cstdint>
@@ -60,7 +70,7 @@ descend_kernel(const float* __restrict__ prior,
                const int32_t* __restrict__ root_action,
                int32_t* __restrict__ node_out,
                int32_t* __restrict__ action_out, int batch, int max_nodes,
-               int num_actions, float c_puct) {
+               int num_actions, float c_puct, float forced_k) {
   const int b = blockIdx.x * kGamesPerBlock + (threadIdx.x >> 5);
   if (b >= batch) return;  // the whole warp
   const int lane = threadIdx.x & 31;
@@ -74,7 +84,8 @@ descend_kernel(const float* __restrict__ prior,
 
   // the root step: a terminal root is the leaf itself; a forced first
   // edge (root_action >= 0) is taken without selection
-  int node = root[b];
+  const int root_node = root[b];
+  int node = root_node;
   int action = -1;
   const int ra = root_action[b];
   bool stop = D[node];
@@ -101,8 +112,13 @@ descend_kernel(const float* __restrict__ prior,
     const float cs = __fmul_rn(
         __fsqrt_rn(__fadd_rn(static_cast<float>(total), 1.0f)), c_puct);
     const float neg_inf = __int_as_float(kNegInfBits);
+    // forced playouts: only at the root, only when asked (warp-uniform)
+    const bool floors = forced_k > 0.0f && node == root_node;
+    const float nk = __fmul_rn(static_cast<float>(total), forced_k);
     float best = neg_inf;
     int best_a = INT_MAX;
+    float best_d = neg_inf;
+    int best_da = INT_MAX;
     for (int a = lane; a < num_actions; a += 32) {
       const float p = P[row + a];
       const int v = V[row + a];
@@ -114,6 +130,14 @@ descend_kernel(const float* __restrict__ prior,
         best = score;
         best_a = a;
       }
+      if (floors) {
+        const float d =
+            p > 0.0f ? __fsub_rn(__fsqrt_rn(__fmul_rn(p, nk)), nv) : neg_inf;
+        if (d > best_d || (d == best_d && a < best_da)) {
+          best_d = d;
+          best_da = a;
+        }
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -124,7 +148,18 @@ descend_kernel(const float* __restrict__ prior,
         best_a = oa;
       }
     }
-    action = best_a;
+    if (floors) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float od = __shfl_xor_sync(kFull, best_d, off);
+        const int oa = __shfl_xor_sync(kFull, best_da, off);
+        if (od > best_d || (od == best_d && oa < best_da)) {
+          best_d = od;
+          best_da = oa;
+        }
+      }
+    }
+    action = floors && best_d > 0.0f ? best_da : best_a;
     const int nxt = C[row + action];
     if (nxt < 0) break;
     node = nxt;
@@ -168,14 +203,16 @@ backup_kernel(int32_t* __restrict__ visits, float* __restrict__ value_sum,
 
 // prior f32, visits i32, value_sum f32, child i32: [batch, max_nodes,
 // num_actions]; done bool [batch, max_nodes]; root, root_action (-1 =
-// free) i32 [batch]. Writes node_out and action_out (-1 = the walk
-// ended on a terminal node) i32 [batch]. Returns the CUDA error of the
-// launch (0 on success).
+// free) i32 [batch]; forced_k > 0 turns on forced playouts at the root.
+// Writes node_out and action_out (-1 = the walk ended on a terminal
+// node) i32 [batch]. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int rocalphago_tree_descend(
     const void* prior, const void* visits, const void* value_sum,
     const void* child, const void* done, const void* root,
     const void* root_action, void* node_out, void* action_out, int batch,
-    int max_nodes, int num_actions, float c_puct, void* stream) {
+    int max_nodes, int num_actions, float c_puct, float forced_k,
+    void* stream) {
   if (batch <= 0 || max_nodes <= 0 || num_actions <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (batch + kGamesPerBlock - 1) / kGamesPerBlock;
@@ -187,7 +224,7 @@ extern "C" int rocalphago_tree_descend(
       static_cast<const int32_t*>(root),
       static_cast<const int32_t*>(root_action),
       static_cast<int32_t*>(node_out), static_cast<int32_t*>(action_out),
-      batch, max_nodes, num_actions, c_puct);
+      batch, max_nodes, num_actions, c_puct, forced_k);
   return static_cast<int>(cudaGetLastError());
 }
 

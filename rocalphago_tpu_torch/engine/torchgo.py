@@ -597,14 +597,13 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def area_scores(cfg: GoConfig, state: GoState):
-    """Area scores ``(black, white + komi)``, float32 ``[B]`` each:
-    empty regions bordering exactly one colour count for it. The
-    regions are labelled by one :func:`compute_labels` call (one labels
-    kernel launch on the card) over boards holding 9 where the point is
-    empty and 0 elsewhere."""
+def territory(cfg: GoConfig, board: torch.Tensor):
+    """``(terr_b, terr_w)`` bool ``[B, N]``: the empty points whose
+    region borders only black stones, and only white ones. The regions
+    are labelled by one :func:`compute_labels` call (one labels kernel
+    launch on the card) over boards holding 9 where the point is empty
+    and 0 elsewhere."""
     n = cfg.num_points
-    board = state.board
     b = board.shape[0]
     empty = board == 0
     region = compute_labels(cfg, torch.where(empty, 9, 0).to(torch.int8))
@@ -620,10 +619,17 @@ def area_scores(cfg: GoConfig, state: GoState):
         return by_region.gather(1, region)
 
     t_b, t_w = touches(BLACK), touches(WHITE)
-    terr_b = (empty & t_b & ~t_w).sum(dim=1)
-    terr_w = (empty & t_w & ~t_b).sum(dim=1)
-    black = (board == BLACK).sum(dim=1) + terr_b
-    white = (board == WHITE).sum(dim=1) + terr_w
+    return empty & t_b & ~t_w, empty & t_w & ~t_b
+
+
+def area_scores(cfg: GoConfig, state: GoState):
+    """Area scores ``(black, white + komi)``, float32 ``[B]`` each:
+    empty regions bordering exactly one colour count for it
+    (:func:`territory`)."""
+    board = state.board
+    terr_b, terr_w = territory(cfg, board)
+    black = (board == BLACK).sum(dim=1) + terr_b.sum(dim=1)
+    white = (board == WHITE).sum(dim=1) + terr_w.sum(dim=1)
     return black.float(), white.float() + cfg.komi
 
 

@@ -1,1 +1,1 @@
-"""Front ends: the GTP engine."""
+"""Front ends: the GTP engine and the self-play CLI."""

@@ -7,7 +7,8 @@ int8 boards ``[B, N]`` → int32 ``[B, N]``, each point the minimum flat
 index of its same-colour group, ``N`` for empty points. A point holds 0
 (empty) or a colour, any value > 0 being one colour and any value < 0
 the other: game boards hold -1, 0 and +1, and area scoring
-(``torchgo.area_scores``) labels its empty regions on boards of 9 where
+(``torchgo.territory``, behind ``area_scores`` and
+:func:`terminal_labels`) labels its empty regions on boards of 9 where
 the point is empty and 0 elsewhere.
 
 Bound on the card: latency of dependent iterations, not bytes or
@@ -56,6 +57,25 @@ def labels_plain(boards: torch.Tensor, size: int) -> torch.Tensor:
             break
         lab = new
     return lab.int()
+
+
+def terminal_labels(cfg, state):
+    """Auxiliary training targets from a batch of terminal positions
+    (the reference's ``ops/labels.py::terminal_labels``, batched):
+    ``(ownership int8 [B, N], score float32 [B])``, black-positive.
+    Ownership is the area-scoring verdict per point: a stone's colour;
+    for an empty point the colour its region borders when it borders
+    only one, else 0 (dame, regions shared by both). Score is ``black -
+    white - komi``, so ``sign(score) == torchgo.winner``. The regions
+    are one labels launch on the card (``torchgo.territory``)."""
+    from rocalphago_tpu_torch.engine.torchgo import BLACK, WHITE, territory
+
+    board = state.board
+    terr_b, terr_w = territory(cfg, board)
+    ownership = board + terr_b.to(torch.int8) - terr_w.to(torch.int8)
+    black = (board == BLACK).sum(dim=1) + terr_b.sum(dim=1)
+    white = (board == WHITE).sum(dim=1) + terr_w.sum(dim=1)
+    return ownership, black.float() - white.float() - cfg.komi
 
 
 def _check(boards: torch.Tensor, size: int) -> None:

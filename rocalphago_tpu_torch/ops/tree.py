@@ -11,6 +11,13 @@ device→host sync; the kernel keeps the walks on the card.
   pointers until an unexpanded edge or a terminal node: ``(node,
   action)``, ``action == -1`` where the walk ended on a terminal node.
   ``root_action >= 0`` forces the first edge out of the root.
+  ``forced_k > 0`` turns on forced playouts at the root (the
+  reference's ``_select_action_root``): a prior-supported root child
+  short of ``sqrt(forced_k * p * N)`` visits (``N`` the root's visits
+  so far) is taken first, the largest deficit and then the lowest index
+  winning; the root uses PUCT when no child is short. Selection below
+  the root is PUCT either way, and ``forced_k = 0`` is the plain PUCT
+  walk.
 * :func:`backup` -- from the edge ``(start_node, start_action)`` up to
   the root, add one visit and ``-v``, ``+v``, ... (the sign alternating
   at each level) to each edge's value sum, in place. A negative
@@ -56,8 +63,24 @@ def select_plain(prior: torch.Tensor, visits: torch.Tensor,
     return torch.argmax(score, dim=-1)
 
 
+def select_root_plain(prior: torch.Tensor, visits: torch.Tensor,
+                      value_sum: torch.Tensor, c_puct: float,
+                      forced_k: float) -> torch.Tensor:
+    """Root selection under forced playouts (``[..., A]`` → int64
+    ``[...]``): the child with the largest deficit below its floor
+    ``sqrt(forced_k * p * N)`` where one is short, else PUCT. The floor
+    is computed as XLA compiles the reference's
+    ``sqrt(forced_k * p * sum(n))``: ``p * (sum(n) * forced_k)``."""
+    nv = visits.float()
+    floor = torch.sqrt(prior * (nv.sum(dim=-1, keepdim=True) * forced_k))
+    deficit = torch.where(prior > 0, floor - nv, float("-inf"))
+    short = deficit.amax(dim=-1) > 0
+    return torch.where(short, torch.argmax(deficit, dim=-1),
+                       select_plain(prior, visits, value_sum, c_puct))
+
+
 def descend_plain(prior, visits, value_sum, child, done, root, root_action,
-                  c_puct: float):
+                  c_puct: float, forced_k: float = 0.0):
     """Plain version of :func:`descend`: every game steps one level per
     iteration, frozen once stopped; the loop ends on a host test."""
     b = prior.shape[0]
@@ -72,8 +95,12 @@ def descend_plain(prior, visits, value_sum, child, done, root, root_action,
     action = torch.where(forced, root_action, -1)
     while not bool(stop.all()):
         at_term = done[ar, node]
-        sel = select_plain(prior[ar, node], visits[ar, node],
-                           value_sum[ar, node], c_puct)
+        rows = (prior[ar, node], visits[ar, node], value_sum[ar, node])
+        sel = select_plain(*rows, c_puct)
+        if forced_k:
+            sel = torch.where(node == root,
+                              select_root_plain(*rows, c_puct, forced_k),
+                              sel)
         a = torch.where(at_term, -1, sel)
         nxt = torch.where(a >= 0, child[ar, node, a.clamp(min=0)].long(), -1)
         ends = at_term | (nxt < 0)
@@ -141,7 +168,7 @@ def _launch(fn_name: str, argtypes, args) -> None:
 
 
 def descend(prior, visits, value_sum, child, done, root, root_action,
-            c_puct: float):
+            c_puct: float, forced_k: float = 0.0):
     """``(node, action)`` int32 ``[B]`` of each game's descent. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel on
     the current stream, or raises (there is no fallback)."""
@@ -156,7 +183,7 @@ def descend(prior, visits, value_sum, child, done, root, root_action,
            batch=b, device=prior.device)
     if prior.device.type == "cpu":
         return descend_plain(prior, visits, value_sum, child, done, root,
-                             root_action, c_puct)
+                             root_action, c_puct, forced_k)
     if prior.device.type != "cuda":
         raise ValueError(f"tree: unsupported device {prior.device}")
     node = torch.empty((b,), dtype=torch.int32, device=prior.device)
@@ -168,11 +195,11 @@ def descend(prior, visits, value_sum, child, done, root, root_action,
         stream = torch.cuda.current_stream().cuda_stream
         _launch("rocalphago_tree_descend",
                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-                + [ctypes.c_float, ctypes.c_void_p],
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
                 [prior.data_ptr(), visits.data_ptr(), value_sum.data_ptr(),
                  child.data_ptr(), done.data_ptr(), root.data_ptr(),
                  root_action.data_ptr(), node.data_ptr(), action.data_ptr(),
-                 b, m, a, float(c_puct), stream])
+                 b, m, a, float(c_puct), float(forced_k), stream])
     return node, action
 
 

@@ -1,2 +1,3 @@
-"""Serving runtime: the hard move deadline (:mod:`.deadline`) and the
-pipelined chunk dispatch (:mod:`.pipeline`)."""
+"""Runtime: the hard move deadline (:mod:`.deadline`), the pipelined
+chunk dispatch (:mod:`.pipeline`) and atomic file writes
+(:mod:`.atomic`)."""

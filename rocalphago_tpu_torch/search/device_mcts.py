@@ -22,9 +22,14 @@ updates the reference's donated buffers; :meth:`DeviceMCTS.run_sims`
 and ``run_sims_chunked(owned=False)`` copy the tree first, so a
 caller's tree is never changed under it.
 
-Not ported yet: the Gumbel root rule, forced playouts, self-play search,
-per-row komi, the incremental root encode and the serving seam's
-transposition keys (later slices, ``ROADMAP.md``).
+Forced playouts at the root (``forced_k``) and their pruned policy
+target (:meth:`DeviceMCTS.pruned_targets`) serve search self-play
+(:func:`make_mcts_selfplay`: a fresh search per ply, optional Dirichlet
+root noise, the move sampled from the root visits).
+
+Not ported yet: the Gumbel root rule, the playout caps, per-row komi,
+the incremental root encode and the serving seam's transposition keys
+(later slices, ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from rocalphago_tpu_torch.device import resolve_device
 from rocalphago_tpu_torch.engine import torchgo
 from rocalphago_tpu_torch.engine.torchgo import (
     GoConfig,
@@ -51,7 +57,7 @@ from rocalphago_tpu_torch.ops import tree as tree_ops
 from rocalphago_tpu_torch.runtime.deadline import Deadline
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.clock import MoveClock
-from rocalphago_tpu_torch.search.selfplay import sensible_mask
+from rocalphago_tpu_torch.search.selfplay import gumbel_argmax, sensible_mask
 
 
 class SimStep(NamedTuple):
@@ -109,7 +115,7 @@ class DeviceMCTS:
     def __init__(self, cfg: GoConfig, policy_features: tuple,
                  value_features: tuple, policy_fn: Callable,
                  value_fn: Callable, n_sim: int, max_nodes: int,
-                 c_puct: float):
+                 c_puct: float, forced_k: float = 0.0):
         self.cfg = cfg
         self.value_features = tuple(value_features)
         self.policy_fn = policy_fn
@@ -117,6 +123,7 @@ class DeviceMCTS:
         self.n_sim = n_sim
         self.max_nodes = max_nodes
         self.c_puct = float(c_puct)
+        self.forced_k = float(forced_k)
         self.n_policy_planes = output_planes(policy_features)
         self.last_ran = None           # sims the last chunked run ran
 
@@ -192,7 +199,8 @@ class DeviceMCTS:
         forces each game's first edge."""
         node, action = tree_ops.descend(
             tree.prior, tree.visits, tree.value_sum, tree.child,
-            tree.states.done, tree.root, root_actions, self.c_puct)
+            tree.states.done, tree.root, root_actions, self.c_puct,
+            self.forced_k)
         parent_states = _state_at(tree.states, node)
         safe_action = torch.where(action >= 0, action, self.cfg.num_points)
         # a terminal descent steps a pass on a finished game: a no-op
@@ -332,6 +340,31 @@ class DeviceMCTS:
                         vsum / torch.clamp(visits.float(), min=1.0), 0.0)
         return visits, q
 
+    def pruned_targets(self, tree: DeviceTree):
+        """Policy target with the forced playouts pruned back out (the
+        KataGo rule): every root child but the most visited loses its
+        forced floor ``sqrt(forced_k * p * N)``, children left under one
+        visit drop to 0, the most visited keeps all its visits, and the
+        rest is normalised. ``(target f32 [B, A] summing to 1 on a
+        searched row, pruned i32 [B] visits removed)``; at ``forced_k =
+        0`` the target is the normalised visit count. The floor is
+        computed in the order XLA compiles the reference's to."""
+        visits, _ = self.root_stats(tree)
+        ar = torch.arange(tree.root.shape[0], device=tree.root.device)
+        prior = tree.prior[ar, tree.root.long()]
+        nv = visits.float()
+        total = nv.sum(dim=-1, keepdim=True)
+        floor = torch.sqrt(prior * (total * self.forced_k))
+        on_best = (torch.arange(nv.shape[-1], device=nv.device)[None, :]
+                   == torch.argmax(nv, dim=-1)[:, None])
+        kept = torch.clamp(nv - floor, min=0.0)
+        kept = torch.where(kept < 1.0, 0.0, kept)
+        kept = torch.where(on_best, nv, kept)
+        norm = kept.sum(dim=-1, keepdim=True)
+        target = torch.where(norm > 0, kept / torch.clamp(norm, min=1.0),
+                             0.0)
+        return target, (total - norm)[:, 0].int()
+
     @staticmethod
     def advance_root(tree: DeviceTree, actions: torch.Tensor):
         """Move each game's root down its ``actions`` edge (subtree
@@ -347,13 +380,16 @@ def make_device_mcts(cfg: GoConfig, policy_features: tuple,
                      value_features: tuple, policy_fn: Callable,
                      value_fn: Callable, n_sim: int,
                      max_nodes: int | None = None,
-                     c_puct: float = 5.0) -> DeviceMCTS:
+                     c_puct: float = 5.0,
+                     forced_k: float = 0.0) -> DeviceMCTS:
     """Build the searcher. ``policy_fn(planes) -> logits f32 [B, N]``
     and ``value_fn(planes) -> values [B]`` take NHWC float32 planes;
     ``value_features`` must be ``policy_features + ("color",)`` (the
     nested 48/49 layout), so one encode serves both nets, the policy
     reading the leading planes. ``max_nodes=None`` sizes the slab to
-    ``2 * n_sim``."""
+    ``2 * n_sim``. ``forced_k > 0`` turns on forced playouts at the root
+    (:func:`~rocalphago_tpu_torch.ops.tree.descend`); serving keeps
+    0."""
     if max_nodes is None:
         max_nodes = 2 * n_sim
     if tuple(value_features[:-1]) != tuple(policy_features) or \
@@ -363,7 +399,7 @@ def make_device_mcts(cfg: GoConfig, policy_features: tuple,
             "value_features == policy_features + ('color',); got "
             f"{policy_features} / {value_features}")
     return DeviceMCTS(cfg, policy_features, value_features, policy_fn,
-                      value_fn, n_sim, max_nodes, c_puct)
+                      value_fn, n_sim, max_nodes, c_puct, forced_k)
 
 
 class DeviceMCTSPlayer:
@@ -521,3 +557,123 @@ class DeviceMCTSPlayer:
         if action >= cfg.num_points or counts[action] == 0:
             return None                                  # pass
         return divmod(action, cfg.size)
+
+
+def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
+                       value_features: tuple, policy_fn: Callable,
+                       value_fn: Callable, batch: int, max_moves: int,
+                       n_sim: int, max_nodes: int | None = None,
+                       c_puct: float = 5.0, temperature: float = 1.0,
+                       sim_chunk: int = 8, record_visits: bool = False,
+                       dirichlet_alpha: float = 0.0,
+                       noise_frac: float = 0.25, forced_k: float = 0.0,
+                       device=None):
+    """Search self-play, PUCT: every move of every game comes from a
+    fresh search over the batch (:func:`make_device_mcts`, ``n_sim``
+    simulations in chunks of ``sim_chunk``, no subtree reuse), and the
+    move is sampled from the root visits ``∝ visits^(1/temperature)``
+    (argmax at temperature 0). One net plays both colours.
+
+    ``dirichlet_alpha > 0`` mixes root noise into each ply's root priors
+    before the simulations: ``p ← (1 − ε)·p + ε·Dir(α)`` over the
+    prior-supported actions, ``ε = noise_frac``. The gamma draws behind
+    ``Dir(α)`` are made on the host by the caller's
+    ``numpy.random.Generator`` (one ``[B, A]`` draw per ply) and copied
+    to the card; torch's gamma sampler takes no generator.
+
+    ``forced_k > 0``: forced playouts at the root, and the recorded
+    target is :meth:`DeviceMCTS.pruned_targets` (f32); the move is still
+    sampled from the raw visits.
+
+    Returns ``run(generator, noise_rng=None) -> (final GoState, actions
+    i32 [T, B], live bool [T, B])``, and ``targets [T, B, A]`` after
+    them with ``record_visits`` (i32 root visits, or the f32 pruned
+    targets under ``forced_k``). The loop stops after the ply on which
+    every game has ended (a host read of the done flags per ply).
+    ``run.search_ply``, ``run.pick_and_step`` and ``run.add_root_noise``
+    are its parts; ``run.search`` is the searcher."""
+    dev = resolve_device(device)
+    search = make_device_mcts(cfg, policy_features, value_features,
+                              policy_fn, value_fn, n_sim, max_nodes,
+                              c_puct, forced_k=forced_k)
+    n_act = cfg.num_points + 1
+
+    def sample_weighted(weights: torch.Tensor,
+                        generator: torch.Generator) -> torch.Tensor:
+        """An action per game ``∝ weights^(1/temperature)``; argmax at
+        temperature 0."""
+        if temperature > 0:
+            logits = torch.where(
+                weights > 0,
+                torch.log(torch.clamp(weights, min=1e-9)) / temperature,
+                float("-inf"))
+            return gumbel_argmax(logits, generator).int()
+        return torch.argmax(weights, dim=-1).int()
+
+    @torch.no_grad()
+    def pick_and_step(states: GoState, visits: torch.Tensor,
+                      generator: torch.Generator):
+        """``(new states, action i32 [B], live bool [B])``."""
+        action = sample_weighted(visits.float(), generator)
+        return step(cfg, states, action), action, ~states.done
+
+    @torch.no_grad()
+    def add_root_noise(tree: DeviceTree, gamma: torch.Tensor) -> DeviceTree:
+        """Mix ``Dir(α)``, normalised from the gamma draws ``gamma``
+        (f32 ``[B, A]``), into the root priors, in place."""
+        p0 = tree.prior[:, 0]
+        valid = p0 > 0
+        gam = torch.where(valid, gamma, 0.0)
+        dirichlet = gam / torch.clamp(gam.sum(dim=-1, keepdim=True),
+                                      min=1e-12)
+        tree.prior[:, 0] = torch.where(
+            valid, (1.0 - noise_frac) * p0 + noise_frac * dirichlet, 0.0)
+        return tree
+
+    @torch.no_grad()
+    def search_ply(states: GoState, gamma: torch.Tensor | None = None):
+        """One ply's search: ``(root visits i32 [B, A], target)``."""
+        tree = search.init(states)
+        if gamma is not None:
+            add_root_noise(tree, gamma)
+        tree, _ = search.run_sims_chunked(tree, sim_chunk, owned=True)
+        visits, _ = search.root_stats(tree)
+        target = search.pruned_targets(tree)[0] if forced_k else visits
+        return visits, target
+
+    def run(generator: torch.Generator,
+            noise_rng: np.random.Generator | None = None):
+        if dirichlet_alpha > 0 and noise_rng is None:
+            raise ValueError("root noise needs a numpy noise_rng")
+        states = new_states(cfg, batch, device=dev)
+        actions, lives, targets = [], [], []
+        for _ in range(max_moves):
+            gamma = None
+            if dirichlet_alpha > 0:
+                gamma = torch.as_tensor(
+                    noise_rng.gamma(dirichlet_alpha, size=(batch, n_act)),
+                    dtype=torch.float32).to(dev)
+            visits, target = search_ply(states, gamma)
+            states, action, live = pick_and_step(states, visits, generator)
+            actions.append(action)
+            lives.append(live)
+            if record_visits:
+                targets.append(target)
+            if bool(states.done.all()):
+                break
+        out = (states,
+               torch.stack(actions) if actions else torch.zeros(
+                   (0, batch), dtype=torch.int32, device=dev),
+               torch.stack(lives) if lives else torch.zeros(
+                   (0, batch), dtype=torch.bool, device=dev))
+        if record_visits:
+            tdtype = torch.float32 if forced_k else torch.int32
+            out += (torch.stack(targets) if targets else torch.zeros(
+                (0, batch, n_act), dtype=tdtype, device=dev),)
+        return out
+
+    run.search = search
+    run.search_ply = search_ply
+    run.pick_and_step = pick_and_step
+    run.add_root_noise = add_root_noise
+    return run

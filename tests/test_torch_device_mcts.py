@@ -109,10 +109,11 @@ def roots_both(sts=None):
 
 
 @functools.lru_cache(maxsize=None)
-def ref_searcher(n_sim=32, max_nodes=64):
+def ref_searcher(n_sim=32, max_nodes=64, c_puct=5.0, forced_k=0.0):
     return ref_mcts.make_device_mcts(CFG, FEATS, VFEATS, fake_policy,
                                      fake_value, n_sim=n_sim,
-                                     max_nodes=max_nodes, c_puct=5.0)
+                                     max_nodes=max_nodes, c_puct=c_puct,
+                                     forced_k=forced_k)
 
 
 def port_searcher(n_sim=32, max_nodes=64):
@@ -232,10 +233,22 @@ def test_plain_walks_are_the_reference_loops():
     """descend_plain and backup_plain against the reference's
     _descend_one and _backup_one (through its prepare_sim and
     apply_sim), with a forced first edge on some games."""
-    ref = ref_searcher()
+    check_plain_walks()
+
+
+def test_plain_walks_with_forced_playouts():
+    """As above with forced playouts at the root (the reference's
+    _select_action_root): a small c_puct follows the values, so the root
+    floors decide some descents."""
+    check_plain_walks(c_puct=0.3, forced_k=2.0)
+
+
+def check_plain_walks(c_puct=5.0, forced_k=0.0):
+    ref = ref_searcher(c_puct=c_puct, forced_k=forced_k)
     jroots, _ = roots_both()
     b = jroots.board.shape[0]
     rng = np.random.default_rng(9)
+    floors_decided = 0
     with jax.enable_checks(False):
         tree = ref.init(None, None, jroots)
         for sim in range(24):
@@ -248,8 +261,13 @@ def test_plain_walks_are_the_reference_loops():
             done = torch.as_tensor(np.array(tree.states.done))
             node, action = tree_ops.descend_plain(
                 t["prior"], t["visits"], t["value_sum"], t["child"], done,
-                t["root"], torch.as_tensor(forced), 5.0)
+                t["root"], torch.as_tensor(forced), c_puct, forced_k)
             eq(node.numpy(), ctx.node, f"sim {sim}: node")
+            if forced_k:
+                plain = tree_ops.descend_plain(
+                    t["prior"], t["visits"], t["value_sum"], t["child"],
+                    done, t["root"], torch.as_tensor(forced), c_puct)
+                floors_decided += int((plain[0] != node).sum())
             exp = np.array(ctx.expanding)
             eq(action.numpy(), np.where(exp, ctx.safe_action, -1),
                f"sim {sim}: action")
@@ -268,6 +286,7 @@ def test_plain_walks_are_the_reference_loops():
             eq(visits.numpy(), new.visits, f"sim {sim}: visits")
             eq(vsum.numpy(), new.value_sum, f"sim {sim}: value_sum")
             tree = new
+    assert (floors_decided > 0) == bool(forced_k)
 
 
 def test_chunked_equals_monolithic_and_deadline_floor():

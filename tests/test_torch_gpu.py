@@ -221,11 +221,12 @@ def test_device_search_on_the_card_equals_the_cpu(cuda_device):
     assert int(trees[1].visits[-1].sum()) == 0       # the finished game
 
 
-@pytest.mark.parametrize("batch", [1, 7, 64])
-def test_tree_kernel_matches_plain(cuda_device, batch):
-    """Descents (free and with a forced first edge) and backups on a
-    random tree slab with terminal nodes, kernel against plain."""
-    rng = np.random.default_rng(batch)
+def random_slab(batch, seed):
+    """A random tree slab of 19×19 edge rows with terminal nodes: node
+    i > 0 hangs under a random earlier node's random edge. Returns
+    ``(prior, visits, value_sum, child, done, root, parent, paction,
+    forced first edges, rng)``."""
+    rng = np.random.default_rng(seed)
     m, a = 24, 362
     prior = rng.random((batch, m, a)) ** 8 * (rng.random((batch, m, a))
                                               < 0.3)
@@ -235,7 +236,6 @@ def test_tree_kernel_matches_plain(cuda_device, batch):
         prior.numpy() > 0), dtype=torch.int32)
     value_sum = torch.as_tensor(rng.uniform(-1, 1, (batch, m, a)),
                                 dtype=torch.float32) * (visits > 0)
-    # node i > 0 hangs under a random earlier node's random edge
     parent = torch.full((batch, m), -1, dtype=torch.int32)
     paction = torch.zeros((batch, m), dtype=torch.int32)
     child = torch.full((batch, m, a), -1, dtype=torch.int32)
@@ -250,6 +250,16 @@ def test_tree_kernel_matches_plain(cuda_device, batch):
     forced = torch.as_tensor(np.where(rng.random(batch) < 0.5,
                                       rng.integers(0, a, batch), -1),
                              dtype=torch.int32)
+    return (prior, visits, value_sum, child, done, root, parent, paction,
+            forced, rng)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 64])
+def test_tree_kernel_matches_plain(cuda_device, batch):
+    """Descents (free and with a forced first edge) and backups on a
+    random tree slab with terminal nodes, kernel against plain."""
+    (prior, visits, value_sum, child, done, root, parent, paction, forced,
+     rng) = random_slab(batch, batch)
     cpu = (prior, visits, value_sum, child, done, root)
     gpu = tuple(x.to(cuda_device) for x in cpu)
     for ra in (torch.full((batch,), -1, dtype=torch.int32), forced):
@@ -273,3 +283,77 @@ def test_tree_kernel_matches_plain(cuda_device, batch):
     pv, ps = tree.backup_plain(visits.clone(), value_sum.clone(), parent,
                                paction, start, start_a, values)
     assert torch.equal(gv.cpu(), pv) and torch.equal(gs.cpu(), ps)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 256])
+def test_tree_kernel_forced_root_matches_plain(cuda_device, batch):
+    """Forced playouts at the root (forced_k 2, and a large k that
+    makes every root short of its floor): kernel against plain, free
+    descents and forced first edges; the floors decide some descents."""
+    (prior, visits, value_sum, child, done, root, *_, forced,
+     _) = random_slab(batch, 1000 + batch)
+    done[torch.arange(batch), root.long()] = False
+    cpu = (prior, visits, value_sum, child, done, root)
+    gpu = tuple(x.to(cuda_device) for x in cpu)
+    free = torch.full((batch,), -1, dtype=torch.int32)
+    decided = 0
+    for k in (2.0, 50.0):
+        for ra in (free, forced):
+            got = tree.descend(*gpu, ra.to(cuda_device), 0.5, k)
+            want = tree.descend_plain(*cpu, ra, 0.5, k)
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+        floors = tree.descend_plain(*cpu, free, 0.5, k)
+        puct = tree.descend_plain(*cpu, free, 0.5)
+        decided += int(((floors[0] != puct[0])
+                        | (floors[1] != puct[1])).sum())
+    assert decided > 0
+
+
+def test_selfplay_segment_on_the_card_replays_on_the_cpu(cuda_device):
+    """A 10-ply segment of 9×9 self-play on the card (every kernel on
+    the path), its actions replayed on the CPU: every action sensible
+    there, the same final states, live flags and winners."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.search import selfplay
+
+    cfg = torchgo.GoConfig(size=9)
+    nets = [CNNPolicy(board=9, layers=2, filters_per_layer=8, seed=s,
+                      device=cuda_device, dtype=torch.float32)
+            for s in (1, 2)]
+    run = selfplay.make_selfplay_chunked(
+        cfg, DEFAULT_FEATURES, nets[0].module, nets[1].module, batch=8,
+        max_moves=10, chunk=10, device=cuda_device)
+    before = {m: m.launches for m in (labels, chase)}
+    res = run(torch.Generator(device=cuda_device).manual_seed(0))
+    assert all(m.launches > before[m] for m in before)
+    ply = selfplay.Ply(cfg, DEFAULT_FEATURES, None, None, 8, 1.0)
+    st = torchgo.new_states(cfg, 8, device="cpu")
+    for t in range(10):
+        gd = torchgo.group_data(cfg, st.board, labels=st.labels)
+        sens = selfplay.sensible_mask(cfg, st, gd)
+        a = res.actions[t].cpu()
+        at = sens.gather(1, a.clamp(max=80).long()[:, None])[:, 0]
+        ok = torch.where(a < 81, at, ~sens.any(dim=1))
+        assert bool(ok.all()), t
+        st, live = ply.advance(st, a, gd)
+        assert torch.equal(live, res.live[t].cpu())
+    for name, x in zip(torchgo.GoState._fields, st):
+        assert torch.equal(getattr(res.final, name).cpu(), x), name
+    assert torch.equal(res.winners.cpu(), torchgo.winner(cfg, st))
+    assert np.array_equal(selfplay.host_winners(cfg, st.board),
+                          res.winners.cpu().numpy())
+
+
+@pytest.mark.parametrize("size", [9, 19])
+def test_terminal_labels_on_the_card_equal_the_cpu(cuda_device, size):
+    cfg = torchgo.GoConfig(size=size)
+    sts = random_positions(size, 16, 0, size * size, size)
+    before = labels.launches
+    got = labels.terminal_labels(cfg, torchgo.from_pygo(
+        cfg, sts, device=cuda_device))
+    assert labels.launches == before + 1
+    want = labels.terminal_labels(cfg, torchgo.from_pygo(cfg, sts,
+                                                         device="cpu"))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])

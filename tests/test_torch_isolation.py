@@ -20,9 +20,12 @@ import torch
 
 from rocalphago_tpu_torch import resolve_device
 from rocalphago_tpu_torch.features import Preprocess
-from rocalphago_tpu_torch.interface import gtp
+from rocalphago_tpu_torch.engine import torchgo
+from rocalphago_tpu_torch.interface import gtp, selfplay_cli
 from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
 from rocalphago_tpu_torch.ops import chase, labels, tree
+from rocalphago_tpu_torch.search import selfplay
+from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rocalphago_tpu_torch")
@@ -82,7 +85,7 @@ def test_sources_name_no_jax_reference_or_knob():
         assert "ROCALPHAGO_" not in src, path
 
 
-def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -102,6 +105,21 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
                   VALUE_SPEC])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Preprocess(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay_cli.main(["--policy", SPEC, "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay_cli.main(["--policy", SPEC, "--out", str(tmp_path),
+                           "--search-sims", "4", "--value", VALUE_SPEC])
+    cfg = torchgo.GoConfig(size=5)
+    for make in (selfplay.make_selfplay, selfplay.make_selfplay_chunked):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(cfg, ("board",), None, None, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay.play_games(cfg, ("board",), None, None, None, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mcts_selfplay(cfg, ("board",), ("board", "color"), None, None,
+                           batch=2, max_moves=2, n_sim=2)
+    assert not os.listdir(tmp_path)
 
 
 def test_kernel_wrappers_do_not_fall_back():
