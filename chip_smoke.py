@@ -77,17 +77,36 @@ Phases, in order; any failure exits non-zero before the result line:
 13. the self-play CLI (``python -m
     rocalphago_tpu_torch.interface.selfplay_cli``) on the committed 9×9
     nets, policy mode and search mode, into ``build/smoke_selfplay``;
-    every SGF parses with the port's reader and replays legally.
+    every SGF parses with the port's reader and replays legally;
+14. the supervised training path at full width, in ``build/smoke_sl``:
+    the converter's CLI entry (``rocalphago_tpu_torch.data.convert``)
+    on the committed 19×19 games of ``results/sl19_r5/sgf`` (48 planes;
+    the manifest counts every game and one position per non-pass move;
+    labels and chase launched, counts reset just before and read just
+    after; positions/s), its first 2 games converted again by the CPU
+    port, bit for bit; the SL trainer's CLI entry on a fresh seeded
+    12 × 128 bf16 policy saved as a spec (minibatch 16, symmetries on,
+    2 epochs of 50 steps: finite losses, every artifact, the exported
+    ``model.json`` answering GTP genmoves legally); exact resume (killed
+    after epoch 0, and after step 25 with a checkpoint every 10, both
+    resumed through the CLI to the straight run's params bit for bit);
+    the evaluator's ``top1`` equal to the trainer's ``test_accuracy``;
+    the value trainer on a seeded 512-position outcome corpus (12 ×
+    128 FCN bf16; finite MSEs, the export, the evaluator's MSE); the
+    train step at minibatch 16 and 256 with CUDA events (parts, the
+    MFU share, a profile of 20 steps) and the cost of deterministic
+    cuDNN at 256.
 
-The kernel line's launches are phases 11 and 12 together, its times
-those at their shapes (chase at 1,536 lanes, labels at 256 region
-boards, the tree at batch 8). The last three lines are the card (as
+The kernel line's launches are phases 11, 12 and 14's conversion
+together, its times those at self-play's shapes (chase at 1,536 lanes,
+labels at 256 region boards, the tree at batch 8). The last three lines are the card (as
 ``nvidia-smi`` prints it), the kernel table as JSON, and ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -136,6 +155,16 @@ CHASE_OPS_PER_POINT_RUNG = 300
 # (4 hooks, a jump, the change test), over the sweeps labels_sweeps
 # counts for the run's boards.
 LABELS_OPS_PER_POINT_SWEEP = 6
+BF16_FLOPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16
+SL_DIR = os.path.join("build", "smoke_sl")
+SL_GAMES = os.path.join("results", "sl19_r5", "sgf")
+SL_CPU_GAMES = 2         # games the CPU port converts again
+SL_EPOCH_LENGTH = 50     # steps per epoch of the SL runs (2 epochs)
+SL_KILL_AFTER = 25       # steps before the mid-epoch kill
+SL_TIMED_BATCHES = (16, 256)
+VALUE_POSITIONS = 512    # the value trainer's seeded outcome corpus
+VALUE_STEPS = 10
+QUEUED_STEPS = 3         # ~750 launches at minibatch 256 (see sl_timings)
 
 
 class SmokeFailure(RuntimeError):
@@ -1500,6 +1529,428 @@ def phase_selfplay_cli(pygo):
             f"every SGF parses and replays legally")
 
 
+# ------------------------------------------------------ supervised path
+
+
+def sl_argv(spec, corpus, out, epochs=2, *extra):
+    """The SL trainer's command line for this phase's runs (minibatch
+    16, symmetries on: the reference's defaults)."""
+    return [spec, corpus, out, "--epoch-length", str(SL_EPOCH_LENGTH),
+            "--epochs", str(epochs), "--seed", str(SEED), *extra]
+
+
+def final_params(out: str, step: int) -> dict:
+    """The params of ``out``'s checkpoint at ``step``."""
+    path = os.path.join(out, "checkpoints", str(step), "state.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+
+
+def same_params(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def sl_convert(root: str, work: str, counters):
+    """The converter CLI on the committed 19×19 games, the launches of
+    both kernels counted from zero; its first games converted again by
+    the CPU port, bit for bit."""
+    from rocalphago_tpu_torch.data import convert, sgf
+    from rocalphago_tpu_torch.data.pipeline import ShardedDataset
+
+    games = os.path.join(root, SL_GAMES)
+    files = sorted(f for f in os.listdir(games) if f.endswith(".sgf"))
+    moves = non_pass = 0
+    for f in files:
+        with open(os.path.join(games, f)) as fh:
+            g = sgf.parse(fh.read())
+        moves += len(g.moves)
+        non_pass += sum(m is not None for _, m in g.moves)
+    corpus = os.path.join(work, "corpus")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = convert.run_game_converter(["--directory", games, "--outfile",
+                                      corpus])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    with open(f"{corpus}-manifest.json") as f:
+        manifest = json.load(f)
+    check(manifest["num_games"] == len(files) and not manifest["errors"],
+          f"converted {manifest['num_games']} of {len(files)} games: "
+          f"{manifest['errors']}")
+    check(manifest["num_positions"] == non_pass == out["num_positions"],
+          f"{manifest['num_positions']} positions from {non_pass} non-pass "
+          "moves")
+    check(manifest["planes"] == 48 and manifest["board_size"] == SIZE,
+          f"manifest {manifest['planes']} planes at {manifest['board_size']}")
+    for name, k in launches.items():
+        check(k > 0, f"the {name} kernel was not launched by the converter")
+    log(f"convert: {len(files)} games, {moves} moves ({moves - non_pass} "
+        f"passes), {manifest['num_positions']} positions in "
+        f"{manifest['num_shards']} shards, {wall:.2f} s with the shard "
+        f"writes, {manifest['num_positions'] / wall:.1f} positions/s; "
+        f"launches {launches}")
+
+    cpu = convert.GameConverter(device="cpu")
+    ds = ShardedDataset(corpus)
+    row = 0
+    t0 = time.perf_counter()
+    for f in files[:SL_CPU_GAMES]:
+        with open(os.path.join(games, f)) as fh:
+            states, actions = cpu.convert_game(fh.read())
+        got = ds.gather(np.arange(row, row + len(actions)))
+        check(np.array_equal(got[0], states) and np.array_equal(
+            got[1], actions), f"{f}: the card's planes differ from the CPU's")
+        row += len(actions)
+    log(f"convert: the first {SL_CPU_GAMES} games ({row} positions) "
+        f"converted on the CPU equal the card's bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    sl_kernels(games, files[0])
+    return corpus, launches, manifest["num_positions"] / wall
+
+
+def sl_kernels(games: str, first: str):
+    """Both kernels at the converter's shapes: the boards and the lanes
+    of the first encode batch of the first game (256 positions, 4 chase
+    slots each), against their plain versions and timed."""
+    from rocalphago_tpu_torch.data import convert
+    from rocalphago_tpu_torch.ops import chase as C
+    from rocalphago_tpu_torch.ops import labels as L
+
+    boards, inner = [], L.labels
+
+    def record(b, size):
+        boards.append(b.clone())
+        return inner(b, size)
+
+    L.labels = record
+    try:
+        with LaneRecorder(C) as rec, open(os.path.join(games, first)) as f:
+            convert.GameConverter().convert_game(f.read())
+    finally:
+        L.labels = inner
+    b = boards[0]
+    n = b.shape[1]
+    check(torch.equal(L.labels(b, SIZE), L.labels_plain(b, SIZE)),
+          "labels kernel differs from plain on the converter's boards")
+    lab = kernel_row(lambda: L.labels(b, SIZE),
+                     lambda: L.labels_plain(b, SIZE), b.numel() * 5,
+                     labels_sweeps(b) * b.numel()
+                     * LABELS_OPS_PER_POINT_SWEEP)
+    cb, cl, cp = rec.lanes[0]
+    want = check_chase(C, cb, cl, cp, SIZE, f"converter {len(cp)} lanes")
+    _, rungs = C.chase_plain(cb, cl, cp, SIZE, return_rungs=True)
+    ch = kernel_row(lambda: C.chase(cb, cl, cp, SIZE),
+                    lambda: C.chase_plain(cb, cl, cp, SIZE),
+                    cb.numel() * 5 + cp.numel() * 5,
+                    int(rungs.sum()) * n * CHASE_OPS_PER_POINT_RUNG)
+    log(f"converter kernels: labels on {b.shape[0]} boards bit-exact, "
+        f"{lab[0]:.4f} ms, plain {lab[1]:.3f} ms, bound {lab[2][0]:.6f} ms "
+        f"({lab[2][1]}); chase {len(cp)} lanes ({int((cp >= 0).sum())} "
+        f"live, {int(want.sum())} captured, {int(rungs.sum())} rungs) "
+        f"bit-exact, {ch[0]:.4f} ms, plain {ch[1]:.3f} ms, bound "
+        f"{ch[2][0]:.6f} ms ({ch[2][1]})")
+
+
+def sl_train(dev, work: str, corpus: str):
+    """The SL trainer's CLI at full width, then its export answering a
+    GTP genmove; returns the spec and the straight run's directory."""
+    from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.search.players import build_player
+    from rocalphago_tpu_torch.training import sl
+
+    spec = os.path.join(work, "policy.json")
+    CNNPolicy(board=SIZE, layers=12, filters_per_layer=128, seed=SEED + 40,
+              device=dev).save_model(spec)
+    out = os.path.join(work, "straight")
+    t0 = time.perf_counter()
+    sl.run_training(sl_argv(spec, corpus, out))
+    wall = time.perf_counter() - t0
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "the trainer left cuDNN non-deterministic")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    check(len(epochs) == 2, f"{len(epochs)} epoch records")
+    for e in epochs:
+        for k in ("train_loss", "val_loss", "train_accuracy"):
+            check(e.get(k) is not None and np.isfinite(e[k]),
+                  f"epoch {e['epoch']}: {k} = {e.get(k)}")
+    for name in ("metadata.json", "metrics.jsonl", "shuffle.npz",
+                 "model.json", "weights.00000.flax.msgpack",
+                 "weights.00001.flax.msgpack"):
+        check(os.path.exists(os.path.join(out, name)), f"no {name}")
+    with open(os.path.join(out, "metadata.json")) as f:
+        meta = json.load(f)
+    check(np.isfinite(meta["test_accuracy"]), "no test accuracy")
+    log(f"sl: {2 * SL_EPOCH_LENGTH} steps at minibatch 16 on the 19x19 "
+        f"12x128 bf16 policy, symmetries on, {wall:.1f} s with two "
+        f"validations; train loss {epochs[0]['train_loss']:.4f} -> "
+        f"{epochs[1]['train_loss']:.4f}, val accuracy "
+        f"{epochs[1]['val_accuracy']:.4f}, test accuracy "
+        f"{meta['test_accuracy']:.4f}, {epochs[1]['positions_per_s']:.1f} "
+        f"positions/s in the loop")
+
+    player = build_player("greedy", os.path.join(out, "model.json"))
+    check(player.policy.device.type == "cuda", "the export loads off the card")
+    replies = io.StringIO()
+    engine = run_gtp(player, io.StringIO(
+        "boardsize 19\nclear_board\nplay b D4\ngenmove w\ngenmove b\nquit\n"),
+        replies)
+    answers = [r for r in replies.getvalue().split("\n\n") if r.strip()]
+    for reply in answers[3:5]:
+        check(reply.startswith("=") and vertex_to_move(
+            reply[1:].strip(), SIZE) is not None, f"genmove -> {reply!r}")
+    check(engine.illegal_from_player == 0, "the export played illegally")
+    log(f"sl: the exported model.json answers genmove over GTP: "
+        f"{answers[3][1:].strip()}, {answers[4][1:].strip()}")
+    return spec, out, meta
+
+
+def sl_resume(work: str, spec: str, corpus: str, straight: str):
+    """Exact resume on the card: killed after epoch 0, and killed after
+    step 25 with a checkpoint every 10, both resumed through the CLI and
+    ending on the straight run's bits."""
+    from rocalphago_tpu_torch.training import sl
+
+    end = 2 * SL_EPOCH_LENGTH
+    want = final_params(straight, end)
+    out = os.path.join(work, "killed_epoch")
+    sl.run_training(sl_argv(spec, corpus, out, 1))
+    sl.run_training(sl_argv(spec, corpus, out))
+    check(same_params(want, final_params(out, end)),
+          "killed after epoch 0 and resumed: params differ from the "
+          "straight run's")
+
+    out = os.path.join(work, "killed_step")
+    cfg = sl.SLConfig(model_json=spec, train_data=corpus, out_dir=out,
+                      epochs=2, epoch_length=SL_EPOCH_LENGTH, seed=SEED,
+                      save_every=10)
+    trainer = sl.SLTrainer(cfg)
+    step, calls = trainer._train_step, [0]
+
+    def killing_step(state, planes, actions):
+        if calls[0] == SL_KILL_AFTER:
+            raise KeyboardInterrupt("killed")
+        calls[0] += 1
+        return step(state, planes, actions)
+
+    trainer._train_step = killing_step
+    try:
+        trainer.run()
+        check(False, "the killed run did not stop")
+    except KeyboardInterrupt:
+        pass
+    check(trainer.ckpt.latest_step() == 20,
+          f"latest checkpoint {trainer.ckpt.latest_step()} after the kill")
+    del trainer
+    sl.run_training(sl_argv(spec, corpus, out, 2, "--save-every", "10"))
+    check(same_params(want, final_params(out, end)),
+          f"killed after step {SL_KILL_AFTER} and resumed: params differ "
+          "from the straight run's")
+    log(f"sl resume: killed after epoch 0, and after step {SL_KILL_AFTER} "
+        "with a checkpoint every 10 steps; both resumed runs end on the "
+        "straight run's params bit for bit")
+
+
+def sl_evaluate(corpus: str, straight: str, meta: dict):
+    """The evaluator's CLI on the straight run's export and test split;
+    at the trainer's minibatch, so both forwards see the same batch
+    shapes (cuDNN picks its algorithm per shape; in bf16 another
+    summation order can flip a near-tied argmax)."""
+    from rocalphago_tpu_torch.training import evaluate
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        evaluate.main([os.path.join(straight, "model.json"), corpus,
+                       "--split", "test", "--shuffle-npz",
+                       os.path.join(straight, "shuffle.npz"),
+                       "--minibatch", "16"])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    err = abs(res["top1"] - meta["test_accuracy"])
+    check(err <= 1e-6, f"evaluate top1 {res['top1']} against the trainer's "
+          f"test_accuracy {meta['test_accuracy']}")
+    log(f"evaluate: top1 {res['top1']:.6f} on {res['positions']} test "
+        f"positions, the trainer's test_accuracy to {err:.1e}")
+
+
+def sl_value(dev, work: str):
+    """The value trainer's CLI at full width on a seeded outcome corpus
+    in the converter's layout, its export, and the evaluator's MSE."""
+    from rocalphago_tpu_torch.features import VALUE_FEATURES
+    from rocalphago_tpu_torch.models import CNNValue, NeuralNetBase
+    from rocalphago_tpu_torch.training import evaluate, value
+
+    rng = np.random.default_rng(SEED + 50)
+    prefix = os.path.join(work, "outcomes")
+    states = (rng.random((VALUE_POSITIONS, SIZE, SIZE, 49)) < 0.2).astype(
+        np.uint8)
+    z = rng.choice([-1, 1], VALUE_POSITIONS).astype(np.int32)
+    np.savez_compressed(f"{prefix}-00000.npz", states=states, actions=z)
+    with open(f"{prefix}-manifest.json", "w") as f:
+        json.dump({"board_size": SIZE, "komi": 7.5, "planes": 49,
+                   "feature_list": list(VALUE_FEATURES),
+                   "targets": "outcome", "shard_counts": [VALUE_POSITIONS],
+                   "num_positions": VALUE_POSITIONS}, f)
+    spec = os.path.join(work, "value.json")
+    CNNValue(board=SIZE, layers=12, filters_per_layer=128, seed=SEED + 41,
+             device=dev).save_model(spec)
+    out = os.path.join(work, "value")
+    t0 = time.perf_counter()
+    res = value.run_training([spec, prefix, out, "--epochs", "1",
+                              "--epoch-length", str(VALUE_STEPS),
+                              "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    for k in ("train_mse", "val_mse", "test_mse"):
+        check(np.isfinite(res[k]), f"value {k} = {res[k]}")
+    net = NeuralNetBase.load_model(os.path.join(out, "model.json"))
+    v = net.forward(torch.as_tensor(states[:8], device=dev).float())
+    check(v.shape == (8,) and bool(torch.isfinite(v).all()),
+          "the value export's forward")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = evaluate.main([os.path.join(out, "model.json"), prefix,
+                            "--split", "test", "--shuffle-npz",
+                            os.path.join(out, "shuffle.npz")])
+    check(np.isfinite(ev["mse"]), f"evaluate mse {ev['mse']}")
+    log(f"value: {VALUE_STEPS} steps at minibatch 32 on the 19x19 12x128 "
+        f"bf16 FCN value net ({wall:.1f} s), train mse "
+        f"{res['train_mse']:.4f}, test mse {res['test_mse']:.4f}; "
+        f"evaluate mse {ev['mse']:.4f} on {ev['positions']} positions")
+
+
+def conv_flops(module) -> tuple[float, float]:
+    """(forward, forward + backward) FLOPs per position of the net's
+    convolutions: 2·k²·Cin·Cout per point forward; backward twice that,
+    less the first layer's input gradient, which no one needs."""
+    convs = [m for m in module.modules() if isinstance(m, torch.nn.Conv2d)]
+    fwd = [2.0 * m.weight.numel() * SIZE * SIZE for m in convs]
+    return sum(fwd), 3 * sum(fwd) - fwd[0]
+
+
+def spread_ms(fn, queued: bool = False, repeats: int = 5, reps: int = 30):
+    """(median, min, max) of ``repeats`` :func:`cuda_ms` readings."""
+    xs = sorted(cuda_ms(fn, reps, queued) for _ in range(repeats))
+    return xs[len(xs) // 2], xs[0], xs[-1]
+
+
+def sl_timings(dev, card):
+    """The SL train step at minibatch 16 and 256: CUDA events around the
+    step as it runs (median of 5 readings of 30 steps) and with the
+    card parked until the host has queued every step (the card's time
+    alone), around its parts, positions/s, the MFU share against the
+    dense bf16 peak, a profile of 20 steps, and the cost of
+    deterministic cuDNN at 256 on the card's time alone (deterministic,
+    not, not, deterministic, three times over). The card's time alone
+    queues only ``QUEUED_STEPS`` steps behind the spin: a deeper queue
+    can fill the driver's launch queue, and then the host's pace comes
+    back into the reading."""
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.training import sl
+    from rocalphago_tpu_torch.training.symmetries import (
+        random_transform_batch,
+    )
+
+    net = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                    seed=SEED + 42, device=dev)
+    module = net.module
+    fwd_flops, step_flops = conv_flops(module)
+    cfg = sl.SLConfig()
+    opt, lr_at = sl.make_optimizer(cfg, module.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = sl.TrainState(module, opt, gen)
+    step = sl.make_train_step(module, opt, lr_at, SIZE, True)
+    rng = np.random.default_rng(SEED + 60)
+    out = {}
+    for b in SL_TIMED_BATCHES:
+        host = torch.as_tensor(rng.random((b, SIZE, SIZE, 48)) < 0.2,
+                               dtype=torch.uint8).pin_memory()
+        host_a = torch.as_tensor(rng.integers(0, SIZE * SIZE, b),
+                                 dtype=torch.int32).pin_memory()
+        planes, actions = host.to(dev), host_a.to(dev)
+        pf = planes.float()
+
+        def fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            sl.policy_loss_fn(module, pf, actions)[0].backward()
+
+        fwd_bwd()
+        parts = {
+            "h2d": lambda: (host.to(dev, non_blocking=True),
+                            host_a.to(dev, non_blocking=True)),
+            "symmetry": lambda: random_transform_batch(gen, pf, actions,
+                                                       SIZE),
+            "fwd+bwd": fwd_bwd,
+            "optimizer": lambda: sl.apply_update(opt, 1e-9),
+        }
+        parts = {k: spread_ms(f)[0] for k, f in parts.items()}
+
+        def run_step():
+            step(state, planes, actions)
+
+        ms, lo, hi = spread_ms(run_step)
+        alone = spread_ms(run_step, queued=True, reps=QUEUED_STEPS)[0]
+        wall = wall_ms(run_step, 30)
+        prof = profile_device(run_step, 20,
+                              f"SL train step at minibatch {b}", "step")
+        mfu = b * step_flops / (ms * 1e-3) / BF16_FLOPS_PER_S
+        out[b] = dict(ms=ms, wall=wall, parts=parts, prof=prof, mfu=mfu,
+                      alone=alone)
+        log(f"sl step, minibatch {b}: {ms:.3f} ms on the card (median; "
+            f"{lo:.3f}-{hi:.3f}; {wall:.3f} ms host-synchronised; the "
+            f"card's time alone {alone:.3f} ms), {b / ms * 1e3:.1f} "
+            f"positions/s; parts (medians) [" + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in parts.items())
+            + f"]; MFU share {mfu:.4f}, on the card's time alone "
+            f"{mfu * ms / alone:.4f} ({step_flops / 1e9:.3f} GFLOP a "
+            f"position forward + backward, {fwd_flops / 1e9:.3f} forward, "
+            f"against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s) on {card}")
+    b = SL_TIMED_BATCHES[-1]
+    host = torch.as_tensor(rng.random((b, SIZE, SIZE, 48)) < 0.2,
+                           dtype=torch.uint8, device=dev)
+    acts = torch.as_tensor(rng.integers(0, SIZE * SIZE, b), device=dev)
+    det = {True: [], False: []}
+    for flag in (True, False, False, True) * 3:
+        torch.backends.cudnn.deterministic = flag
+        det[flag].append(cuda_ms(lambda: step(state, host, acts),
+                                 QUEUED_STEPS, queued=True))
+    torch.backends.cudnn.deterministic = True
+    on, off = (float(np.median(det[f])) for f in (True, False))
+    log(f"sl step, minibatch {b}, the card's time alone: deterministic "
+        f"cuDNN " + " / ".join(f"{x:.3f}" for x in det[True]) + " ms, not "
+        + " / ".join(f"{x:.3f}" for x in det[False]) + " ms; cost of the "
+        f"medians {on / off - 1:+.3f} on {card}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(f"card after the step timings (SM clock, power, temperature): "
+        f"{smi.stdout.strip()}")
+    check(all(np.isfinite(v["ms"]) for v in out.values()), "timings")
+    return out
+
+
+def phase_supervised(dev, card, counters):
+    """The supervised training path at full width (phase 14)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, SL_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    corpus, launches, rate = sl_convert(root, work, counters)
+    spec, straight, meta = sl_train(dev, work, corpus)
+    sl_resume(work, spec, corpus, straight)
+    sl_evaluate(corpus, straight, meta)
+    sl_value(dev, work)
+    timings = sl_timings(dev, card)
+    log(f"supervised phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "positions_per_s": rate,
+            "timings": timings}
+
+
 def labels_sweeps(boards: torch.Tensor) -> int:
     """Sweeps the hook-and-jump fill needs on these boards (the same
     iteration the kernel runs, counted on the plain version's loop)."""
@@ -1558,10 +2009,12 @@ def main() -> int:
     ss = phase_search_selfplay(torchgo, dev, card, (L, C, T), player,
                                sp["final"])
     phase_selfplay_cli(pygo)
-    # this slice's paths: policy self-play (labels, chase) and search
-    # self-play (all three); the kernels timed at their shapes
+    sv = phase_supervised(dev, card, (L, C))
+    # the launches of the paths of PRs 4 and 5: policy self-play
+    # (labels, chase), search self-play (all three) and the converter
+    # (labels, chase); the kernels timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
-                for k in ss["launches"]}
+                + sv["launches"].get(k, 0) for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
     kernels = []
@@ -1580,7 +2033,7 @@ def main() -> int:
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
-    log(f"greedy session launches {greedy_launches}; device-search session "
+    log(f"device-search session "
         f"launches {main_path['launches']}; policy self-play launches "
         f"{sp['launches']}; search self-play launches {ss['launches']}")
     log(f"selfplay_19x19_games_per_min (the port's) {sp['games_per_min']:.2f} "
@@ -1588,6 +2041,13 @@ def main() -> int:
     log(f"device-search genmove p50 {main_path['p50']:.2f} ms at 100 "
         f"simulations, {main_path['sims_per_s']:.1f} simulations/s on "
         f"{card}")
+    log(f"greedy session launches {greedy_launches}; converter launches "
+        f"{sv['launches']}")
+    log(f"SGF conversion {sv['positions_per_s']:.1f} positions/s; SL train "
+        "step " + ", ".join(
+            f"{t['ms']:.3f} ms at minibatch {b} ({b / t['ms'] * 1e3:.1f} "
+            f"positions/s, MFU share {t['mfu']:.4f})"
+            for b, t in sv["timings"].items()) + f" on {card}")
     log(f"genmove p50 {p50:.2f} ms on {card}; smoke took "
         f"{time.monotonic() - t0:.0f} s")
     print(card)

@@ -1,8 +1,8 @@
 """Minimal SGF (Smart Game Format) reader/writer, host-side.
 
-A copy of what the self-play CLI needs from the reference package's
-``data/sgf.py``: :class:`SGFGame`, :func:`parse`, :func:`render` and
-:func:`from_moves`. Only the subset of SGF needed for Go game records
+A copy of what the self-play CLI and the converter need from the
+reference package's ``data/sgf.py``: :class:`SGFGame`, :func:`parse`,
+:func:`replay`, :func:`render` and :func:`from_moves`. Only the subset of SGF needed for Go game records
 is implemented: one gametree, ``SZ/KM/HA/RE`` headers, ``AB/AW`` setup
 stones, ``B/W`` move nodes, pass as ``[]`` or ``[tt]`` (boards ≤ 19).
 
@@ -16,7 +16,10 @@ import re
 import string
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from rocalphago_tpu_torch.engine import pygo
+from rocalphago_tpu_torch.engine.zobrist import position_table
 
 _LETTERS = string.ascii_lowercase
 
@@ -136,6 +139,41 @@ def parse(text: str) -> SGFGame:
         else:
             game.properties.setdefault(ident, values[0])
     return game
+
+
+def replay(game: SGFGame, enforce_superko: bool = False):
+    """Build the initial GameState for ``game`` and yield
+    ``(state, move, player)`` before each move is applied — the
+    reference's ``sgf_iter_states`` contract. The caller may encode
+    ``state`` and then the generator plays ``move``."""
+    st = pygo.GameState(size=game.size, komi=game.komi,
+                        enforce_superko=enforce_superko)
+    if game.setup_black and not game.setup_white:
+        st.place_handicaps(game.setup_black)
+    elif game.setup_black or game.setup_white:
+        # free setup (AB+AW): stones get age 0, same as handicaps
+        for p in game.setup_black:
+            st.board[p] = pygo.BLACK
+            st.stone_ages[p] = 0
+        for p in game.setup_white:
+            st.board[p] = pygo.WHITE
+            st.stone_ages[p] = 0
+        # re-derive the carried hash from the raw setup edits, then
+        # restart the superko history at the setup position
+        zob = position_table(st.size)
+        h = np.zeros(2, np.uint32)
+        for p in game.setup_black:
+            h = h ^ zob[p[0] * st.size + p[1], 0]
+        for p in game.setup_white:
+            h = h ^ zob[p[0] * st.size + p[1], 1]
+        st.zobrist_hash = h
+        st._hash_history = dict.fromkeys([h.tobytes()])
+    if game.moves:
+        # the record's first move decides whose turn it is after setup
+        st.current_player = game.moves[0][0]
+    for color, move in game.moves:
+        yield st, move, color
+        st.do_move(move, color)
 
 
 def render(game: SGFGame, app: str = "rocalphago_tpu_torch") -> str:

@@ -174,8 +174,9 @@ class NeuralNetBase:
 
     # ------------------------------------------------------ spec save/load
 
-    def save_model(self, json_file: str):
-        """Write the JSON spec and the weights beside it."""
+    def save_model(self, json_file: str, weights_file: str | None = None):
+        """Write the JSON spec and the weights (beside it unless
+        ``weights_file`` names the file)."""
         spec = {
             "class": type(self).__name__,
             "format": SPEC_FORMAT,
@@ -183,7 +184,8 @@ class NeuralNetBase:
             "board": self.board,
             "kwargs": self.spec_kwargs,
         }
-        weights_file = os.path.splitext(json_file)[0] + ".flax.msgpack"
+        if weights_file is None:
+            weights_file = os.path.splitext(json_file)[0] + ".flax.msgpack"
         spec["weights_file"] = os.path.relpath(
             weights_file, os.path.dirname(json_file) or ".")
         # weights first: a crash between the two never leaves a spec

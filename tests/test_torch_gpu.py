@@ -357,3 +357,92 @@ def test_terminal_labels_on_the_card_equal_the_cpu(cuda_device, size):
                                                          device="cpu"))
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+# ------------------------------------------------------------ training
+
+
+def sl_step_run(device, steps, seed=0, dtype=torch.float32):
+    """``steps`` SL train steps (symmetries on, momentum, decay) from
+    the same seeded 19×19 12 × 32 policy on ``device``; the losses and
+    the final params on the CPU."""
+    from rocalphago_tpu_torch.training import sl
+
+    net = CNNPolicy(board=19, layers=12, filters_per_layer=32, seed=seed,
+                    device=device, dtype=dtype)
+    cfg = sl.SLConfig(learning_rate=0.01, momentum=0.9, decay=0.1)
+    opt, lr_at = sl.make_optimizer(cfg, net.module.parameters())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = sl.TrainState(net.module, opt, gen)
+    step = sl.make_train_step(net.module, opt, lr_at, 19, True)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for _ in range(steps):
+        planes = torch.as_tensor(
+            rng.random((16, 19, 19, 48)) < 0.2, dtype=torch.uint8)
+        actions = torch.as_tensor(rng.integers(0, 362, 16), dtype=torch.int32)
+        state, m = step(state, planes.to(device), actions.to(device),
+                        t=torch.arange(16, device=device) % 8)
+        losses.append(float(m["loss"]))
+    return losses, {k: v.cpu() for k, v in net.module.state_dict().items()}
+
+
+def test_sl_step_on_the_card_equals_the_cpu(cuda_device):
+    """Float32 with TF32 off: summation order only, the forward
+    tolerance of chip_smoke.py's phase 6 (1e-3 absolute + 1e-4
+    relative) on the loss and on every parameter after 2 steps."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = sl_step_run(cuda_device, 2)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    cpu = sl_step_run("cpu", 2)
+    np.testing.assert_allclose(card[0], cpu[0], atol=1e-3, rtol=1e-4)
+    for k in cpu[1]:
+        np.testing.assert_allclose(card[1][k].numpy(), cpu[1][k].numpy(),
+                                   atol=1e-3, rtol=1e-4, err_msg=k)
+
+
+def test_sl_steps_on_the_card_repeat_bit_for_bit(cuda_device):
+    """Deterministic cuDNN (as the trainer sets it): two runs of 5 bf16
+    steps with generator draws end on the same bits."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        a = sl_step_run(cuda_device, 5, dtype=torch.bfloat16)
+        b = sl_step_run(cuda_device, 5, dtype=torch.bfloat16)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    assert a[0] == b[0]
+    for k in a[1]:
+        assert torch.equal(a[1][k], b[1][k]), k
+
+
+def test_device_prefetch_on_the_card_stages_every_batch(cuda_device):
+    """50 batches through the side-stream stager, each consumed by a
+    kernel queued right after it is handed out: every one equal to its
+    host copy."""
+    from rocalphago_tpu_torch.data.pipeline import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 2, (256, 19, 19, 48)).astype(np.uint8),
+             rng.integers(0, 361, 256).astype(np.int32)) for _ in range(50)]
+    sums = []
+    for planes, actions in device_prefetch(iter(host), cuda_device):
+        assert planes.device.type == "cuda"
+        # read on the consumer stream before any host sync
+        sums.append((planes.sum(dtype=torch.int64),
+                     actions.sum(dtype=torch.int64), planes.clone()))
+    assert len(sums) == 50
+    for (p, a, copy), (hp, ha) in zip(sums, host):
+        assert int(p) == int(hp.sum(dtype=np.int64))
+        assert int(a) == int(ha.sum(dtype=np.int64))
+        assert np.array_equal(copy.cpu().numpy(), hp)

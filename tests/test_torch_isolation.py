@@ -26,6 +26,8 @@ from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
 from rocalphago_tpu_torch.ops import chase, labels, tree
 from rocalphago_tpu_torch.search import selfplay
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
+from rocalphago_tpu_torch.data import convert
+from rocalphago_tpu_torch.training import evaluate, sl, value
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rocalphago_tpu_torch")
@@ -120,6 +122,33 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
         make_mcts_selfplay(cfg, ("board",), ("board", "color"), None, None,
                            batch=2, max_moves=2, n_sim=2)
     assert not os.listdir(tmp_path)
+
+
+def test_training_entry_points_need_a_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    games = os.path.join(ROOT, "tests", "test_data")
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.GameConverter(board_size=9)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.run_game_converter(["--directory", games, "--outfile",
+                                    out, "--size", "9"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sl.run_training([SPEC, out, out])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sl.SLTrainer(sl.SLConfig(model_json=SPEC, train_data=out,
+                                 out_dir=out))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        value.run_training([VALUE_SPEC, out, out])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main([SPEC, out])
+    assert not os.listdir(tmp_path)
+    # the same entry points run when the CPU is named
+    res = convert.run_game_converter(
+        ["--directory", games, "--outfile", out + "/c", "--size", "9",
+         "--device", "cpu"])
+    assert res["num_games"] == 5
 
 
 def test_kernel_wrappers_do_not_fall_back():
