@@ -36,6 +36,14 @@ from rocalphago_tpu_torch.features import DEFAULT_FEATURES, Preprocess
 # so the batch only bounds the encoder's working memory
 _ENCODE_BATCH = 256
 
+# the reference converter's ladder reader: rungs per read, candidate
+# lanes per plane and live chases per lane. Preprocess defaults to 6
+# chase slots; a corpus read with another count differs in its ladder
+# planes, so the converter pins the reference's values.
+LADDER_DEPTH = 40
+LADDER_LANES = 16
+LADDER_CHASE_SLOTS = 4
+
 
 def pack_states(cfg: GoConfig, boards, turns, kos, steps, ages,
                 device) -> GoState:
@@ -69,16 +77,15 @@ class GameConverter:
     on CUDA unless ``device`` names another device."""
 
     def __init__(self, feature_list=DEFAULT_FEATURES, board_size: int = 19,
-                 ladder_depth: int = 40, ladder_lanes: int = 16,
-                 ladder_chase_slots: int = 4, device=None):
+                 device=None):
         self.board_size = board_size
         self.device = resolve_device(device)
         self.cfg = GoConfig(size=board_size, enforce_superko=False,
                             max_history=8)
         self.pre = Preprocess(feature_list, cfg=self.cfg,
-                              ladder_depth=ladder_depth,
-                              ladder_lanes=ladder_lanes,
-                              ladder_chase_slots=ladder_chase_slots,
+                              ladder_depth=LADDER_DEPTH,
+                              ladder_lanes=LADDER_LANES,
+                              ladder_chase_slots=LADDER_CHASE_SLOTS,
                               device=self.device)
         self.feature_list = tuple(feature_list)
 

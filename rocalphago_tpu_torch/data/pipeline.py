@@ -85,12 +85,10 @@ def load_hdf5(path: str):
 
 
 def split_indices(n: int, fractions=(0.93, 0.05, 0.02), seed: int = 0,
-                  path: str | None = None, write: bool = True):
+                  path: str | None = None):
     """Shuffled train/val/test index split; persisted to ``path`` (npz)
     so interrupted runs resume with the identical split (the
-    reference's ``shuffle.npz`` behavior). ``write=False`` still reads
-    an existing file but never creates one -- the permutation is a pure
-    function of ``seed``."""
+    reference's ``shuffle.npz`` behavior)."""
     if path is not None:
         try:
             z = np.load(path)
@@ -116,7 +114,7 @@ def split_indices(n: int, fractions=(0.93, 0.05, 0.02), seed: int = 0,
     train = perm[:n_train]
     val = perm[n_train:n_train + n_val]
     test = perm[n_train + n_val:]
-    if path is not None and write:
+    if path is not None:
         # atomic write (.npz suffix on the temp name stops np.savez
         # appending another one)
         tmp = path + ".tmp.npz"

@@ -106,17 +106,12 @@ class TrainCheckpointer:
 
 class MetadataWriter:
     """Append-per-epoch ``metadata.json`` (the reference's
-    ``MetadataWriterCallback`` format -- tooling reads this file).
+    ``MetadataWriterCallback`` format -- tooling reads this file)."""
 
-    ``enabled=False`` keeps the in-memory record but never touches the
-    filesystem."""
-
-    def __init__(self, path: str, header: dict | None = None,
-                 enabled: bool = True):
+    def __init__(self, path: str, header: dict | None = None):
         self.path = path
-        self.enabled = enabled
         self.data = None
-        if enabled and os.path.exists(path):
+        if os.path.exists(path):
             try:
                 with open(path) as f:
                     self.data = json.load(f)
@@ -150,6 +145,4 @@ class MetadataWriter:
         self._flush()
 
     def _flush(self) -> None:
-        if not self.enabled:
-            return
         atomic_write_json(self.path, self.data)

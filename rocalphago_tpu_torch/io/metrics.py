@@ -37,9 +37,8 @@ class MetricsLogger:
     can race an emit without writing to a closed file. Serialization
     happens outside the lock."""
 
-    def __init__(self, path: str | None, echo: bool = True):
+    def __init__(self, path: str | None):
         self.path = path
-        self.echo = echo
         self._lock = threading.Lock()
         if path:
             parent = os.path.dirname(path)
@@ -60,11 +59,10 @@ class MetricsLogger:
     def log(self, event: str, **fields) -> None:
         fields = sanitize(fields)
         self.write(event, **fields)
-        if self.echo:
-            shown = " ".join(
-                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in fields.items())
-            print(f"[{event}] {shown}", flush=True)
+        shown = " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in fields.items())
+        print(f"[{event}] {shown}", flush=True)
 
     def close(self) -> None:
         with self._lock:

@@ -20,6 +20,7 @@ import sys
 import torch
 
 from rocalphago_tpu_torch.training.sl import (
+    SLConfig,
     SLTrainer,
     TrainState,
     apply_update,
@@ -33,26 +34,10 @@ from rocalphago_tpu_torch.training.symmetries import (
 
 
 @dataclasses.dataclass
-class ValueConfig:
-    """Flat, JSON-serializable stage config (the reference's, and the
-    device)."""
+class ValueConfig(SLConfig):
+    """The SL stage's config with the reference's value minibatch."""
 
-    model_json: str = ""
-    train_data: str = ""          # shard prefix (npz pipeline)
-    out_dir: str = ""
     minibatch: int = 32
-    epochs: int = 10
-    learning_rate: float = 0.003
-    decay: float = 0.0
-    momentum: float = 0.0
-    train_val_test: tuple = (0.93, 0.05, 0.02)
-    symmetries: bool = True
-    seed: int = 0
-    num_devices: int | None = None
-    max_validation_batches: int = 200
-    epoch_length: int | None = None
-    save_every: int | None = None     # also checkpoint every N steps
-    device: str | None = None         # None: the CUDA card
 
 
 def value_loss_fn(module, planes, outcomes, weights=None):

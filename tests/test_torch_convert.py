@@ -11,6 +11,7 @@ reference converter, so XLA compiles the ladder reader once.
 """
 
 import glob
+import inspect
 import json
 import os
 import warnings
@@ -21,7 +22,7 @@ import pytest
 from rocalphago_tpu.data import pipeline as ref_pipeline
 from rocalphago_tpu.data import sgf as ref_sgf
 from rocalphago_tpu.data.convert import GameConverter as RefConverter
-from rocalphago_tpu_torch.data import pipeline, sgf
+from rocalphago_tpu_torch.data import convert, pipeline, sgf
 from rocalphago_tpu_torch.data.convert import GameConverter, run_game_converter
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -44,6 +45,11 @@ def conv():
 
 
 def test_converter_keeps_the_reference_ladder_settings(conv, ref_conv):
+    ref = inspect.signature(RefConverter).parameters
+    assert (convert.LADDER_DEPTH, convert.LADDER_LANES,
+            convert.LADDER_CHASE_SLOTS) == (
+        ref["ladder_depth"].default, ref["ladder_lanes"].default,
+        ref["ladder_chase_slots"].default) == (40, 16, 4)
     assert conv.pre._encode.keywords == dict(
         features=conv.feature_list, ladder_depth=40, ladder_lanes=16,
         ladder_chase_slots=4)
