@@ -95,12 +95,35 @@ Phases, in order; any failure exits non-zero before the result line:
     128 FCN bf16; finite MSEs, the export, the evaluator's MSE); the
     train step at minibatch 16 and 256 with CUDA events (parts, the
     MFU share, a profile of 20 steps) and the cost of deterministic
-    cuDNN at 256.
+    cuDNN at 256;
+15. the reinforcement stage at full width, in ``build/smoke_rl``, from
+    phase 14's SL export: the RL trainer's CLI (``rocalphago_tpu_torch.
+    training.rl``) at game batch 8 and move limit 60, 3 iterations, and
+    a run killed after 2 and resumed through the CLI to the straight
+    run's params and generator bit for bit; a replay segment (10 plies
+    of the learner's half-batch encode, forward and backward) under
+    ``set_sync_debug_mode("error")``; one iteration at the reference's
+    shape (game batch 256, move limit 500, 12 × 128 bf16), its play,
+    replay and update timed with a sync after each (games per minute
+    under the reference's metric, ms per replay ply, the replay's MFU
+    share), chase and labels launched (counts reset just before, read
+    just after), the params moved and finite, its first 8 games
+    replayed on the CPU, the chase kernel on a mid-game replay ply's
+    lanes and the labels kernel on its final region boards bit-exact and
+    timed, a profile of 10 mid-game replay plies; the value-corpus
+    generator's CLI (``....training.selfplay_data``) with the SL export
+    before the
+    random ply and the RL export after, batch 256, at least 512
+    positions (49 planes, z ±1; both kernels launched; valid
+    positions/s and yield); the value trainer on that corpus; and two
+    device-search GTP genmoves at 100 simulations over the RL export
+    and that value net -- the whole pipeline on one card.
 
-The kernel line's launches are phases 11, 12 and 14's conversion
-together, its times those at self-play's shapes (chase at 1,536 lanes,
-labels at 256 region boards, the tree at batch 8). The last three lines are the card (as
-``nvidia-smi`` prints it), the kernel table as JSON, and ``{"ok": true,
+The kernel line's launches are phases 11, 12, 14's conversion and 15's
+RL iteration and generator together, its times those at self-play's
+shapes (chase at 1,536 lanes, labels at 256 region boards, the tree at
+batch 8). The last three lines are the card (as ``nvidia-smi`` prints
+it), the kernel table as JSON, and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -165,6 +188,14 @@ SL_TIMED_BATCHES = (16, 256)
 VALUE_POSITIONS = 512    # the value trainer's seeded outcome corpus
 VALUE_STEPS = 10
 QUEUED_STEPS = 3         # ~750 launches at minibatch 256 (see sl_timings)
+RL_DIR = os.path.join("build", "smoke_rl")
+RL_BATCH = 256           # the RL iteration and the generator: games
+RL_MOVES = 500           # the reference's move limit
+RL_MID = 250             # the replay ply whose lanes and followers are
+#                          checked and profiled (mid-game)
+RL_SMALL_BATCH = 8       # the RL CLI's kill/resume runs
+RL_SMALL_MOVES = 60
+GEN_POSITIONS = 512      # the generator's corpus, at least
 
 
 class SmokeFailure(RuntimeError):
@@ -1948,7 +1979,344 @@ def phase_supervised(dev, card, counters):
     timings = sl_timings(dev, card)
     log(f"supervised phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "positions_per_s": rate,
-            "timings": timings}
+            "timings": timings, "export": os.path.join(straight, "model.json")}
+
+
+# ------------------------------------------------------ reinforcement path
+
+
+def rl_argv(spec, out, iterations, *extra):
+    """The RL trainer's command line for the kill/resume runs: full
+    width, a small batch and a cut game length."""
+    return [spec, out, "--game-batch", str(RL_SMALL_BATCH), "--iterations",
+            str(iterations), "--save-every", "2", "--move-limit",
+            str(RL_SMALL_MOVES), "--seed", str(SEED)]
+
+
+def rl_cli(work: str, sl_export: str):
+    """The RL CLI from the SL export at a small batch: a straight run of
+    3 iterations, and one killed after 2 and resumed, ending on the
+    straight run's params and generator bit for bit. Returns the
+    straight run's export."""
+    from rocalphago_tpu_torch.training import rl
+
+    straight = os.path.join(work, "straight")
+    t0 = time.perf_counter()
+    final = rl.run_training(rl_argv(sl_export, straight, 3))
+    wall = time.perf_counter() - t0
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "the RL trainer left cuDNN non-deterministic")
+    check(np.isfinite(final["win_rate"]) and final["iteration"] == 2,
+          f"rl final {final}")
+    for name in ("model.json", "weights.00002.flax.msgpack",
+                 "weights.00003.flax.msgpack", "metadata.json",
+                 "opponents/opponent.00002.flax.msgpack"):
+        check(os.path.exists(os.path.join(straight, name)), f"rl: no {name}")
+    want = torch.load(os.path.join(straight, "checkpoints", "3", "state.pt"),
+                      map_location="cpu", weights_only=True)
+    killed = os.path.join(work, "killed")
+    rl.run_training(rl_argv(sl_export, killed, 2))
+    rl.run_training(rl_argv(sl_export, killed, 3))
+    got = torch.load(os.path.join(killed, "checkpoints", "3", "state.pt"),
+                     map_location="cpu", weights_only=True)
+    check(same_params(want["params"], got["params"])
+          and torch.equal(want["rng"], got["rng"]),
+          "rl killed after iteration 2 and resumed: params or generator "
+          "differ from the straight run's")
+    log(f"rl cli: 3 iterations at game batch {RL_SMALL_BATCH}, move limit "
+        f"{RL_SMALL_MOVES}, from the SL export (19x19 12x128 bf16), "
+        f"{wall:.1f} s; last win rate {final['win_rate']:.3f}, "
+        f"{final['games_per_min']:.1f} games/min; killed after 2 and "
+        "resumed through the CLI: params and generator bit-identical")
+    return os.path.join(straight, "model.json")
+
+
+def rl_iteration(torchgo, dev, card, counters, sl_export):
+    """One RL iteration at the reference's shape: batch 256, move limit
+    500, the SL export (19x19 12x128 bf16) as learner and opponent.
+    First a replay segment with no device->host sync; then the timed
+    iteration, its phases split by a sync after each, with the launches
+    counted from zero; its first games replayed on the CPU; both
+    kernels held against their plain versions on its lanes and region
+    boards; a profile of replay plies."""
+    import copy
+
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.ops import chase as C
+    from rocalphago_tpu_torch.ops import labels as L
+    from rocalphago_tpu_torch.search import selfplay as S
+    from rocalphago_tpu_torch.training import rl
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    net = NeuralNetBase.load_model(sl_export)
+    check(net.module.dtype == torch.bfloat16 and net.device.type == "cuda",
+          f"the learner runs on {net.device} in {net.module.dtype}")
+    opponent = copy.deepcopy(net.module).requires_grad_(False)
+    cfg = torchgo.GoConfig(size=SIZE, komi=torchgo.default_komi(SIZE))
+    opt = torch.optim.SGD(net.module.parameters(), lr=0.001)
+    it = rl.RLIteration(cfg, net.feature_list, net.module, opt, RL_BATCH,
+                        RL_MOVES, 0.67, device=dev)
+    gen = torch.Generator(device=dev)
+    state = rl.RLState(net.module, opt, gen.manual_seed(SEED + 70))
+
+    # a replay segment with no device->host sync, on a short game
+    warm = S.make_selfplay_chunked(cfg, net.feature_list, net.module,
+                                   opponent, RL_BATCH, SP_CHUNK,
+                                   chunk=SP_CHUNK, temperature=0.67,
+                                   device=dev)(
+        torch.Generator(device=dev).manual_seed(SEED + 71))
+    z = rl._learner_z(warm.winners, RL_BATCH // 2)
+    live = warm.live.float()
+    states = torchgo.new_states(cfg, RL_BATCH, device=dev)
+    opt.zero_grad(set_to_none=True)
+    it.replay_ply(states, z, warm.actions[0], live[0], 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(SP_CHUNK):
+            states = it.replay_ply(states, z, warm.actions[t], live[t], t)
+    except RuntimeError as e:
+        raise SmokeFailure(f"a host sync inside a replay segment: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"rl: a replay segment of {SP_CHUNK} plies at game batch "
+        f"{RL_BATCH} (learner half {RL_BATCH // 2}, forward + backward) ran "
+        "with no device->host sync")
+
+    # the timed iteration, its phases split by a sync after each
+    laps, held = {}, {}
+
+    def timed(name, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            laps[name] = time.perf_counter() - t0
+            held[name] = out
+            return out
+        return run
+
+    for name in ("play", "replay", "update"):
+        setattr(it, name, timed(name, getattr(it, name)))
+    before = {k: v.detach().clone()
+              for k, v in net.module.state_dict().items()}
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    m = it(state, opponent)
+    win = float(m["win_rate"])
+    wall = time.perf_counter() - t0
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    for name in ("play", "replay", "update"):
+        delattr(it, name)
+    res, z, live = held["play"], held["replay"], held["play"].live.float()
+    plies = res.actions.shape[0]
+    check(plies == RL_MOVES, f"the iteration played {plies} plies")
+    for name, k in launches.items():
+        check(k > 0, f"the {name} kernel was not launched by the RL "
+              "iteration")
+    after = net.module.state_dict()
+    check(all(bool(torch.isfinite(after[k]).all()) for k in after)
+          and not all(torch.equal(before[k], after[k]) for k in after),
+          "the RL update left the params unchanged or not finite")
+    moves = res.num_moves.float()
+    games_per_min = RL_BATCH * 60.0 / wall
+    replay_ply_ms = laps["replay"] / plies * 1e3
+    _, step_flops = conv_flops(net.module)
+    replayed = RL_BATCH // 2 * plies
+    mfu = replayed * step_flops / laps["replay"] / BF16_FLOPS_PER_S
+    log(f"rl iteration [{card}]: game batch {RL_BATCH}, move limit "
+        f"{RL_MOVES}, 19x19 12x128 bf16: wall {wall:.2f} s (play "
+        f"{laps['play']:.2f} s, replay {laps['replay']:.2f} s, update "
+        f"{laps['update'] * 1e3:.2f} ms); games_per_min {games_per_min:.2f};"
+        f" {replay_ply_ms:.2f} ms a replay ply; replay MFU share {mfu:.5f} "
+        f"({replayed} learner positions x {step_flops / 1e9:.3f} GFLOP); "
+        f"mean game {float(moves.mean()):.1f} plies "
+        f"({int(res.final.done.sum())} of {RL_BATCH} over), win rate "
+        f"{win:.3f}, mean_moves {float(m['mean_moves']):.1f}; launches "
+        f"{launches}")
+
+    # the card's games replayed on the CPU
+    cpu = replay_on_cpu(torchgo, cfg, DEFAULT_FEATURES,
+                        res.actions[:, :SP_REPLAY].cpu(),
+                        res.live[:, :SP_REPLAY].cpu(),
+                        res.live.any(dim=1).tolist())
+    for name in ("board", "done", "turn", "labels"):
+        check(torch.equal(getattr(res.final, name)[:SP_REPLAY].cpu(),
+                          getattr(cpu, name)),
+              f"rl games replayed: {name} differs from the card's")
+    check(torch.equal(res.winners[:SP_REPLAY].cpu(),
+                      torchgo.winner(cfg, cpu)),
+          "rl games replayed: winners differ")
+    log(f"rl: the first {SP_REPLAY} games replayed on the CPU (every action "
+        "sensible there; live rows, boards, done flags, winners equal)")
+
+    # both kernels on this path's shapes: the lanes of a mid-game replay
+    # ply's half-batch encode (the timed run's first RL_MID plies
+    # replayed again, untimed), the final boards' empty regions
+    final = res.final
+    states = torchgo.new_states(cfg, RL_BATCH, device=dev)
+    for t in range(RL_MID):
+        states = it.replay_ply(states, z, res.actions[t], live[t], t)
+    with LaneRecorder(C) as rec:
+        states = it.replay_ply(states, z, res.actions[RL_MID], live[RL_MID],
+                               RL_MID)
+    cb, cl, cp = rec.lanes[0]
+    n = cfg.num_points
+    want_c = check_chase(C, cb, cl, cp, SIZE, f"replay {len(cp)} lanes")
+    _, rungs = C.chase_plain(cb, cl, cp, SIZE, return_rungs=True)
+    chase_row = kernel_row(
+        lambda: C.chase(cb, cl, cp, SIZE), lambda: C.chase_plain(
+            cb, cl, cp, SIZE), cb.numel() * 5 + cp.numel() * 5,
+        int(rungs.sum()) * n * CHASE_OPS_PER_POINT_RUNG)
+    regions = torch.where(final.board == 0, 9, 0).to(torch.int8)
+    check(torch.equal(L.labels(regions, SIZE), L.labels_plain(regions, SIZE)),
+          "labels kernel differs from plain on the RL regions")
+    labels_row = kernel_row(
+        lambda: L.labels(regions, SIZE), lambda: L.labels_plain(
+            regions, SIZE), regions.numel() * 5,
+        labels_sweeps(regions) * regions.numel()
+        * LABELS_OPS_PER_POINT_SWEEP)
+    log(f"rl kernels [{card}]: chase on replay ply {RL_MID}'s {len(cp)} lanes "
+        f"({int((cp >= 0).sum())} live, {int(want_c.sum())} captured, "
+        f"{int(rungs.sum())} rungs) bit-exact, {chase_row[0]:.4f} ms, plain "
+        f"{chase_row[1]:.3f} ms, bound {chase_row[2][0]:.6f} ms "
+        f"({chase_row[2][1]}); labels on {RL_BATCH} region boards bit-exact,"
+        f" {labels_row[0]:.4f} ms, plain {labels_row[1]:.3f} ms, bound "
+        f"{labels_row[2][0]:.6f} ms ({labels_row[2][1]})")
+
+    holder = [states, RL_MID + 1]
+
+    def one_ply():
+        t = holder[1]
+        holder[0] = it.replay_ply(holder[0], z, res.actions[t], live[t], t)
+        holder[1] += 1
+
+    opt.zero_grad(set_to_none=True)
+    prof = profile_device(one_ply, SP_CHUNK,
+                          f"{SP_CHUNK} replay plies from ply {RL_MID + 1} at "
+                          f"game batch {RL_BATCH}", "replay ply")
+    return dict(launches=launches, wall=wall, laps=laps, mfu=mfu,
+                games_per_min=games_per_min, replay_ply_ms=replay_ply_ms,
+                profile=prof, chase=chase_row, labels=labels_row)
+
+
+def rl_generate(work: str, card: str, sl_export: str, rl_export: str,
+                counters):
+    """The value-corpus generator's CLI: the SL export before U, the RL
+    export after, batch 256, at least ``GEN_POSITIONS`` positions; both
+    kernels launched (counts reset just before, read just after)."""
+    from rocalphago_tpu_torch.data.pipeline import ShardedDataset
+    from rocalphago_tpu_torch.features import VALUE_FEATURES
+    from rocalphago_tpu_torch.training import selfplay_data as SD
+
+    prefix = os.path.join(work, "value_corpus", "v")
+    batches = [0]
+    inner = SD.play_value_games
+
+    def counted(*a, **kw):
+        batches[0] += 1
+        return inner(*a, **kw)
+
+    SD.play_value_games = counted
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        manifest = SD.run_generator([
+            sl_export, rl_export, prefix, "--n-positions",
+            str(GEN_POSITIONS), "--batch", str(RL_BATCH), "--seed",
+            str(SEED)])
+    finally:
+        SD.play_value_games = inner
+    wall = time.perf_counter() - t0
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    for name, k in launches.items():
+        check(k > 0, f"the {name} kernel was not launched by the generator")
+    check(manifest["num_positions"] >= GEN_POSITIONS
+          and manifest["planes"] == 49 and manifest["board_size"] == SIZE
+          and manifest["feature_list"] == list(VALUE_FEATURES)
+          and manifest["targets"] == "outcome",
+          f"generator manifest {manifest}")
+    ds = ShardedDataset(prefix)
+    states, z = ds.gather(np.arange(len(ds)))
+    check(states.dtype == np.uint8 and set(np.unique(z)) <= {-1, 1},
+          "generator corpus: planes not uint8 or z not +-1")
+    games = batches[0] * RL_BATCH
+    rate = manifest["num_positions"] / wall
+    log(f"generator cli [{card}]: {manifest['num_positions']} "
+        f"positions from {games} games ({batches[0]} batches of {RL_BATCH}, "
+        f"move limit 500), yield {manifest['num_positions'] / games:.4f}, "
+        f"{wall:.2f} s: {rate:.2f} valid positions/s, "
+        f"{int((z > 0).sum())} z=+1 and {int((z < 0).sum())} z=-1; "
+        f"launches {launches}")
+    return prefix, launches, rate, manifest["num_positions"] / games
+
+
+def rl_value_and_search(dev, work: str, corpus: str, rl_export: str):
+    """The value trainer on the generated corpus, then a device-search
+    GTP session with the RL export and that value net."""
+    from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
+    from rocalphago_tpu_torch.models import CNNValue
+    from rocalphago_tpu_torch.search.players import build_player
+    from rocalphago_tpu_torch.training import value
+
+    spec = os.path.join(work, "value.json")
+    CNNValue(board=SIZE, layers=12, filters_per_layer=128, seed=SEED + 72,
+             device=dev).save_model(spec)
+    out = os.path.join(work, "value")
+    t0 = time.perf_counter()
+    res = value.run_training([spec, corpus, out, "--epochs", "1",
+                              "--epoch-length", str(VALUE_STEPS),
+                              "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    for k in ("train_mse", "val_mse", "test_mse"):
+        check(np.isfinite(res[k]), f"value on the generated corpus: {k} = "
+              f"{res[k]}")
+    log(f"value on the generated corpus: {VALUE_STEPS} steps at minibatch "
+        f"32, 19x19 12x128 bf16 FCN, {wall:.1f} s; train mse "
+        f"{res['train_mse']:.4f}, val mse {res['val_mse']:.4f}, test mse "
+        f"{res['test_mse']:.4f}")
+    player = build_player("device-mcts", rl_export,
+                          value_path=os.path.join(out, "model.json"))
+    replies = io.StringIO()
+    t0 = time.perf_counter()
+    engine = run_gtp(player, io.StringIO(
+        "boardsize 19\nclear_board\ngenmove b\ngenmove w\nquit\n"),
+        replies)
+    wall = time.perf_counter() - t0
+    answers = [r for r in replies.getvalue().split("\n\n") if r.strip()]
+    for reply in answers[2:4]:
+        check(reply.startswith("=") and vertex_to_move(
+            reply[1:].strip(), SIZE) is not None, f"genmove -> {reply!r}")
+    check(engine.illegal_from_player == 0 and player.last_n_sim == 100,
+          "the pipeline's device search played illegally or cut its search")
+    log(f"the whole pipeline on one card: device-mcts over the RL export and "
+        f"the value net trained on the generated corpus answered "
+        f"{answers[2][1:].strip()}, {answers[3][1:].strip()} at 100 "
+        f"simulations ({wall:.1f} s for the session)")
+
+
+def phase_reinforcement(torchgo, dev, card, counters, sl_export):
+    """The reinforcement stage at full width (phase 15)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, RL_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    rl_export = rl_cli(work, sl_export)
+    out = rl_iteration(torchgo, dev, card, counters, sl_export)
+    corpus, gen_launches, rate, yield_ = rl_generate(
+        work, card, sl_export, rl_export, counters)
+    rl_value_and_search(dev, work, corpus, rl_export)
+    log(f"reinforcement phase: {time.perf_counter() - t0:.1f} s")
+    out.update(gen_launches=gen_launches, positions_per_s=rate,
+               yield_=yield_)
+    return out
 
 
 def labels_sweeps(boards: torch.Tensor) -> int:
@@ -2010,11 +2378,14 @@ def main() -> int:
                                sp["final"])
     phase_selfplay_cli(pygo)
     sv = phase_supervised(dev, card, (L, C))
-    # the launches of the paths of PRs 4 and 5: policy self-play
-    # (labels, chase), search self-play (all three) and the converter
-    # (labels, chase); the kernels timed at self-play's shapes
+    rf = phase_reinforcement(torchgo, dev, card, (L, C), sv["export"])
+    # the launches of the paths of PRs 4-6: policy self-play (labels,
+    # chase), search self-play (all three), the converter (labels,
+    # chase), the RL iteration and the generator (labels, chase); the
+    # kernels timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
-                + sv["launches"].get(k, 0) for k in ss["launches"]}
+                + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
+                + rf["gen_launches"].get(k, 0) for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
     kernels = []
@@ -2042,7 +2413,16 @@ def main() -> int:
         f"simulations, {main_path['sims_per_s']:.1f} simulations/s on "
         f"{card}")
     log(f"greedy session launches {greedy_launches}; converter launches "
-        f"{sv['launches']}")
+        f"{sv['launches']}; RL iteration launches {rf['launches']}; "
+        f"generator launches {rf['gen_launches']}")
+    log(f"rl iteration at game batch {RL_BATCH}, move limit {RL_MOVES}: "
+        f"{rf['wall']:.2f} s (play {rf['laps']['play']:.2f}, replay "
+        f"{rf['laps']['replay']:.2f}, update "
+        f"{rf['laps']['update'] * 1e3:.2f} ms), games_per_min "
+        f"{rf['games_per_min']:.2f}, replay ply {rf['replay_ply_ms']:.2f} ms, "
+        f"replay MFU share {rf['mfu']:.5f}; generator "
+        f"{rf['positions_per_s']:.2f} valid positions/s, yield "
+        f"{rf['yield_']:.4f} on {card}")
     log(f"SGF conversion {sv['positions_per_s']:.1f} positions/s; SL train "
         "step " + ", ".join(
             f"{t['ms']:.3f} ms at minibatch {b} ({b / t['ms'] * 1e3:.1f} "

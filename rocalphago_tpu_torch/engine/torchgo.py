@@ -59,6 +59,14 @@ class GoConfig:
         return self.size * self.size
 
 
+def default_komi(size: int) -> float:
+    """Standard area-scoring komi per board size: 7.5 for 13×13 and
+    up (the 19×19 value), 7.0 below (the CGOS 9×9 convention). The
+    trainers and the value-corpus generator score with it unless told
+    otherwise (a net's spec always carries the 19×19 value)."""
+    return 7.5 if size >= 13 else 7.0
+
+
 class GoState(NamedTuple):
     """A batch of games; every field has the batch as leading dim."""
 

@@ -446,3 +446,131 @@ def test_device_prefetch_on_the_card_stages_every_batch(cuda_device):
         assert int(p) == int(hp.sum(dtype=np.int64))
         assert int(a) == int(ha.sum(dtype=np.int64))
         assert np.array_equal(copy.cpu().numpy(), hp)
+
+
+# ------------------------------------------------------- reinforcement
+
+
+def rl_iteration(device, dtype, seed=0):
+    """One REINFORCE iteration on ``device`` (9×9, 2 × 8 policies,
+    game batch 8, 24 plies) from seeded nets: ``(the iteration, the
+    game result it played, updates per lr, metrics)``."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.training import rl
+
+    learner, opp = (CNNPolicy(board=9, layers=2, filters_per_layer=8, seed=s,
+                              device=device, dtype=dtype) for s in (1, 2))
+    cfg = torchgo.GoConfig(size=9, komi=torchgo.default_komi(9))
+    opt = torch.optim.SGD(learner.module.parameters(), lr=0.1)
+    it = rl.RLIteration(cfg, DEFAULT_FEATURES, learner.module, opt, 8, 24,
+                        0.67, device=device)
+    state = rl.RLState(learner.module, opt,
+                       torch.Generator(device=device).manual_seed(seed))
+    old = {k: v.clone() for k, v in learner.module.state_dict().items()}
+    held = []
+    play = it.play
+    it.play = lambda *a: held.append(play(*a)) or held[-1]
+    metrics = {k: float(v) for k, v in it(state, opp.module).items()}
+    del it.play
+    new = learner.module.state_dict()
+    return it, held[0], {k: ((old[k] - new[k]) / 0.1).cpu() for k in old}, \
+        metrics
+
+
+def test_rl_gradient_on_the_card_equals_the_cpu_replay(cuda_device):
+    """Float32 with TF32 off: the card's iteration against the CPU's
+    replay of the card's games, within 1e-3 + 1e-4·|x|; the chase and
+    labels kernels launched on the card."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.search.selfplay import SelfplayResult
+    from rocalphago_tpu_torch.training import rl
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = {m: m.launches for m in (labels, chase)}
+    try:
+        _, res, card, card_m = rl_iteration(cuda_device, torch.float32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert all(m.launches > before[m] for m in before)
+    learner = CNNPolicy(board=9, layers=2, filters_per_layer=8, seed=1,
+                        device="cpu", dtype=torch.float32)
+    opt = torch.optim.SGD(learner.module.parameters(), lr=0.1)
+    it_cpu = rl.RLIteration(torchgo.GoConfig(size=9, komi=7.0),
+                            DEFAULT_FEATURES, learner.module, opt, 8, 24,
+                            0.67, device="cpu")
+    old = {k: v.clone() for k, v in learner.module.state_dict().items()}
+    res = SelfplayResult(*(x.cpu() if isinstance(x, torch.Tensor)
+                           else torchgo.GoState(*(y.cpu() for y in x))
+                           for x in res))
+    z = it_cpu.replay(res)
+    it_cpu.update()
+    cpu_m = {k: float(v) for k, v in rl._metrics(z, res.num_moves).items()}
+    assert cpu_m == card_m
+    new = learner.module.state_dict()
+    moved = 0.0
+    for k in old:
+        want = ((old[k] - new[k]) / 0.1).numpy()
+        np.testing.assert_allclose(card[k].numpy(), want, atol=1e-3,
+                                   rtol=1e-4, err_msg=k)
+        moved = max(moved, float(np.abs(want).max()))
+    assert moved > 1e-3
+
+
+def test_rl_iterations_on_the_card_repeat_bit_for_bit(cuda_device):
+    """bf16, deterministic cuDNN (as the trainer sets it): two
+    iterations from one generator state end on the same bits."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        a = rl_iteration(cuda_device, torch.bfloat16, seed=3)
+        b = rl_iteration(cuda_device, torch.bfloat16, seed=3)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    assert torch.equal(a[1].actions, b[1].actions)
+    assert a[3] == b[3]
+    for k in a[2]:
+        assert torch.equal(a[2][k], b[2][k]), k
+
+
+def test_value_games_on_the_card_replay_on_the_cpu(cuda_device):
+    """A batch of value games on the card (every kernel on the path),
+    its U and actions replayed on the CPU: the same snapshots (every
+    field), z, valid and u."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.training import selfplay_data as sd
+
+    cfg = torchgo.GoConfig(size=9, komi=torchgo.default_komi(9))
+
+    def runner(device):
+        sl_net, rl_net = (CNNPolicy(board=9, layers=2, filters_per_layer=8,
+                                    seed=s, device=device,
+                                    dtype=torch.float32) for s in (4, 5))
+        return sd.make_value_games_chunked(
+            cfg, DEFAULT_FEATURES, sl_net.module, rl_net.module, 8, 40,
+            chunk=40, device=device)
+
+    card = runner(cuda_device)
+    actions = []
+    sample = card.ply.sample
+    card.ply.sample = lambda *a: actions.append(sample(*a)) or actions[-1]
+    before = {m: m.launches for m in (labels, chase)}
+    got = card(torch.Generator(device=cuda_device).manual_seed(6))
+    assert all(m.launches > before[m] for m in before)
+    assert len(actions) == 40
+    cpu = runner("cpu")
+    stream = iter(actions)
+    cpu.ply.sample = lambda *a: next(stream).cpu()
+    want = cpu(torch.Generator(), U=got.u.cpu())
+    for name, x, y in zip(torchgo.GoState._fields, got.recorded,
+                          want.recorded):
+        assert torch.equal(x.cpu(), y), name
+    for name in ("z", "valid", "u"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert bool(got.valid.any())

@@ -27,7 +27,7 @@ from rocalphago_tpu_torch.ops import chase, labels, tree
 from rocalphago_tpu_torch.search import selfplay
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
 from rocalphago_tpu_torch.data import convert
-from rocalphago_tpu_torch.training import evaluate, sl, value
+from rocalphago_tpu_torch.training import evaluate, rl, selfplay_data, sl, value
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rocalphago_tpu_torch")
@@ -149,6 +149,35 @@ def test_training_entry_points_need_a_card_or_an_explicit_cpu(
         ["--directory", games, "--outfile", out + "/c", "--size", "9",
          "--device", "cpu"])
     assert res["num_games"] == 5
+
+
+def test_reinforcement_entry_points_need_a_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rl.run_training([SPEC, out])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rl.RLTrainer(rl.RLConfig(model_json=SPEC, out_dir=out))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay_data.run_generator([SPEC, SPEC, out, "--n-positions", "1"])
+    cfg = torchgo.GoConfig(size=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rl.make_rl_iteration(cfg, ("board",), None, None, 2, 2, 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay_data.play_value_games(cfg, ("board",), None, None, None, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay_data.make_value_games_chunked(cfg, ("board",), None, None, 2)
+    assert not os.listdir(tmp_path)
+    # the same entry points run when the CPU is named
+    res = rl.run_training([SPEC, out, "--game-batch", "2", "--iterations",
+                           "1", "--move-limit", "2", "--device", "cpu"])
+    assert res["iteration"] == 0
+    manifest = selfplay_data.run_generator(
+        [SPEC, os.path.join(out, "model.json"), out + "/v",
+         "--n-positions", "1", "--batch", "2", "--max-moves", "6",
+         "--device", "cpu"])
+    assert manifest["num_positions"] >= 1
 
 
 def test_kernel_wrappers_do_not_fall_back():
