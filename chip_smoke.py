@@ -117,14 +117,34 @@ Phases, in order; any failure exits non-zero before the result line:
     positions (49 planes, z ±1; both kernels launched; valid
     positions/s and yield); the value trainer on that corpus; and two
     device-search GTP genmoves at 100 simulations over the RL export
-    and that value net -- the whole pipeline on one card.
+    and that value net -- the whole pipeline on one card;
+16. the Gumbel root search and the evaluation tools: phase 8's 8 roots
+    searched together by the Gumbel searcher (float32, 16 simulations,
+    m_root 16, one noise draw) give each root's visits and ``best``
+    alone, π′ within ``PI_ATOL``; a Gumbel chunk and its rerank at
+    batch 1 and 8 (bf16) under ``set_sync_debug_mode("error")``; the
+    tree kernel bit-exact against its plain version on the Gumbel-grown
+    batch-8 slab with every candidate's root edge forced, and timed;
+    the Gumbel GTP session, this slice's main path: both nets loaded
+    by ``build_player("gumbel-mcts", ...)``, 6 genmoves at 100
+    simulations, then 4 under ``time_settings 0 1 1``, every reply a
+    legal vertex, the three kernels launched (counts reset just before,
+    read just after), no tree reused, its p50 beside phase 9's; a PUCT
+    and a Gumbel search of 100 simulations from one root timed in turns,
+    and a profile of a Gumbel chunk; Gumbel search self-play (batch 8, 32 simulations, 8 plies playing the
+    halving winner, then 4 sampling π′; every π′ row finite and summing
+    to 1; simulations/s; the three kernels launched); the self-play CLI
+    with ``--gumbel --m-root 4``; the tournament CLI, ``gumbel-mcts``
+    against ``device-mcts`` on the committed 9×9 gumbel nets (4 games,
+    8 playouts, move limit 60, no forfeit, a log line a game) and the
+    Elo CLI over its log (finite ratings).
 
-The kernel line's launches are phases 11, 12, 14's conversion and 15's
-RL iteration and generator together, its times those at self-play's
-shapes (chase at 1,536 lanes, labels at 256 region boards, the tree at
-batch 8). The last three lines are the card (as ``nvidia-smi`` prints
-it), the kernel table as JSON, and ``{"ok": true,
-"device": {...}}``.
+The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
+iteration and generator, and 16's GTP session and self-play together,
+its times those at self-play's shapes (chase at 1,536 lanes, labels at
+256 region boards, the tree at batch 8). The last three lines are the
+card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,6 +178,11 @@ SS_ALPHA, SS_EPS, SS_FORCED_K = 0.03, 0.25, 2.0
 SS_TREE256_SIMS = 16     # simulations of the batch-256 tree timed
 CLI_TIMEOUT_S = 300
 PUCT_DIR = os.path.join("results", "zero_r5", "target_compare", "puct")
+GUMBEL_DIR = os.path.join("results", "zero_r5", "target_compare", "gumbel")
+M_ROOT = 16              # Gumbel root candidates (the player's default)
+GS_PLIES, GS_SAMPLE_PLIES = 8, 4   # Gumbel self-play (batch 8, 32 sims)
+PI_ATOL = 1e-5           # π′ batched vs alone; a π′ row's sum vs 1
+TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 4, 8, 60
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -935,6 +960,7 @@ def phase_batched_search(pygo, torchgo, dev):
     log(f"search: 8 roots at 19x19 full width (fp32), {SEARCH_CHECK_SIMS} "
         "simulations, visits batched == alone on every root "
         f"({int((together > 0).sum())} visited root edges)")
+    return pol, val, sts
 
 
 def phase_sync_free(pygo, torchgo, dev, pol, val):
@@ -967,9 +993,9 @@ def phase_sync_free(pygo, torchgo, dev, pol, val):
     return tree
 
 
-def phase_search_gtp(player, counters):
-    """The main path: the device-search player that the GTP player
-    factory built from the saved specs, a scripted session at 100
+def phase_search_gtp(player, counters, what: str = "device-search"):
+    """The main path: the device-search player (``what``) that the GTP
+    player factory built from the saved specs, a scripted session at 100
     simulations a move, then moves under ``time_settings 0 1 1`` (the
     deadline armed)."""
     from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
@@ -1016,7 +1042,7 @@ def phase_search_gtp(player, counters):
           f"illegal_from_player = {engine.illegal_from_player}")
     for name, n in launches.items():
         check(n > 0, f"the {name} kernel was not launched by the "
-              "device-search genmoves")
+              f"{what} genmoves")
     check([r[0] for r in runs[:SEARCH_GENMOVES]] == [100] * SEARCH_GENMOVES,
           f"simulations per searched move: {[r[0] for r in runs]}")
     stamps = instream.stamps
@@ -1029,17 +1055,17 @@ def phase_search_gtp(player, counters):
                   / sum(lat[1:]))
     t0 = g0 + SEARCH_GENMOVES + 1
     tlat = [stamps[i + 1] - stamps[i] for i in range(t0, t0 + TIMED_GENMOVES)]
-    log(f"device-search gtp: {SEARCH_GENMOVES} genmoves at 100 simulations "
+    log(f"{what} gtp: {SEARCH_GENMOVES} genmoves at 100 simulations "
         f"on the 19x19 12x128 bf16 policy and FCN value nets, all legal "
         f"vertices; launches {launches}; genmove p50 {p50:.1f} ms (each "
         f"{[round(x * 1e3, 1) for x in lat]} ms), {sims_per_s:.1f} "
         f"simulations/s; reuses {runs[SEARCH_GENMOVES - 1][2]}")
-    log(f"device-search gtp under time_settings 0 1 1: simulations "
+    log(f"{what} gtp under time_settings 0 1 1: simulations "
         f"{[r[0] for r in runs[SEARCH_GENMOVES:]]}, deadline hit "
         f"{[r[1] for r in runs[SEARCH_GENMOVES:]]}, genmove ms "
         f"{[round(x * 1e3, 1) for x in tlat]}")
     return dict(launches=launches, p50=p50, sims_per_s=sims_per_s,
-                player=player, state=engine.state)
+                player=player, state=engine.state, reuses=runs[-1][2])
 
 
 def sim_stages(torchgo, search, tree, reps: int):
@@ -1098,18 +1124,20 @@ def sim_stages(torchgo, search, tree, reps: int):
     return {k: v / reps for k, v in sums.items()}
 
 
-def check_tree_walks(tree, c_puct: float, what: str, forced_k: float = 0.0):
-    """One descent of ``tree`` and one backup of the path it found,
-    through the tree kernel and through its plain versions on the same
-    card tensors: node, action and both backed-up slabs bit-exact.
-    Returns the descent's arguments, the backup's (on copies of the
-    slabs) and the node reached."""
+def check_tree_walks(tree, c_puct: float, what: str, forced_k: float = 0.0,
+                     root_actions=None):
+    """One descent of ``tree`` (free, or forced down ``root_actions``)
+    and one backup of the path it found, through the tree kernel and
+    through its plain versions on the same card tensors: node, action
+    and both backed-up slabs bit-exact. Returns the descent's arguments,
+    the backup's (on copies of the slabs) and the node reached."""
     from rocalphago_tpu_torch.ops import tree as T
 
     b = tree.prior.shape[0]
-    free = torch.full_like(tree.n_nodes, -1)
+    if root_actions is None:
+        root_actions = torch.full_like(tree.n_nodes, -1)
     args = (tree.prior, tree.visits, tree.value_sum, tree.child,
-            tree.states.done, tree.root, free, c_puct, forced_k)
+            tree.states.done, tree.root, root_actions, c_puct, forced_k)
     node, action = T.descend(*args)
     want = T.descend_plain(*args)
     check(torch.equal(node, want[0]) and torch.equal(action, want[1]),
@@ -1131,14 +1159,16 @@ def check_tree_walks(tree, c_puct: float, what: str, forced_k: float = 0.0):
     return args, back, node
 
 
-def tree_timing(tree, c_puct: float, what: str, forced_k: float = 0.0):
+def tree_timing(tree, c_puct: float, what: str, forced_k: float = 0.0,
+                root_actions=None):
     """(kernel ms, plain ms, (bound ms, by), levels) of one descent and
     one backup of the path it found, on the card, for a tree (checked
     against the plain versions first)."""
     from rocalphago_tpu_torch.ops import tree as T
 
     b, _, a = tree.prior.shape
-    args, back, node = check_tree_walks(tree, c_puct, what, forced_k)
+    args, back, node = check_tree_walks(tree, c_puct, what, forced_k,
+                                        root_actions)
     ms = (cuda_ms(lambda: T.descend(*args), 200, queued=True)
           + cuda_ms(lambda: T.backup(*back), 200, queued=True))
     plain = (cuda_ms(lambda: T.descend_plain(*args), 5)
@@ -1513,20 +1543,25 @@ def phase_search_selfplay(torchgo, dev, card, counters, player, states256):
                 tree8=t8[:3], tree256=t256[:3])
 
 
-def phase_selfplay_cli(pygo):
+def phase_selfplay_cli(pygo, gumbel: bool = False):
     """The self-play CLI as a user runs it, on the committed 9×9 nets:
-    policy mode and search mode, into ``build/``; every SGF parses back
-    with the port's reader and replays legally on the rules oracle."""
+    policy mode and search mode (or, with ``gumbel``, Gumbel search
+    mode), into ``build/``; every SGF parses back with the port's reader
+    and replays legally on the rules oracle."""
     from rocalphago_tpu_torch.data import sgf
 
     root = os.path.dirname(os.path.abspath(__file__))
     policy = os.path.join(root, PUCT_DIR, "policy.json")
     value = os.path.join(root, PUCT_DIR, "value.json")
-    for mode, games, extra in (
-            ("policy", 16, ["--chunk", "20"]),
-            ("search", 4, ["--search-sims", "16", "--value", value,
-                           "--max-moves", "20", "--dirichlet-alpha",
-                           "0.03"])):
+    modes = (("policy", 16, ["--chunk", "20"]),
+             ("search", 4, ["--search-sims", "16", "--value", value,
+                            "--max-moves", "20", "--dirichlet-alpha",
+                            "0.03"]))
+    if gumbel:
+        modes = (("gumbel", 4, ["--search-sims", "8", "--gumbel",
+                                "--m-root", "4", "--value", value,
+                                "--max-moves", "20"]),)
+    for mode, games, extra in modes:
         out = os.path.join(root, "build", "smoke_selfplay", mode)
         shutil.rmtree(out, ignore_errors=True)
         cmd = [sys.executable, "-m",
@@ -2319,6 +2354,266 @@ def phase_reinforcement(torchgo, dev, card, counters, sl_export):
     return out
 
 
+# ------------------------------------------------------------ Gumbel path
+
+
+def gumbel_searcher(pol, val, n_sim: int):
+    from rocalphago_tpu_torch.search.device_mcts import make_gumbel_mcts
+
+    return make_gumbel_mcts(pol.cfg, pol.feature_list, val.feature_list,
+                            pol.module, val.module, n_sim=n_sim,
+                            m_root=M_ROOT)
+
+
+def gumbel_batched(torchgo, dev, pol, val, sts):
+    """Phase 8's 8 roots searched together by the Gumbel searcher
+    (float32, 16 simulations: a plan of 30), one noise draw: each root
+    gets the visits and ``best`` it gets alone with its own noise row,
+    and π′ within ``PI_ATOL``."""
+    search = gumbel_searcher(pol, val, SEARCH_CHECK_SIMS)
+    noise = search.draw_noise(len(sts), torch.Generator(
+        device=dev).manual_seed(SEED + 16))
+    together = search(bridged(torchgo, pol.cfg, sts, dev), noise=noise)
+    alone = [search(bridged(torchgo, pol.cfg, [st], dev),
+                    noise=noise[i:i + 1]) for i, st in enumerate(sts)]
+    torch.cuda.synchronize()
+    plan = search.plan_sims
+    check(bool((together[0].sum(1) == plan).all()),
+          f"batched Gumbel search ran {together[0].sum(1).tolist()} "
+          f"simulations, not the plan's {plan}")
+    for i, one in enumerate(alone):
+        check(torch.equal(together[0][i:i + 1], one[0])
+              and torch.equal(together[2][i:i + 1], one[2]),
+              f"Gumbel root {i}: batched visits or best differ from alone")
+        err = float((together[3][i:i + 1] - one[3]).abs().max())
+        check(err <= PI_ATOL, f"Gumbel root {i}: pi' batched vs alone "
+              f"{err:.3g}")
+    log(f"gumbel: 8 roots at 19x19 full width (fp32), {SEARCH_CHECK_SIMS} "
+        f"simulations (a plan of {plan}), m_root {M_ROOT}: visits and best "
+        f"batched == alone on every root, pi' within {PI_ATOL}")
+
+
+def gumbel_sync_free(pygo, torchgo, dev, pol, val):
+    """One Gumbel chunk (every simulation forcing its root edge) and
+    the rerank after it make no device→host sync, at batch 1 and 8, full
+    width, bf16. Returns the batch-8 searcher, its tree grown on through
+    the plan's later phases, its g and its candidates."""
+    search = gumbel_searcher(pol, val, 100)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for batch in (1, 8):
+        sts = random_positions(pygo, batch, (20, 90, 160, 230),
+                               SEED + 18 + batch)
+        tree, g, cand, _ = search.init(bridged(torchgo, pol.cfg, sts, dev),
+                                       generator=gen)
+        k = search.schedule[0][0]
+        search.run_phase(tree, g, cand, 0, 1, k)     # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            search.run_phase(tree, g, cand, 1, CHUNK, k)
+            cand = search.rerank(tree, g, cand, k)
+        except RuntimeError as e:
+            raise SmokeFailure(f"a host sync inside a Gumbel chunk (batch "
+                               f"{batch}): {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        visits, _ = search.root_stats(tree)
+        check(bool((visits.sum(1) == CHUNK + 1).all()),
+              f"sync-free Gumbel chunk: visits {visits.sum(1).tolist()}")
+    # the later phases of the plan on the batch-8 tree
+    for k, v in search.schedule[1:]:
+        search.run_phase(tree, g, cand, 0, k * v, k)
+        cand = search.rerank(tree, g, cand, k)
+    log(f"gumbel: a chunk of {CHUNK} simulations and its rerank at batch 1 "
+        "and 8 (19x19, full width, bf16) ran with no device->host sync")
+    return search, tree, g, cand
+
+
+def gumbel_tree_kernel(search, tree, g, cand, card):
+    """The tree kernel against its plain version on the Gumbel-grown
+    batch-8 slab, every descent forced down a candidate's root edge
+    (each slot of the first phase), and timed on the first."""
+    k = search.schedule[0][0]
+    for slot in range(k):
+        check_tree_walks(tree, search.base.c_puct, f"the Gumbel slab, slot "
+                         f"{slot}", root_actions=search.forced_candidate(
+                             g, cand, slot))
+    ms, plain, (bnd, by), levels = tree_timing(
+        tree, search.base.c_puct, "the Gumbel slab",
+        root_actions=search.forced_candidate(g, cand, 0))
+    log(f"tree kernel on the Gumbel batch-8 slab [{card}] "
+        f"({int(tree.n_nodes.sum())} nodes): descend and backup bit-exact vs "
+        f"plain with the root edge forced in each of {k} slots; "
+        f"descend + backup {ms:.4f} ms ({int(levels.sum())} levels), plain "
+        f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+
+
+def gumbel_selfplay(torchgo, dev, card, counters, pol, val):
+    """Gumbel search self-play at full width: batch 8, 32 simulations a
+    move (a plan of 40), recorded π′ targets, 8 plies playing the halving
+    winner, then 4 plies sampling π′; every π′ row finite and summing to
+    1 within ``PI_ATOL``; the three kernels launched (counts reset just
+    before, read just after). Returns the launches and simulations/s."""
+    from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
+
+    cfg = pol.cfg
+    launches = {c.__name__.rsplit(".", 1)[-1]: 0 for c in counters}
+    rates = []
+    for sample, plies in ((False, GS_PLIES), (True, GS_SAMPLE_PLIES)):
+        run = make_mcts_selfplay(
+            cfg, pol.feature_list, val.feature_list, pol.module, val.module,
+            batch=SS_BATCH, max_moves=plies, n_sim=SS_SIMS,
+            sim_chunk=CHUNK, record_visits=True, gumbel=True, m_root=M_ROOT,
+            gumbel_sample=sample, device=dev)
+        plan = run.search.plan_sims
+        gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+        # untimed: the searcher's first launches
+        run.search_ply(torchgo.new_states(cfg, SS_BATCH, device=dev),
+                       noise=run.search.draw_noise(SS_BATCH, gen))
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        final, actions, live, targets = run(gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for c in counters:
+            launches[c.__name__.rsplit(".", 1)[-1]] += c.launches
+        what = "sampling pi'" if sample else "playing the halving winner"
+        check(actions.shape[0] == plies and targets.shape == (
+            plies, SS_BATCH, cfg.num_points + 1)
+            and targets.dtype == torch.float32,
+            f"Gumbel self-play ({what}): {actions.shape[0]} plies, targets "
+            f"{tuple(targets.shape)} {targets.dtype}")
+        check(bool(torch.isfinite(targets).all())
+              and bool(((targets.sum(-1) - 1).abs() <= PI_ATOL).all()),
+              f"Gumbel self-play ({what}): a pi' row is not finite or does "
+              f"not sum to 1: {targets.sum(-1).tolist()}")
+        rate = plies * plan / wall
+        rates.append(rate)
+        log(f"gumbel self-play [{card}] ({what}): batch {SS_BATCH}, "
+            f"{SS_SIMS} simulations (a plan of {plan}), m_root {M_ROOT}, "
+            f"{plies} plies in {wall:.2f} s: {plies / wall:.3f} plies/s, "
+            f"{rate:.1f} simulations/s ({rate * SS_BATCH:.1f} game "
+            f"simulations/s); every pi' row finite and sums to 1")
+    for name, n in launches.items():
+        check(n > 0, f"the {name} kernel was not launched by Gumbel "
+              "self-play")
+    log(f"gumbel self-play launches {launches}")
+    return launches, rates[0]
+
+
+def gumbel_tournament(card):
+    """The tournament CLI as a user runs it: ``gumbel-mcts`` against
+    ``device-mcts`` on the committed 9×9 gumbel nets, its log in
+    ``build/``, then the Elo CLI over that log."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "smoke_tournament")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    log_path = os.path.join(out, "games.jsonl")
+    spec = (os.path.join(root, GUMBEL_DIR, "policy.json") + ":"
+            + os.path.join(root, GUMBEL_DIR, "value.json"))
+    cmd = [sys.executable, "-m", "rocalphago_tpu_torch.interface.tournament",
+           f"gumbel-mcts:{spec}", f"device-mcts:{spec}", "--games",
+           str(TOURNEY_GAMES), "--board", "9", "--playouts",
+           str(TOURNEY_PLAYOUTS), "--move-limit", str(TOURNEY_MOVES),
+           "--log", log_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"tournament exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    tally = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(log_path) as f:
+        games = [json.loads(line) for line in f]
+    check(sum(tally["wins"].values()) == TOURNEY_GAMES
+          and tally["forfeits"] == {"A": 0, "B": 0}
+          and len(games) == TOURNEY_GAMES
+          and not any("forfeit" in g for g in games),
+          f"tournament: tally {tally}, {len(games)} log lines")
+    proc = subprocess.run([sys.executable, "-m",
+                           "rocalphago_tpu_torch.interface.elo", log_path],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    check(proc.returncode == 0, f"elo exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    table = json.loads(proc.stdout)["players"]
+    check(set(table) == {"A", "B"} and all(
+        row["elo"] is not None and np.isfinite(row["elo"])
+        for row in table.values()), f"elo: {table}")
+    log(f"tournament cli [{card}]: gumbel-mcts (A) vs device-mcts (B), "
+        f"9x9 committed gumbel nets, {TOURNEY_PLAYOUTS} playouts, move "
+        f"limit {TOURNEY_MOVES}: {tally['wins']}, gumbel win rate "
+        f"{tally['win_rate_a']:.3f} (not a gate; not comparable with "
+        f"results/gumbel_demo, another evaluator at 7x7), no forfeit, "
+        f"{wall:.1f} s with start-up; elo cli: A {table['A']['elo']}, "
+        f"B {table['B']['elo']}")
+
+
+def gumbel_vs_puct(torchgo, dev, card, puct_player, player, state):
+    """A PUCT and a Gumbel search of 100 simulations from the same root
+    (the Gumbel session's last position), timed in turns (PUCT, Gumbel,
+    Gumbel, PUCT; host ms, synchronised), then the kernels and device
+    time of one Gumbel chunk (profiler)."""
+    komi = float(state.komi)
+    cfg, gumbel = player._searcher_for(komi, 100)
+    _, puct = puct_player._searcher_for(komi)
+    root = bridged(torchgo, cfg, [state], dev)
+    noise = gumbel.draw_noise(1, torch.Generator(device=dev).manual_seed(
+        SEED + 20))
+
+    def run_puct():
+        puct.run_sims_chunked(puct.init(root), CHUNK, owned=True)
+
+    def run_gumbel():
+        gumbel.run_chunked(root, CHUNK, noise=noise)
+
+    laps = []
+    for name, fn in (("puct", run_puct), ("gumbel", run_gumbel),
+                     ("gumbel", run_gumbel), ("puct", run_puct)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        laps.append((name, (time.perf_counter() - t0) * 1e3))
+    log(f"same root, 100 simulations each [{card}], host ms in turns: "
+        + ", ".join(f"{n} {ms:.1f}" for n, ms in laps))
+    tree, g, cand, _ = gumbel.init(root, noise=noise)
+    k = gumbel.schedule[0][0]
+    return laps, profile_device(
+        lambda: gumbel.run_phase(tree, g, cand, 0, 1, k), CHUNK,
+        f"one Gumbel chunk of {CHUNK} simulations at batch 1",
+        "simulation")
+
+
+def phase_gumbel(pygo, torchgo, dev, card, counters, phase8, specs, puct):
+    """The Gumbel root search and the evaluation tools (phase 16);
+    ``puct`` is phase 9's session (its player and p50)."""
+    from rocalphago_tpu_torch.search.players import build_player
+
+    t0 = time.perf_counter()
+    gumbel_batched(torchgo, dev, *phase8)
+    player = build_player("gumbel-mcts", specs[0], value_path=specs[1])
+    grown = gumbel_sync_free(pygo, torchgo, dev, player.policy, player.value)
+    gumbel_tree_kernel(*grown, card)
+    main = phase_search_gtp(player, counters, what="gumbel-mcts")
+    check(main["reuses"] == 0, f"the Gumbel player reused {main['reuses']} "
+          "trees")
+    log(f"gumbel-mcts genmove p50 {main['p50']:.2f} ms at 100 simulations "
+        f"({main['p50'] / puct['p50']:.3f}x phase 9's device-mcts p50 "
+        f"{puct['p50']:.2f} ms, the same run) on {card}")
+    gumbel_vs_puct(torchgo, dev, card, puct["player"], player, main["state"])
+    sp_launches, sp_rate = gumbel_selfplay(torchgo, dev, card, counters,
+                                           player.policy, player.value)
+    phase_selfplay_cli(pygo, gumbel=True)
+    gumbel_tournament(card)
+    log(f"gumbel phase: {time.perf_counter() - t0:.1f} s")
+    return dict(main=main, sp_launches=sp_launches, sp_rate=sp_rate)
+
+
 def labels_sweeps(boards: torch.Tensor) -> int:
     """Sweeps the hook-and-jump fill needs on these boards (the same
     iteration the kernel runs, counted on the plain version's loop)."""
@@ -2365,7 +2660,7 @@ def main() -> int:
     phase_encode(pygo, torchgo, dev)
     phase_forward(torchgo, dev)
     greedy_launches, p50 = phase_gtp(dev, (L, C))
-    phase_batched_search(pygo, torchgo, dev)
+    phase8 = phase_batched_search(pygo, torchgo, dev)
     specs = model_specs(dev)
     player = build_player("device-mcts", specs[0], value_path=specs[1])
     tree8 = phase_sync_free(pygo, torchgo, dev, player.policy, player.value)
@@ -2379,13 +2674,17 @@ def main() -> int:
     phase_selfplay_cli(pygo)
     sv = phase_supervised(dev, card, (L, C))
     rf = phase_reinforcement(torchgo, dev, card, (L, C), sv["export"])
-    # the launches of the paths of PRs 4-6: policy self-play (labels,
+    gb = phase_gumbel(pygo, torchgo, dev, card, (L, C, T), phase8, specs,
+                      main_path)
+    # the launches of phases 11-16's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
-    # chase), the RL iteration and the generator (labels, chase); the
-    # kernels timed at self-play's shapes
+    # chase), the RL iteration and the generator (labels, chase), the
+    # Gumbel GTP session and Gumbel self-play (all three); the kernels
+    # timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
-                + rf["gen_launches"].get(k, 0) for k in ss["launches"]}
+                + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
+                + gb["sp_launches"][k] for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
     kernels = []
@@ -2412,6 +2711,11 @@ def main() -> int:
     log(f"device-search genmove p50 {main_path['p50']:.2f} ms at 100 "
         f"simulations, {main_path['sims_per_s']:.1f} simulations/s on "
         f"{card}")
+    log(f"gumbel-mcts genmove p50 {gb['main']['p50']:.2f} ms at 100 "
+        f"simulations, {gb['main']['sims_per_s']:.1f} simulations/s, "
+        f"launches {gb['main']['launches']}; Gumbel self-play "
+        f"{gb['sp_rate']:.1f} simulations/s at batch {SS_BATCH}, launches "
+        f"{gb['sp_launches']} on {card}")
     log(f"greedy session launches {greedy_launches}; converter launches "
         f"{sv['launches']}; RL iteration launches {rf['launches']}; "
         f"generator launches {rf['gen_launches']}")

@@ -18,6 +18,8 @@ Run it as::
     python -m rocalphago_tpu_torch.interface.gtp --policy spec.json
     python -m rocalphago_tpu_torch.interface.gtp --player device-mcts \
         --policy policy.json --value value.json [--playouts 100]
+
+(``--player gumbel-mcts`` searches with the Gumbel root rule.)
 """
 
 from __future__ import annotations
@@ -420,12 +422,15 @@ def main(argv=None):
         description="GTP engine over the PyTorch port's players")
     ap.add_argument("--policy", required=True,
                     help="policy model JSON spec (the reference's format)")
-    ap.add_argument("--value", help="value model JSON spec (device-mcts)")
+    ap.add_argument("--value", help="value model JSON spec (device-mcts, "
+                    "gumbel-mcts)")
     ap.add_argument("--player", default="greedy",
-                    choices=("greedy", "probabilistic", "device-mcts"))
+                    choices=("greedy", "probabilistic", "device-mcts",
+                             "gumbel-mcts"))
     ap.add_argument("--temperature", type=float, default=0.1)
     ap.add_argument("--playouts", type=int, default=100,
-                    help="simulations per move (device-mcts)")
+                    help="simulations per move (device-mcts, "
+                         "gumbel-mcts)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on "
                          "the CPU)")

@@ -7,7 +7,8 @@ reference's ``interface/selfplay_cli.py``.
 
 plays ``--games`` lockstep games with a saved policy (against itself or
 ``--opponent``), or with ``--search-sims`` and ``--value`` every move
-from a PUCT search on the card, then writes one SGF per game and a
+from a PUCT search on the card (``--gumbel``: the Gumbel root search,
+playing each ply's halving winner), then writes one SGF per game and a
 ``summary.json``. It runs on the card unless ``--device`` names another
 device, and raises when no card is there.
 """
@@ -93,23 +94,37 @@ def main(argv=None):
                          "--max-moves in one run), or simulations per "
                          "chunk with --search-sims (0 = 8)")
     ap.add_argument("--search-sims", type=int, default=0,
-                    help="play every move from a PUCT search of this "
+                    help="play every move from a search of this "
                          "many simulations on the card instead of "
                          "sampling the raw policy (requires --value; "
                          "incompatible with --opponent)")
     ap.add_argument("--value", default=None,
                     help="value model JSON (with --search-sims)")
+    ap.add_argument("--gumbel", action="store_true",
+                    help="with --search-sims: Gumbel root search "
+                         "(sequential halving) instead of PUCT; plays "
+                         "each ply's halving winner, so --temperature "
+                         "does not apply")
+    ap.add_argument("--m-root", type=int, default=16,
+                    help="Gumbel root candidate count; lower it at "
+                         "small --search-sims (every halving phase "
+                         "visits each survivor at least once)")
     ap.add_argument("--dirichlet-alpha", type=float, default=0.0,
-                    help="root-noise Dir(α) for search self-play (0 = "
-                         "off)")
+                    help="root-noise Dir(α) for PUCT search self-play "
+                         "(0 = off; incompatible with --gumbel)")
     ap.add_argument("--noise-frac", type=float, default=0.25,
                     help="root-noise mix fraction ε")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on "
                          "the CPU)")
     a = ap.parse_args(argv)
+    if a.gumbel and not a.search_sims:
+        raise SystemExit("--gumbel requires --search-sims")
     if a.dirichlet_alpha and not a.search_sims:
         raise SystemExit("--dirichlet-alpha requires --search-sims")
+    if a.dirichlet_alpha and a.gumbel:
+        raise SystemExit("--dirichlet-alpha is PUCT-mode root noise; "
+                         "--gumbel explores via the gumbel draw")
     if a.games % 2 and not a.search_sims:
         # search self-play plays one net for both colours: no colour
         # split, so an odd batch is fine there
@@ -135,8 +150,9 @@ def main(argv=None):
             cfg, net.feature_list, value.feature_list, net.module,
             value.module, batch=a.games, max_moves=a.max_moves,
             n_sim=a.search_sims, temperature=a.temperature,
-            sim_chunk=a.chunk or 8, dirichlet_alpha=a.dirichlet_alpha,
-            noise_frac=a.noise_frac, device=dev)
+            sim_chunk=a.chunk or 8, gumbel=a.gumbel, m_root=a.m_root,
+            dirichlet_alpha=a.dirichlet_alpha, noise_frac=a.noise_frac,
+            device=dev)
 
         def run(generator):
             final, actions, live = mcts_run(

@@ -243,6 +243,33 @@ class NeuralNetBase:
         """Adjust an older spec before the network is rebuilt."""
         return spec
 
+    # ---------------------------------------------------- other sizes
+
+    def size_generic(self) -> bool:
+        """Whether no parameter's shape depends on the board size (an
+        FCN head). Subclasses with one override; the default is
+        False."""
+        return False
+
+    def at_board(self, board: int) -> "NeuralNetBase":
+        """This net at another board size, sharing this net's module
+        (its parameters, by reference: nothing is copied), with its own
+        ``GoConfig`` and ``Preprocess``. A size-locked head (legacy
+        per-position bias or dense value head) raises ``ValueError``."""
+        if board == self.board:
+            return self
+        if not self.size_generic():
+            raise ValueError(
+                f"{type(self).__name__} at board {self.board} has "
+                "size-locked params (legacy dense/bias head) and cannot "
+                f"be re-sized to {board}; rebuild or retrain with the FCN "
+                "head")
+        clone = type(self)(self.feature_list, board=board,
+                           init_weights=False, device=self.device,
+                           dtype=self.module.dtype, **self.spec_kwargs)
+        clone.module = self.module
+        return clone
+
     @staticmethod
     def create_network(**kwargs) -> nn.Module:
         raise NotImplementedError

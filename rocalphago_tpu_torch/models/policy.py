@@ -70,3 +70,6 @@ class CNNPolicy(PointPolicyEval, NeuralNetBase):
         per-position bias param -- load them as the legacy head."""
         spec.setdefault("kwargs", {}).setdefault("head", "bias")
         return spec
+
+    def size_generic(self) -> bool:
+        return self.module.head.head == "fcn"

@@ -22,14 +22,20 @@ updates the reference's donated buffers; :meth:`DeviceMCTS.run_sims`
 and ``run_sims_chunked(owned=False)`` copy the tree first, so a
 caller's tree is never changed under it.
 
+The Gumbel root rule (:class:`GumbelMCTS`, :func:`make_gumbel_mcts`):
+Gumbel-top-k root candidates and sequential halving over them, every
+simulation forcing its root edge through the same tree kernel; it
+serves GTP (``DeviceMCTSPlayer(gumbel=True)``) and search self-play.
+
 Forced playouts at the root (``forced_k``) and their pruned policy
 target (:meth:`DeviceMCTS.pruned_targets`) serve search self-play
-(:func:`make_mcts_selfplay`: a fresh search per ply, optional Dirichlet
-root noise, the move sampled from the root visits).
+(:func:`make_mcts_selfplay`: a fresh search per ply, PUCT with optional
+Dirichlet root noise and the move sampled from the root visits, or
+Gumbel playing the halving winner or sampling π′).
 
-Not ported yet: the Gumbel root rule, the playout caps, per-row komi,
-the incremental root encode and the serving seam's transposition keys
-(later slices, ``ROADMAP.md``).
+Not ported yet: the playout caps, per-row komi, the incremental root
+encode and the serving seam's transposition keys (later slices,
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -402,39 +408,263 @@ def make_device_mcts(cfg: GoConfig, policy_features: tuple,
                       value_fn, n_sim, max_nodes, c_puct, forced_k)
 
 
+def _halving_schedule(n_sim: int, m: int) -> list[tuple[int, int]]:
+    """Sequential-halving plan: ``[(k_candidates, visits_per_cand)]``.
+
+    The candidate count halves each phase (m, m//2, …, 2); the budget is
+    split evenly across phases, and what the integer division leaves
+    goes to the final 2-candidate phase. Every phase visits each
+    survivor at least once, so for a tiny ``n_sim`` the plan's total
+    exceeds ``n_sim``."""
+    ks, k = [], m
+    while k >= 2:
+        ks.append(k)
+        k //= 2
+    p = len(ks)
+    sched = [(k, max(1, n_sim // (p * k))) for k in ks]
+    used = sum(k * v for k, v in sched)
+    leftover = n_sim - used
+    if leftover >= ks[-1]:
+        k, v = sched[-1]
+        sched[-1] = (k, v + leftover // k)
+    return sched
+
+
+def gumbel_plan_sims(n_sim: int, m_root: int, num_actions: int) -> int:
+    """Simulations a Gumbel search's halving plan really runs (e.g. 30
+    for n_sim 8 and m_root 16); slabs are sized from this."""
+    m = max(2, min(m_root, num_actions))
+    return sum(k * v for k, v in _halving_schedule(n_sim, m))
+
+
+class GumbelMCTS:
+    """Gumbel root search over the device tree (Danihelka et al. 2022),
+    built by :func:`make_gumbel_mcts` over a :class:`DeviceMCTS`.
+
+    The root draws ``m`` candidates without replacement by Gumbel-top-k
+    on the masked prior logits (``g = logits + Gumbel noise``), then
+    runs sequential halving (:func:`_halving_schedule`): in each phase
+    every survivor is forced as the root edge of the same number of
+    simulations (below the root, selection stays PUCT), and the
+    candidates are re-ranked by ``g + σ(q̂)`` so the next phase keeps the
+    better half. ``best`` is the last survivor; ``π′ = softmax(logits +
+    σ)`` is the improved policy.
+
+    The noise is a ``[B, A]`` float32 draw, ``-log(-log(u))`` with ``u``
+    uniform in ``[finfo.tiny, 1)`` from the caller's generator
+    (:meth:`draw_noise`), or a given ``noise=`` tensor."""
+
+    def __init__(self, base: DeviceMCTS, m: int, c_visit: float,
+                 c_scale: float):
+        self.base = base
+        self.cfg = base.cfg
+        self.max_nodes = base.max_nodes
+        self.m_root = m
+        self.schedule = _halving_schedule(base.n_sim, m)
+        self.plan_sims = sum(k * v for k, v in self.schedule)
+        self.c_visit = float(c_visit)
+        self.c_scale = float(c_scale)
+        self.root_stats = base.root_stats
+        self.last_ran = None           # sims the last chunked run ran
+
+    def draw_noise(self, batch: int,
+                   generator: torch.Generator) -> torch.Tensor:
+        """Standard Gumbel noise f32 ``[batch, A]`` on the generator's
+        device."""
+        f32 = torch.finfo(torch.float32)
+        u = torch.rand((batch, self.cfg.num_points + 1), generator=generator,
+                       device=generator.device)
+        return -torch.log(-torch.log(torch.clamp(u, min=f32.tiny)))
+
+    def root_draw(self, tree: DeviceTree, noise: torch.Tensor):
+        """``(g f32 [B, A], cand i32 [B, m], logits f32 [B, A])`` off a
+        tree's root priors: the perturbed logits, the top-``m``
+        candidates by ``g`` and the noise-free masked logits."""
+        neg = torch.finfo(torch.float32).min
+        prior = tree.prior[:, 0]
+        valid = prior > 0
+        logits = torch.where(valid, torch.log(torch.clamp(prior, min=1e-38)),
+                             neg)
+        g = torch.where(valid, logits + noise.to(prior.device), neg)
+        cand = torch.topk(g, self.m_root, dim=-1).indices.int()
+        return g, cand, logits
+
+    @torch.no_grad()
+    def init(self, roots: GoState, noise: torch.Tensor | None = None,
+             generator: torch.Generator | None = None):
+        """``(tree, g, cand, logits)``: the tree with its root priors and
+        the root draw from ``noise`` (or from ``generator``)."""
+        tree = self.base.init(roots)
+        if noise is None:
+            noise = self.draw_noise(roots.board.shape[0], generator)
+        return (tree,) + self.root_draw(tree, noise)
+
+    def sigma(self, tree: DeviceTree):
+        """``(visits, σ)``: the completed q̂ (unvisited actions take the
+        visit-weighted mean q), min–max rescaled over the
+        prior-supported actions, times ``(c_visit + max N) · c_scale``."""
+        visits, q = self.root_stats(tree)
+        nv = visits.float()
+        total = nv.sum(dim=-1, keepdim=True)
+        q_bar = (nv * q).sum(dim=-1, keepdim=True) / torch.clamp(total,
+                                                                 min=1.0)
+        completed = torch.where(visits > 0, q, q_bar)
+        valid = tree.prior[:, 0] > 0
+        lo = torch.where(valid, completed, float("inf")).amin(
+            dim=-1, keepdim=True)
+        hi = torch.where(valid, completed, float("-inf")).amax(
+            dim=-1, keepdim=True)
+        rescaled = (completed - lo) / torch.clamp(hi - lo, min=1e-8)
+        rescaled = torch.where(valid & (hi > lo), rescaled, 0.0)
+        maxn = visits.amax(dim=-1, keepdim=True).float()
+        return visits, (self.c_visit + maxn) * self.c_scale * rescaled
+
+    def improved_policy(self, tree: DeviceTree,
+                        logits: torch.Tensor) -> torch.Tensor:
+        """π′ = softmax(logits + σ) over the prior-supported actions."""
+        neg = torch.finfo(torch.float32).min
+        _, sig = self.sigma(tree)
+        masked = torch.where(logits > neg / 2, logits + sig, neg)
+        return torch.softmax(masked, dim=-1)
+
+    def rerank(self, tree: DeviceTree, g: torch.Tensor, cand: torch.Tensor,
+               k: int) -> torch.Tensor:
+        """The first ``k`` candidates sorted by ``g + σ`` descending,
+        stably (ties keep their order); the rest as they were."""
+        visits, sig = self.sigma(tree)
+        scores = torch.where(visits > 0, g + sig, g)
+        head = cand[:, :k]
+        s = scores.gather(1, head.long())
+        order = torch.sort(-s, dim=-1, stable=True).indices
+        return torch.cat([head.gather(1, order), cand[:, k:]], dim=-1)
+
+    @staticmethod
+    def forced_candidate(g: torch.Tensor, cand: torch.Tensor,
+                         slot: int) -> torch.Tensor:
+        """The root edge schedule slot ``slot`` forces (i32 ``[B]``); a
+        slot past the sensible moves (its g is the type's minimum)
+        forces the top candidate instead."""
+        forced = cand[:, slot]
+        g_f = g.gather(1, forced.long()[:, None])[:, 0]
+        return torch.where(g_f > torch.finfo(torch.float32).min / 2, forced,
+                           cand[:, 0]).contiguous()
+
+    @torch.no_grad()
+    def run_phase(self, tree: DeviceTree, g: torch.Tensor,
+                  cand: torch.Tensor, j0: int, count: int,
+                  k: int) -> DeviceTree:
+        """``count`` scheduled simulations in place: simulation ``i``
+        forces candidate slot ``(j0 + i) % k``."""
+        for i in range(count):
+            self.base.simulate(tree,
+                               self.forced_candidate(g, cand, (j0 + i) % k))
+        return tree
+
+    @torch.no_grad()
+    def __call__(self, roots: GoState, generator: torch.Generator | None = None,
+                 noise: torch.Tensor | None = None):
+        """The whole plan: ``(visits i32 [B, A], q f32 [B, A], best i32
+        [B], π′ f32 [B, A])``."""
+        tree, g, cand, logits = self.init(roots, noise, generator)
+        for k, v in self.schedule:
+            self.run_phase(tree, g, cand, 0, k * v, k)
+            cand = self.rerank(tree, g, cand, k)
+        visits, q = self.root_stats(tree)
+        return visits, q, cand[:, 0], self.improved_policy(tree, logits)
+
+    @torch.no_grad()
+    def run_chunked(self, roots: GoState, chunk: int,
+                    generator: torch.Generator | None = None,
+                    noise: torch.Tensor | None = None,
+                    deadline: Deadline | None = None, n: int | None = None):
+        """The plan phase by phase, in chunks of ``chunk`` simulations
+        queued one chunk ahead of the host (:class:`ChunkPipeline`); the
+        same result as :meth:`__call__` unless cut. ``deadline`` is
+        checked before every chunk after the first, and ``n`` truncates
+        the plan; a cut phase is still re-ranked, so ``best`` is the
+        anytime answer. ``last_ran`` holds the simulations run. Nothing
+        in the loop reads the card from the host."""
+        tree, g, cand, logits = self.init(roots, noise, generator)
+        enforce = deadline is not None and not deadline.unlimited
+        pipe = ChunkPipeline(tree.n_nodes.device)
+        ran, cut = 0, False
+        for k, v in self.schedule:
+            total = k * v
+            for j0 in range(0, total, chunk):
+                if ((ran and enforce and deadline.expired())
+                        or (n is not None and ran >= n)):
+                    cut = True
+                    break
+                count = min(chunk, total - j0)
+                if n is not None:
+                    count = min(count, n - ran)
+                self.run_phase(tree, g, cand, j0, count, k)
+                pipe.push()
+                ran += count
+            cand = self.rerank(tree, g, cand, k)
+            if cut:
+                break
+        pipe.drain()
+        self.last_ran = ran
+        visits, q = self.root_stats(tree)
+        return visits, q, cand[:, 0], self.improved_policy(tree, logits)
+
+
+def make_gumbel_mcts(cfg: GoConfig, policy_features: tuple,
+                     value_features: tuple, policy_fn: Callable,
+                     value_fn: Callable, n_sim: int,
+                     max_nodes: int | None = None, m_root: int = 16,
+                     c_visit: float = 50.0, c_scale: float = 0.1,
+                     c_puct: float = 5.0) -> GumbelMCTS:
+    """Build the Gumbel searcher (:class:`GumbelMCTS`) over a
+    :func:`make_device_mcts` searcher. ``m_root`` is clamped to
+    ``[2, A]``; ``max_nodes=None`` sizes the slab to twice the halving
+    plan's real simulation count (:func:`gumbel_plan_sims`)."""
+    num_actions = cfg.num_points + 1
+    m = max(2, min(m_root, num_actions))
+    if max_nodes is None:
+        max_nodes = 2 * gumbel_plan_sims(n_sim, m_root, num_actions)
+    base = make_device_mcts(cfg, policy_features, value_features,
+                            policy_fn, value_fn, n_sim=n_sim,
+                            max_nodes=max_nodes, c_puct=c_puct)
+    return GumbelMCTS(base, m, c_visit, c_scale)
+
+
 class DeviceMCTSPlayer:
-    """GTP-facing agent over the device search (PUCT).
+    """GTP-facing agent over the device search, PUCT or (``gumbel=True``)
+    the Gumbel root search.
 
     ``get_move(pygo.GameState) -> move | None`` (None = pass): the host
     state is bridged once (``from_pygo`` and one labels launch; the
     root is encoded from scratch), the search runs on the card in
     chunks of ``sim_chunk`` simulations, and the most-visited move
-    comes back.
+    comes back (under Gumbel, the halving winner ``best``).
 
-    Subtree reuse: the tree is carried across ``get_move`` calls and its
-    root walked down the moves actually played, so a search resumes
-    from the visits already spent below that child. It falls back to a
-    fresh tree on a komi or board change, an undo, an unexpanded edge,
-    a slab more than three quarters full, or a position that does not
-    match (stones placed outside the history); ``reuses`` counts the
-    reused searches.
+    Subtree reuse (PUCT only): the tree is carried across ``get_move``
+    calls and its root walked down the moves actually played, so a
+    search resumes from the visits already spent below that child. It
+    falls back to a fresh tree on a komi or board change, an undo, an
+    unexpanded edge, a slab more than three quarters full, or a
+    position that does not match (stones placed outside the history);
+    ``reuses`` counts the reused searches. Gumbel rebuilds its tree
+    every move: its root draw is per move. The draws come from one
+    ``torch.Generator`` on the player's device, seeded from ``seed``.
 
     Time: ``set_move_time(seconds)`` (from the GTP time commands) caps
-    the next searches at ``seconds × measured sims/sec``, in whole
-    chunks; the first search of each searcher runs the full budget and
-    seeds the rate. The same budget arms a :class:`Deadline` checked
-    between chunks; ``last_deadline_hit`` and ``deadline_hits`` report
-    it and ``last_n_sim`` what the last search ran. ``sim_limit``
-    (None = none) caps every search.
+    the next searches at ``seconds × measured sims/sec``: PUCT in whole
+    chunks, Gumbel by halving ``n_sim`` (a tier) while its plan exceeds
+    the allowed simulations, down to the plan's floor. The first search
+    of each searcher runs the full budget and seeds the rate. The same
+    budget arms a :class:`Deadline` checked between chunks;
+    ``last_deadline_hit`` and ``deadline_hits`` report it and
+    ``last_n_sim`` what the last search ran. ``sim_limit`` (None =
+    none) caps every search.
     """
 
     def __init__(self, value_net, policy_net, n_sim: int = 100,
                  max_nodes: int | None = None, c_puct: float = 5.0,
-                 sim_chunk: int = 8, gumbel: bool = False):
-        if gumbel:
-            raise NotImplementedError(
-                "the Gumbel root search is not ported yet (a later "
-                "device-search slice); use the PUCT player")
+                 sim_chunk: int = 8, gumbel: bool = False,
+                 m_root: int = 16, seed: int = 0):
         self.policy = policy_net
         self.value = value_net
         self.board = policy_net.board
@@ -444,6 +674,10 @@ class DeviceMCTSPlayer:
         self._n_sim = n_sim
         self._max_nodes = max_nodes
         self._c_puct = c_puct
+        self._gumbel = gumbel
+        self._m_root = m_root
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
         self._carry = None
         self.reuses = 0
         self._clock = MoveClock()
@@ -451,10 +685,12 @@ class DeviceMCTSPlayer:
         self.last_deadline_hit = False
         self.deadline_hits = 0
         self.sim_limit: int | None = None
-        # one searcher per komi: terminal leaves score with its komi
+        # one searcher per komi (terminal leaves score with its komi)
+        # and, under Gumbel, per tier
         self._searchers: dict = {}
-        # build the default-komi searcher now, so a feature-layout
-        # mismatch fails at construction and not on the first genmove
+        # build the default searcher now, so a feature-layout mismatch
+        # fails at construction and not on the first genmove; every
+        # tier shares its slab size
         self._max_nodes = self._searcher_for(self._cfg.komi)[1].max_nodes
 
     @property
@@ -471,26 +707,45 @@ class DeviceMCTSPlayer:
         self._clock.set_move_time(seconds)
 
     def _effective_sims(self) -> int:
-        """Simulations for the next search: ``move_time × sims/sec`` in
-        whole chunks, at least one chunk, at most ``n_sim``; the full
-        budget with no clock or no rate yet."""
+        """Simulations for the next search: ``move_time × sims/sec``,
+        PUCT in whole chunks (at least one, at most ``n_sim``), Gumbel
+        as the largest halving tier whose plan fits (or the plan's
+        floor); the full budget with no clock or no rate yet."""
         allowed = self._clock.allowed_units()
         if self.sim_limit is not None:
             allowed = (self.sim_limit if allowed is None
                        else min(allowed, self.sim_limit))
         if allowed is None:
             return self._n_sim
+        if self._gumbel:
+            tier = self._n_sim
+            num_actions = self._cfg.num_points + 1
+            plan = gumbel_plan_sims(tier, self._m_root, num_actions)
+            while tier > 2 and plan > allowed:
+                nxt = max(2, tier // 2)
+                nxt_plan = gumbel_plan_sims(nxt, self._m_root, num_actions)
+                if nxt_plan >= plan:
+                    break               # the plan's floor
+                tier, plan = nxt, nxt_plan
+            return tier
         return min(self._n_sim,
                    max(self._chunk, allowed // self._chunk * self._chunk))
 
-    def _searcher_for(self, komi: float):
-        key = (komi, self._n_sim)
+    def _searcher_for(self, komi: float, n_sim: int | None = None):
+        key = (komi, n_sim or self._n_sim)
         if key not in self._searchers:
             cfg = dataclasses.replace(self._cfg, komi=komi)
-            self._searchers[key] = (cfg, make_device_mcts(
-                cfg, self.policy.feature_list, self.value.feature_list,
-                self.policy.module, self.value.module, n_sim=self._n_sim,
-                max_nodes=self._max_nodes, c_puct=self._c_puct))
+            args = (cfg, self.policy.feature_list, self.value.feature_list,
+                    self.policy.module, self.value.module)
+            if self._gumbel:
+                search = make_gumbel_mcts(
+                    *args, n_sim=key[1], max_nodes=self._max_nodes,
+                    m_root=self._m_root, c_puct=self._c_puct)
+            else:
+                search = make_device_mcts(
+                    *args, n_sim=key[1], max_nodes=self._max_nodes,
+                    c_puct=self._c_puct)
+            self._searchers[key] = (cfg, search)
         return self._searchers[key]
 
     def _reused_tree(self, search: DeviceMCTS, state, komi: float,
@@ -525,8 +780,9 @@ class DeviceMCTSPlayer:
     def get_move(self, state):
         komi = float(state.komi)
         eff = self._effective_sims()
-        skey = (komi, self._n_sim)
-        cfg, search = self._searcher_for(komi)
+        tier = eff if self._gumbel else self._n_sim
+        skey = (komi, tier)
+        cfg, search = self._searcher_for(komi, tier)
         root = torchgo.seed_labels(cfg, torchgo.from_pygo(
             cfg, [state], device=self.device, with_labels=False))
         # the clock plans eff simulations; the deadline enforces the
@@ -536,21 +792,33 @@ class DeviceMCTSPlayer:
             self._clock.move_time if self._clock.rate is not None
             else None)
         t0 = time.monotonic()
-        tree = self._reused_tree(search, state, komi, root)
-        if tree is not None:
-            self.reuses += 1
+        if self._gumbel:
+            visits, _, best, _ = search.run_chunked(
+                root, self._chunk,
+                noise=search.draw_noise(1, self._generator),
+                deadline=deadline)
+            action = int(best[0])
+            counts = visits[0].cpu().numpy()
+            planned = search.plan_sims        # not eff: the plan's total
+            ran = search.last_ran
         else:
-            tree = search.init(root)
-        # the search updates the tree in place: drop the carry first,
-        # so a search that fails half way is never walked again
-        self._carry = None
-        tree, ran = search.run_sims_chunked(tree, self._chunk, n=eff,
-                                            deadline=deadline, owned=True)
-        visits, _ = search.root_stats(tree)
-        counts = visits[0].cpu().numpy()
-        action = int(np.argmax(counts))
-        self._carry = (komi, state.size, state.turns_played, tree)
-        self.last_deadline_hit = ran < eff
+            tree = self._reused_tree(search, state, komi, root)
+            if tree is not None:
+                self.reuses += 1
+            else:
+                tree = search.init(root)
+            # the search updates the tree in place: drop the carry
+            # first, so a search that fails half way is never walked
+            # again
+            self._carry = None
+            tree, ran = search.run_sims_chunked(
+                tree, self._chunk, n=eff, deadline=deadline, owned=True)
+            planned = eff
+            visits, _ = search.root_stats(tree)
+            counts = visits[0].cpu().numpy()
+            action = int(np.argmax(counts))
+            self._carry = (komi, state.size, state.turns_played, tree)
+        self.last_deadline_hit = ran < planned
         self.deadline_hits += int(self.last_deadline_hit)
         self._clock.note(skey, ran, time.monotonic() - t0)
         self.last_n_sim = ran
@@ -565,37 +833,58 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
                        n_sim: int, max_nodes: int | None = None,
                        c_puct: float = 5.0, temperature: float = 1.0,
                        sim_chunk: int = 8, record_visits: bool = False,
+                       gumbel: bool = False, m_root: int = 16,
+                       gumbel_sample: bool = False,
                        dirichlet_alpha: float = 0.0,
                        noise_frac: float = 0.25, forced_k: float = 0.0,
                        device=None):
-    """Search self-play, PUCT: every move of every game comes from a
-    fresh search over the batch (:func:`make_device_mcts`, ``n_sim``
-    simulations in chunks of ``sim_chunk``, no subtree reuse), and the
-    move is sampled from the root visits ``∝ visits^(1/temperature)``
-    (argmax at temperature 0). One net plays both colours.
+    """Search self-play: every move of every game comes from a fresh
+    search over the batch (no subtree reuse), ``n_sim`` simulations in
+    chunks of ``sim_chunk``; one net plays both colours.
 
+    PUCT (:func:`make_device_mcts`): the move is sampled from the root
+    visits ``∝ visits^(1/temperature)`` (argmax at temperature 0).
     ``dirichlet_alpha > 0`` mixes root noise into each ply's root priors
     before the simulations: ``p ← (1 − ε)·p + ε·Dir(α)`` over the
     prior-supported actions, ``ε = noise_frac``. The gamma draws behind
     ``Dir(α)`` are made on the host by the caller's
     ``numpy.random.Generator`` (one ``[B, A]`` draw per ply) and copied
     to the card; torch's gamma sampler takes no generator.
-
     ``forced_k > 0``: forced playouts at the root, and the recorded
     target is :meth:`DeviceMCTS.pruned_targets` (f32); the move is still
     sampled from the raw visits.
 
+    Gumbel (``gumbel=True``, :func:`make_gumbel_mcts` with ``m_root``
+    candidates): each ply draws its root noise from the run's generator
+    and plays the halving winner, or with ``gumbel_sample`` a move
+    sampled from π′ as above (the noise is drawn first); the recorded
+    target is π′ (f32). Root noise and forced playouts are PUCT knobs
+    and raise ``ValueError`` with ``gumbel``.
+
     Returns ``run(generator, noise_rng=None) -> (final GoState, actions
     i32 [T, B], live bool [T, B])``, and ``targets [T, B, A]`` after
-    them with ``record_visits`` (i32 root visits, or the f32 pruned
-    targets under ``forced_k``). The loop stops after the ply on which
-    every game has ended (a host read of the done flags per ply).
-    ``run.search_ply``, ``run.pick_and_step`` and ``run.add_root_noise``
+    them with ``record_visits`` (i32 root visits under plain PUCT, f32
+    otherwise). The loop stops after the ply on which every game has
+    ended (a host read of the done flags per ply). ``run.search_ply``,
+    ``run.pick_and_step``, ``run.step_best`` and ``run.add_root_noise``
     are its parts; ``run.search`` is the searcher."""
+    if gumbel and dirichlet_alpha > 0:
+        raise ValueError(
+            "dirichlet_alpha is a PUCT-mode knob; gumbel self-play's "
+            "root exploration is the gumbel draw itself")
+    if gumbel and forced_k:
+        raise ValueError(
+            "forced_k is a PUCT-root knob; gumbel search visits "
+            "candidates by schedule, not PUCT selection")
     dev = resolve_device(device)
-    search = make_device_mcts(cfg, policy_features, value_features,
-                              policy_fn, value_fn, n_sim, max_nodes,
-                              c_puct, forced_k=forced_k)
+    if gumbel:
+        search = make_gumbel_mcts(cfg, policy_features, value_features,
+                                  policy_fn, value_fn, n_sim, max_nodes,
+                                  m_root=m_root, c_puct=c_puct)
+    else:
+        search = make_device_mcts(cfg, policy_features, value_features,
+                                  policy_fn, value_fn, n_sim, max_nodes,
+                                  c_puct, forced_k=forced_k)
     n_act = cfg.num_points + 1
 
     def sample_weighted(weights: torch.Tensor,
@@ -611,11 +900,17 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
         return torch.argmax(weights, dim=-1).int()
 
     @torch.no_grad()
-    def pick_and_step(states: GoState, visits: torch.Tensor,
+    def pick_and_step(states: GoState, weights: torch.Tensor,
                       generator: torch.Generator):
-        """``(new states, action i32 [B], live bool [B])``."""
-        action = sample_weighted(visits.float(), generator)
+        """``(new states, action i32 [B], live bool [B])``, the action
+        sampled from ``weights`` (root visits, or π′)."""
+        action = sample_weighted(weights.float(), generator)
         return step(cfg, states, action), action, ~states.done
+
+    @torch.no_grad()
+    def step_best(states: GoState, best: torch.Tensor):
+        """The Gumbel move rule: play the halving winner."""
+        return step(cfg, states, best), best, ~states.done
 
     @torch.no_grad()
     def add_root_noise(tree: DeviceTree, gamma: torch.Tensor) -> DeviceTree:
@@ -631,8 +926,15 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
         return tree
 
     @torch.no_grad()
-    def search_ply(states: GoState, gamma: torch.Tensor | None = None):
-        """One ply's search: ``(root visits i32 [B, A], target)``."""
+    def search_ply(states: GoState, gamma: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None):
+        """One ply's search: PUCT ``(root visits i32 [B, A], target)``;
+        Gumbel ``(root visits, π′ f32 [B, A], best i32 [B])`` from the
+        root noise ``noise``."""
+        if gumbel:
+            visits, _, best, pi = search.run_chunked(states, sim_chunk,
+                                                     noise=noise)
+            return visits, pi, best
         tree = search.init(states)
         if gamma is not None:
             add_root_noise(tree, gamma)
@@ -648,13 +950,24 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
         states = new_states(cfg, batch, device=dev)
         actions, lives, targets = [], [], []
         for _ in range(max_moves):
-            gamma = None
-            if dirichlet_alpha > 0:
-                gamma = torch.as_tensor(
-                    noise_rng.gamma(dirichlet_alpha, size=(batch, n_act)),
-                    dtype=torch.float32).to(dev)
-            visits, target = search_ply(states, gamma)
-            states, action, live = pick_and_step(states, visits, generator)
+            if gumbel:
+                _, target, best = search_ply(
+                    states, noise=search.draw_noise(batch, generator))
+                if gumbel_sample:
+                    states, action, live = pick_and_step(states, target,
+                                                         generator)
+                else:
+                    states, action, live = step_best(states, best)
+            else:
+                gamma = None
+                if dirichlet_alpha > 0:
+                    gamma = torch.as_tensor(
+                        noise_rng.gamma(dirichlet_alpha,
+                                        size=(batch, n_act)),
+                        dtype=torch.float32).to(dev)
+                visits, target = search_ply(states, gamma)
+                states, action, live = pick_and_step(states, visits,
+                                                     generator)
             actions.append(action)
             lives.append(live)
             if record_visits:
@@ -667,7 +980,8 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
                torch.stack(lives) if lives else torch.zeros(
                    (0, batch), dtype=torch.bool, device=dev))
         if record_visits:
-            tdtype = torch.float32 if forced_k else torch.int32
+            tdtype = (torch.float32 if (gumbel or forced_k)
+                      else torch.int32)
             out += (torch.stack(targets) if targets else torch.zeros(
                 (0, batch, n_act), dtype=tdtype, device=dev),)
         return out
@@ -675,5 +989,6 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
     run.search = search
     run.search_ply = search_ply
     run.pick_and_step = pick_and_step
+    run.step_best = step_best
     run.add_root_noise = add_root_noise
     return run

@@ -1,6 +1,7 @@
 """Host-facing agents: the port of ``search/players.py`` for the greedy
 and probabilistic policy players, and the factory that also builds the
-device-search player (:class:`~.device_mcts.DeviceMCTSPlayer`)."""
+device-search players, PUCT and Gumbel
+(:class:`~.device_mcts.DeviceMCTSPlayer`)."""
 
 from __future__ import annotations
 
@@ -83,17 +84,31 @@ class ProbabilisticPolicyPlayer:
 
 def build_player(kind: str, policy_path: str, value_path: str | None = None,
                  temperature: float = 0.67, playouts: int = 100,
-                 device=None):
-    """A ``greedy``, ``probabilistic`` or ``device-mcts`` player over
-    saved model specs, on CUDA unless ``device`` names another device.
-    ``device-mcts`` needs a value net and searches ``playouts``
-    simulations per move."""
+                 device=None, board: int | None = None):
+    """A ``greedy``, ``probabilistic``, ``device-mcts`` or ``gumbel-mcts``
+    player over saved model specs, on CUDA unless ``device`` names
+    another device. The search players need a value net and search
+    ``playouts`` simulations per move. With ``board``, nets saved at
+    another size are re-boarded through :meth:`~rocalphago_tpu_torch.
+    models.nn_util.NeuralNetBase.at_board` (FCN heads play any size;
+    size-locked heads raise ``ValueError``)."""
     from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
 
-    if kind not in ("greedy", "probabilistic", "device-mcts"):
+    if kind == "mcts":
+        raise ValueError(
+            "the mcts player (host APV-MCTS with rollouts) is not ported "
+            "yet (ROADMAP.md, Queue 1 item 2); this port has greedy, "
+            "probabilistic, device-mcts and gumbel-mcts")
+    if kind not in ("greedy", "probabilistic", "device-mcts", "gumbel-mcts"):
         raise ValueError(f"unknown player kind {kind!r} (this port has "
-                         "greedy, probabilistic and device-mcts)")
-    policy = NeuralNetBase.load_model(policy_path, device=device)
+                         "greedy, probabilistic, device-mcts and "
+                         "gumbel-mcts)")
+
+    def load(path):
+        net = NeuralNetBase.load_model(path, device=device)
+        return net if board is None else net.at_board(board)
+
+    policy = load(policy_path)
     if kind == "greedy":
         return GreedyPolicyPlayer(policy)
     if kind == "probabilistic":
@@ -102,8 +117,8 @@ def build_player(kind: str, policy_path: str, value_path: str | None = None,
 
     if not value_path:
         raise ValueError(f"{kind} player needs a value model")
-    value = NeuralNetBase.load_model(value_path, device=device)
-    return DeviceMCTSPlayer(value, policy, n_sim=playouts)
+    return DeviceMCTSPlayer(load(value_path), policy, n_sim=playouts,
+                            gumbel=(kind == "gumbel-mcts"))
 
 
 def player_board(player) -> int | None:

@@ -416,5 +416,12 @@ def test_move_clock_and_player_budget():
     assert player._effective_sims() == 32
     player.sim_limit = 17
     assert player._effective_sims() == 16
-    with pytest.raises(NotImplementedError, match="Gumbel"):
-        device_mcts.DeviceMCTSPlayer(pv, pp, gumbel=True)
+    # the Gumbel player halves n_sim into tiers instead
+    # (tests/test_torch_gumbel.py holds them to the reference's)
+    gumbel = device_mcts.DeviceMCTSPlayer(pv, pp, n_sim=32, sim_chunk=8,
+                                          gumbel=True)
+    gumbel._clock.rate = 20.0
+    gumbel.set_move_time(0.5)                     # 10 sims: the plan's
+    assert gumbel._effective_sims() == 8          # floor, 30 sims
+    gumbel.set_move_time(100.0)
+    assert gumbel._effective_sims() == 32

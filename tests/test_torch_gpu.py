@@ -172,11 +172,15 @@ def test_labels_kernel_region_boards(cuda_device, size):
     assert torch.equal(labels.labels(t, size), labels.labels_plain(t, size))
 
 
-def fake_search(size, feats):
-    """A device search with the reference's fakes (uniform logits, a
-    stone-count value): exact on any device, so the card's search, with
-    every kernel, must equal the CPU's."""
-    from rocalphago_tpu_torch.search.device_mcts import make_device_mcts
+def fake_search(size, feats, gumbel=False):
+    """A device search (PUCT, or Gumbel with 24 simulations and 16
+    candidates: a plan of 34) with the reference's fakes (uniform
+    logits, a stone-count value): exact on any device, so the card's
+    search, with every kernel, must equal the CPU's."""
+    from rocalphago_tpu_torch.search.device_mcts import (
+        make_device_mcts,
+        make_gumbel_mcts,
+    )
 
     n = size * size
 
@@ -187,6 +191,9 @@ def fake_search(size, feats):
         return (planes[..., 0].sum(dim=(1, 2))
                 - planes[..., 1].sum(dim=(1, 2))) / n
 
+    if gumbel:
+        return make_gumbel_mcts(torchgo.GoConfig(size=size), feats,
+                                feats + ("color",), policy, value, n_sim=24)
     return make_device_mcts(torchgo.GoConfig(size=size), feats,
                             feats + ("color",), policy, value, n_sim=24,
                             max_nodes=20)
@@ -219,6 +226,83 @@ def test_device_search_on_the_card_equals_the_cpu(cuda_device):
     assert all(m.launches > before[m] for m in before)
     assert int(trees[1].n_nodes.max()) == 20
     assert int(trees[1].visits[-1].sum()) == 0       # the finished game
+
+
+def test_gumbel_search_on_the_card_equals_the_cpu(cuda_device):
+    """The Gumbel search with the fakes and one noise draw: on the card
+    (every descent through the tree kernel, its root edge forced) the
+    CPU's visits, q and ``best`` (the plain walks), chunked and whole;
+    every kernel launched. π′ within 1e-6: the card's exp and log round
+    differently from the CPU's in the last place."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+
+    cfg = torchgo.GoConfig(size=9)
+    states = random_positions(9, 5, 0, 60, 7)
+    noise = fake_search(9, DEFAULT_FEATURES, gumbel=True).draw_noise(
+        5, torch.Generator().manual_seed(1))
+    before = {m: m.launches for m in (labels, chase, tree)}
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        search = fake_search(9, DEFAULT_FEATURES, gumbel=True)
+        roots = torchgo.seed_labels(cfg, torchgo.from_pygo(
+            cfg, states, device=device, with_labels=False))
+        whole = search(roots, noise=noise.to(device))
+        chunked = search.run_chunked(roots, 5, noise=noise.to(device))
+        for x, y in zip(whole, chunked):
+            assert torch.equal(x, y)
+        results.append(whole)
+    assert all(m.launches > before[m] for m in before)
+    for x, y in zip(results[0][:3], results[1][:3]):
+        assert torch.equal(x.cpu(), y)
+    assert float((results[0][3].cpu() - results[1][3]).abs().max()) <= 1e-6
+    assert bool((results[1][0].sum(1) == 34).all())
+
+
+def test_gumbel_chunk_makes_no_host_sync(cuda_device):
+    """One Gumbel chunk (every simulation forcing its root edge) and the
+    rerank after it queue without a device->host sync."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+
+    cfg = torchgo.GoConfig(size=9)
+    search = fake_search(9, DEFAULT_FEATURES, gumbel=True)
+    roots = torchgo.seed_labels(cfg, torchgo.from_pygo(
+        cfg, random_positions(9, 4, 10, 40, 8), device=cuda_device,
+        with_labels=False))
+    tree, g, cand, _ = search.init(
+        roots, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    k = search.schedule[0][0]
+    search.run_phase(tree, g, cand, 0, 1, k)       # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        search.run_phase(tree, g, cand, 1, 8, k)
+        cand = search.rerank(tree, g, cand, k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(search.root_stats(tree)[0].sum()) == 4 * 9
+
+
+def test_gumbel_player_answers_a_genmove(cuda_device):
+    """``build_player("gumbel-mcts")`` on the committed 9×9 nets, by
+    default on the card: a legal genmove from a whole plan."""
+    import os
+
+    from rocalphago_tpu_torch.search.players import build_player
+
+    nets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "results", "zero_r5",
+        "target_compare", "gumbel")
+    player = build_player("gumbel-mcts", os.path.join(nets, "policy.json"),
+                          os.path.join(nets, "value.json"), playouts=16)
+    assert player.device.type == "cuda"
+    out = io.StringIO()
+    engine = run_gtp(player, io.StringIO(
+        "boardsize 9\ngenmove b\ngenmove w\nquit\n"), out)
+    moves = [r[2:] for r in out.getvalue().split("\n\n")
+             if r.startswith("= ")]
+    assert len(moves) == 2 and engine.illegal_from_player == 0
+    assert all(vertex_to_move(v, 9) is not None for v in moves)
+    assert player.last_n_sim == 32 and player.reuses == 0   # the plan
 
 
 def random_slab(batch, seed):

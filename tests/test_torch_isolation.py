@@ -21,10 +21,11 @@ import torch
 from rocalphago_tpu_torch import resolve_device
 from rocalphago_tpu_torch.features import Preprocess
 from rocalphago_tpu_torch.engine import torchgo
-from rocalphago_tpu_torch.interface import gtp, selfplay_cli
+from rocalphago_tpu_torch.interface import elo, gtp, selfplay_cli, tournament
 from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
 from rocalphago_tpu_torch.ops import chase, labels, tree
 from rocalphago_tpu_torch.search import selfplay
+from rocalphago_tpu_torch.search.players import build_player
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
 from rocalphago_tpu_torch.data import convert
 from rocalphago_tpu_torch.training import evaluate, rl, selfplay_data, sl, value
@@ -178,6 +179,36 @@ def test_reinforcement_entry_points_need_a_card_or_an_explicit_cpu(
          "--n-positions", "1", "--batch", "2", "--max-moves", "6",
          "--device", "cpu"])
     assert manifest["num_positions"] >= 1
+
+
+def test_gumbel_and_evaluation_entry_points_need_a_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path, capsys):
+    """The Gumbel player, its GTP and self-play modes and the tournament
+    CLI raise with no card unless the CPU is named; Elo reads logs and
+    touches no device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_player("gumbel-mcts", SPEC, VALUE_SPEC)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gtp.main(["--player", "gumbel-mcts", "--policy", SPEC, "--value",
+                  VALUE_SPEC])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selfplay_cli.main(["--policy", SPEC, "--out", str(tmp_path),
+                           "--search-sims", "4", "--value", VALUE_SPEC,
+                           "--gumbel"])
+    log = str(tmp_path / "games.jsonl")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tournament.main([f"greedy:{SPEC}", f"gumbel-mcts:{SPEC}:{VALUE_SPEC}",
+                         "--board", "9", "--log", log])
+    assert not os.listdir(tmp_path)
+    tally = tournament.main([f"greedy:{SPEC}", f"greedy:{SPEC}", "--board",
+                             "9", "--games", "2", "--move-limit", "4",
+                             "--log", log, "--device", "cpu"])
+    assert sum(tally["wins"].values()) == 2
+    capsys.readouterr()
+    assert elo.main([log]) == 0
+    table = json.loads(capsys.readouterr().out)
+    assert set(table["players"]) == {"A", "B"}
 
 
 def test_kernel_wrappers_do_not_fall_back():
