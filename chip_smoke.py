@@ -137,10 +137,34 @@ Phases, in order; any failure exits non-zero before the result line:
     with ``--gumbel --m-root 4``; the tournament CLI, ``gumbel-mcts``
     against ``device-mcts`` on the committed 9×9 gumbel nets (4 games,
     8 playouts, move limit 60, no forfeit, a log line a game) and the
-    Elo CLI over its log (finite ratings).
+    Elo CLI over its log (finite ratings);
+17. the reference's own AlphaGo player, host APV-MCTS, in
+    ``build/smoke_mcts``: fresh seeded specs written by the port's spec
+    CLI (the 19×19 12 × 128 policy and FCN value nets, a 32-filter
+    rollout net, a 12 × 128 policy with two global-pooling blocks, a
+    9×9 rollout net); the main path, ``build_player("mcts", ...,
+    device_rollout=True)`` at 100 playouts, leaf batch 8, λ 0.5,
+    rollouts to 500 plies, in a GTP session of ``MCTS_GENMOVES``
+    genmoves and ``MCTS_TIMED_GENMOVES`` under ``time_settings 0 1 1``
+    (one wave each), every reply a legal vertex, labels and chase
+    launched (counts reset just before, read just after), the genmove
+    p50, playouts/s and the host stages of a wave; one wave of the
+    session's leaves rolled out on the card with its actions recorded
+    and replayed through pygo on the CPU (the same winners; the host
+    reads of the run counted under ``set_sync_debug_mode("warn")``:
+    one per ``ROLLOUT_CHECK_PLIES`` plies and one for the winners), the
+    launches of one wave, a profile of 10 rollout plies; a genmove of
+    one wave with host rollouts; symmetric policy distributions and
+    values at batch 8 and the pooled policy's forward, card vs CPU at
+    float32 within ``FORWARD_ATOL``/``FORWARD_RTOL``; a ``ValuePlayer``
+    move with a top-16 policy pre-filter; and the tournament CLI,
+    ``mcts`` with a rollout spec and ``--device-rollout`` against
+    ``greedy`` on the committed 9×9 nets (2 games, 8 playouts, move
+    limit 60, no forfeit).
 
 The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
-iteration and generator, and 16's GTP session and self-play together,
+iteration and generator, 16's GTP session and self-play, and 17's GTP
+session together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -221,6 +245,14 @@ RL_MID = 250             # the replay ply whose lanes and followers are
 RL_SMALL_BATCH = 8       # the RL CLI's kill/resume runs
 RL_SMALL_MOVES = 60
 GEN_POSITIONS = 512      # the generator's corpus, at least
+MCTS_DIR = os.path.join("build", "smoke_mcts")
+MCTS_GENMOVES = 2        # host APV-MCTS genmoves at 100 playouts
+MCTS_TIMED_GENMOVES = 2  # then under time_settings 0 1 1
+MCTS_PLAYOUTS, MCTS_LEAF_BATCH = 100, 8   # the reference's defaults
+MCTS_HOST_PLAYOUTS = 8   # one wave with host rollouts
+VALUE_TOP_K = 16         # the value player's policy pre-filter
+MCTS_TOURNEY_GAMES = 2   # mcts vs greedy, 8 playouts, move limit 60
+ROLLOUT_PROFILE_PLIES = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -2614,6 +2646,374 @@ def phase_gumbel(pygo, torchgo, dev, card, counters, phase8, specs, puct):
     return dict(main=main, sp_launches=sp_launches, sp_rate=sp_rate)
 
 
+# ------------------------------------------------------- host APV-MCTS
+
+
+def mcts_specs():
+    """The nets of phase 17, written by the port's spec CLI (its
+    ``main``) with fresh seeded weights: the 19×19 12 × 128 policy (48
+    planes) and FCN value net (49), a 32-filter 19×19 rollout net, a
+    12 × 128 policy with two global-pooling blocks, and a 9×9 rollout
+    net for the tournament."""
+    from rocalphago_tpu_torch.models import specs
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, MCTS_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    paths = {}
+    for name, argv in (
+            ("policy", ["policy", "--seed", str(SEED + 30)]),
+            ("value", ["value", "--seed", str(SEED + 31)]),
+            ("rollout", ["rollout", "--seed", str(SEED + 32)]),
+            ("pooled", ["policy", "--trunk-pool", "2", "--seed",
+                        str(SEED + 33)]),
+            ("rollout9", ["rollout", "--board", "9", "--seed",
+                          str(SEED + 34)])):
+        paths[name] = os.path.join(out, f"{name}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            specs.main(argv + ["--out", paths[name]])
+    return paths
+
+
+class WaveClock:
+    """Host seconds of each stage of a ``ParallelMCTS``'s leaf waves:
+    descent (``_descend``, its state copies and moves included), encode
+    and evaluation (the fused or separate net calls), rollout (the batch
+    rollout) and backup (the rest of a wave: virtual loss, expansion,
+    updates). Keeps the leaves of the last full wave and each device
+    rollout's executed plies."""
+
+    STAGES = ("descent", "evaluation", "rollout")
+
+    def __init__(self, search):
+        self.search = search
+        self.secs = dict.fromkeys(("wave",) + self.STAGES, 0.0)
+        self.waves = 0
+        self.plies = []
+        self.leaves = None
+        self._wrap("_wave", "wave")
+        self._wrap("_descend", "descent")
+        for attr in ("_pv", "_policy", "_value"):
+            if getattr(search, attr) is not None:
+                self._wrap(attr, "evaluation")
+        rollout = search._rollout
+
+        def timed_rollout(states):
+            if len(states) == MCTS_LEAF_BATCH:
+                self.leaves = [st.copy() for st in states]
+            t0 = time.perf_counter()
+            out = rollout(states)
+            self.secs["rollout"] += time.perf_counter() - t0
+            if getattr(rollout, "last_plies", None) is not None:
+                self.plies.append(rollout.last_plies)
+            return out
+
+        search._rollout = timed_rollout
+
+    def _wrap(self, attr, stage):
+        fn = getattr(self.search, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.secs[stage] += time.perf_counter() - t0
+            self.waves += stage == "wave"
+            return out
+
+        setattr(self.search, attr, timed)
+
+    def reset(self):
+        self.secs = dict.fromkeys(self.secs, 0.0)
+        self.waves = 0
+        self.plies = []
+
+    def per_wave_ms(self) -> dict:
+        waves = max(self.waves, 1)
+        out = {k: self.secs[k] / waves * 1e3 for k in self.STAGES}
+        out["backup"] = (self.secs["wave"] - sum(
+            self.secs[k] for k in self.STAGES)) / waves * 1e3
+        return out
+
+
+def mcts_session(player, counters, clock, card):
+    """The main path of phase 17: the mcts player the GTP factory built
+    from the specs (device rollouts), a scripted session of
+    ``MCTS_GENMOVES`` genmoves at 100 playouts, then
+    ``MCTS_TIMED_GENMOVES`` under ``time_settings 0 1 1``; every reply a
+    legal vertex, labels and chase launched (counts reset just before,
+    read just after)."""
+    from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
+
+    search = player.mcts
+    check(search._n_playout == MCTS_PLAYOUTS
+          and search._leaf_batch == MCTS_LEAF_BATCH
+          and search._lmbda == 0.5 and search._rollout_limit == 500
+          and search._c_puct == 5.0 and search._L == 20,
+          "the mcts player is not at the reference's defaults")
+    setup = ["boardsize 19", "clear_board", "komi 7.5", "play b C4",
+             "play w D4", "play b D3", "play w Q16", "play b E3"]
+    searched = [f"genmove {'wb'[i % 2]}" for i in range(MCTS_GENMOVES)]
+    timed = [f"genmove {'wb'[(MCTS_GENMOVES + i) % 2]}"
+             for i in range(MCTS_TIMED_GENMOVES)]
+    cmds = setup + searched + ["time_settings 0 1 1"] + timed
+    script = "\n".join(cmds + ["final_score", "quit"]) + "\n"
+    runs, stages = [], []
+    inner = player.get_move
+
+    def recorded(state):
+        clock.reset()
+        move = inner(state)
+        runs.append(player.last_n_playout)
+        stages.append((clock.waves, clock.per_wave_ms(), list(clock.plies),
+                       clock.secs["rollout"]))
+        return move
+
+    player.get_move = recorded
+    instream, out = Timed(script), io.StringIO()
+    for c in counters:
+        c.launches = 0
+    engine = run_gtp(player, instream, out)
+    torch.cuda.synchronize()
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    player.get_move = inner
+    replies = [r for r in out.getvalue().split("\n\n") if r.strip()]
+    check(len(replies) == len(cmds) + 2,
+          f"{len(replies)} replies to {len(cmds) + 2} commands")
+    for cmd, reply in zip(cmds, replies):
+        check(reply.startswith("="), f"{cmd!r} -> {reply!r}")
+        if cmd.startswith("genmove"):
+            check(vertex_to_move(reply[1:].strip(), SIZE) is not None,
+                  f"genmove passed: {reply!r}")
+    check(engine.illegal_from_player == 0,
+          f"illegal_from_player = {engine.illegal_from_player}")
+    for name, n in launches.items():
+        check(n > 0, f"the {name} kernel was not launched by the mcts "
+              "genmoves")
+    check(runs[:MCTS_GENMOVES] == [MCTS_PLAYOUTS] * MCTS_GENMOVES
+          and all(r < MCTS_PLAYOUTS and r % MCTS_LEAF_BATCH == 0
+                  for r in runs[MCTS_GENMOVES:]),
+          f"playouts per move: {runs}")
+    stamps = instream.stamps
+    g0 = len(setup)
+    lat = [stamps[i + 1] - stamps[i] for i in range(g0, g0 + MCTS_GENMOVES)]
+    p50 = sorted(lat)[len(lat) // 2] * 1e3
+    # the first search builds the rollout runner and pays cuDNN's first
+    # choices; the rate is over the others
+    rate = MCTS_PLAYOUTS * (MCTS_GENMOVES - 1) / sum(lat[1:])
+    t0 = g0 + MCTS_GENMOVES + 1
+    tlat = [stamps[i + 1] - stamps[i]
+            for i in range(t0, t0 + MCTS_TIMED_GENMOVES)]
+    waves, wave_ms, plies, roll_s = stages[MCTS_GENMOVES - 1]
+    plies_per_s = sum(plies) / roll_s
+    log(f"mcts gtp [{card}]: {MCTS_GENMOVES} genmoves at {MCTS_PLAYOUTS} "
+        f"playouts (leaf batch {MCTS_LEAF_BATCH}, lambda 0.5, device "
+        f"rollouts to 500 plies) on the 19x19 12x128 bf16 policy, FCN "
+        f"value and 32-filter rollout nets, all legal vertices; launches "
+        f"{launches}; genmove p50 {p50:.1f} ms (each "
+        f"{[round(x * 1e3, 1) for x in lat]} ms), {rate:.2f} playouts/s")
+    log(f"mcts gtp under time_settings 0 1 1: playouts "
+        f"{runs[MCTS_GENMOVES:]}, genmove ms "
+        f"{[round(x * 1e3, 1) for x in tlat]}")
+    log(f"mcts wave stages (genmove {MCTS_GENMOVES}, {waves} waves, host "
+        "ms a wave): " + ", ".join(f"{k} {v:.2f}"
+                                   for k, v in wave_ms.items())
+        + f"; rollout plies a wave {plies}; {plies_per_s:.1f} rollout "
+        f"plies/s at wave {MCTS_LEAF_BATCH}")
+    return dict(launches=launches, p50=p50, rate=rate, wave_ms=wave_ms,
+                plies_per_s=plies_per_s, state=engine.state)
+
+
+def rollout_replay(torchgo, dev, rollout_fn, rollout_net, leaves,
+                   counters, card):
+    """One wave of 8 leaves from the session rolled out on the card with
+    each ply's actions recorded, then replayed through pygo on the CPU:
+    the same winners, every game over at the executed ply count. The
+    host reads the run makes (``set_sync_debug_mode("warn")``), the
+    launches of one wave through the player's own rollout callable, and
+    a profile of 10 rollout plies."""
+    import warnings
+
+    from rocalphago_tpu_torch.search import selfplay
+
+    check(leaves is not None and len(leaves) == MCTS_LEAF_BATCH,
+          "no full wave of leaves was kept from the session")
+    cfg = torchgo.GoConfig(size=SIZE, komi=float(leaves[0].komi))
+    run = selfplay.make_device_rollout(cfg, rollout_net.feature_list,
+                                       rollout_net.forward, with_steps=True)
+    states = torchgo.seed_labels(cfg, torchgo.from_pygo(
+        cfg, leaves, device=dev, with_history=False, with_labels=False))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    record = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            winners, plies = run(states, generator=gen, record=record)
+            winners = winners.cpu().numpy()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # one "called a synchronizing CUDA operation" a read (the mode's own
+    # "prototype feature" notice is not one)
+    reads = sum("called a synchronizing" in str(w.message) for w in caught)
+    want_reads = max(1, -(-plies // selfplay.ROLLOUT_CHECK_PLIES)) + 1
+    check(reads == want_reads, f"a rollout wave of {plies} plies made "
+          f"{reads} host reads, expected {want_reads}")
+    actions = torch.stack(record).cpu().numpy()
+    check(len(actions) == plies, "recorded plies != executed plies")
+    replay = [st.copy() for st in leaves]
+    n = SIZE * SIZE
+    for t, row in enumerate(actions):
+        for st, a in zip(replay, row):
+            if st.is_end_of_game:
+                continue
+            move = None if a == n else divmod(int(a), SIZE)
+            check(move is None or st.is_legal(move),
+                  f"rollout ply {t}: illegal {move}")
+            st.do_move(move)
+    check(all(st.is_end_of_game for st in replay) or plies == 500,
+          f"games not over after {plies} plies")
+    host = np.asarray([st.get_winner() for st in replay])
+    check(np.array_equal(host, winners),
+          f"card winners {winners.tolist()} != CPU replay {host.tolist()}")
+    for c in counters:
+        c.launches = 0
+    rollout_fn([st.copy() for st in leaves])
+    torch.cuda.synchronize()
+    wave_launches = {c.__name__.rsplit(".", 1)[-1]: c.launches
+                     for c in counters}
+    g = selfplay.gumbel_noise((MCTS_LEAF_BATCH, n), gen)
+    prof = profile_device(lambda: run.ply(states, g), ROLLOUT_PROFILE_PLIES,
+                          f"{ROLLOUT_PROFILE_PLIES} rollout plies at wave "
+                          f"{MCTS_LEAF_BATCH} (19x19, 32-filter net)", "ply")
+    log(f"device rollout [{card}]: a wave of {MCTS_LEAF_BATCH} leaves, "
+        f"{plies} plies, winners {winners.tolist()} equal to the CPU "
+        f"replay; {reads} host reads (one every "
+        f"{selfplay.ROLLOUT_CHECK_PLIES} plies, one for the winners); "
+        f"launches of one wave {wave_launches}")
+    return dict(plies=plies, reads=reads, wave_launches=wave_launches,
+                profile=prof)
+
+
+def mcts_card_vs_cpu(pygo, dev, pooled_spec):
+    """Symmetric policy distributions and values at batch 8, and a
+    ``trunk_pool=2`` 12 × 128 policy forward, card against CPU (float32,
+    TF32 off) within ``FORWARD_ATOL``/``FORWARD_RTOL``."""
+    from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    states = random_positions(pygo, 8, (20, 160), SEED + 36, size=SIZE)
+    sens = [st.get_legal_moves(include_eyes=False) for st in states]
+    out = []
+    for where in (dev, torch.device("cpu")):
+        pol = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                        seed=SEED + 37, device=where, dtype=torch.float32)
+        val = CNNValue(board=SIZE, layers=12, filters_per_layer=128,
+                       seed=SEED + 38, device=where, dtype=torch.float32)
+        pooled = NeuralNetBase.load_model(pooled_spec, device=where,
+                                          dtype=torch.float32)
+        out.append((
+            pol.batch_eval_state(states, sens, symmetric=True),
+            torch.as_tensor(val.batch_eval_state(states, symmetric=True)),
+            pooled.forward(pooled._states_to_planes(states)).cpu()))
+    (gd, gv, gl), (cd, cv, cl) = out
+    errs = []
+    for a, b in zip(gd, cd):
+        check([m for m, _ in a] == [m for m, _ in b],
+              "symmetric policy supports differ")
+        pa, pb = (torch.tensor([p for _, p in x] + [0.0]) for x in (a, b))
+        errs.append(float((pa - pb).abs().max()))
+        check(torch.allclose(pa, pb, atol=FORWARD_ATOL, rtol=FORWARD_RTOL),
+              f"symmetric policy: max abs err {errs[-1]}")
+    verr, lerr = float((gv - cv).abs().max()), float((gl - cl).abs().max())
+    check(torch.allclose(gv, cv, atol=FORWARD_ATOL, rtol=FORWARD_RTOL),
+          f"symmetric value: max abs err {verr}")
+    check(bool(torch.isfinite(gl).all()) and torch.allclose(
+        gl, cl, atol=FORWARD_ATOL, rtol=FORWARD_RTOL),
+        f"pooled policy forward: max abs err {lerr}")
+    log(f"symmetric evaluation at batch 8 (8 x 8 transforms in one "
+        f"forward), 12x128 fp32 (TF32 off), card vs CPU: policy max abs "
+        f"err {max(errs):.3g}, value {verr:.3g}; trunk_pool=2 12x128 "
+        f"policy logits {lerr:.3g}")
+
+
+def mcts_tournament(card, paths):
+    """The tournament CLI with a rollout spec: ``mcts`` (device
+    rollouts) against ``greedy`` on the committed 9×9 gumbel nets."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(root, MCTS_DIR, "games.jsonl")
+    pol = os.path.join(root, GUMBEL_DIR, "policy.json")
+    val = os.path.join(root, GUMBEL_DIR, "value.json")
+    cmd = [sys.executable, "-m", "rocalphago_tpu_torch.interface.tournament",
+           f"mcts:{pol}:{val}:{paths['rollout9']}", f"greedy:{pol}",
+           "--games", str(MCTS_TOURNEY_GAMES), "--board", "9", "--playouts",
+           str(TOURNEY_PLAYOUTS), "--move-limit", str(TOURNEY_MOVES),
+           "--device-rollout", "--log", log_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"tournament exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    tally = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(log_path) as f:
+        games = [json.loads(line) for line in f]
+    check(sum(tally["wins"].values()) == MCTS_TOURNEY_GAMES
+          and tally["forfeits"] == {"A": 0, "B": 0}
+          and len(games) == MCTS_TOURNEY_GAMES
+          and not any("forfeit" in g for g in games),
+          f"mcts tournament: tally {tally}, {len(games)} log lines")
+    log(f"tournament cli [{card}]: mcts (A, device rollouts, seeded 9x9 "
+        f"rollout spec) vs greedy (B), committed 9x9 gumbel nets, "
+        f"{TOURNEY_PLAYOUTS} playouts, move limit {TOURNEY_MOVES}: "
+        f"{tally['wins']}, no forfeit, {wall:.1f} s with start-up")
+
+
+def phase_mcts(pygo, torchgo, dev, card, counters):
+    """The reference's own AlphaGo player (phase 17)."""
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.search.players import ValuePlayer, build_player
+
+    t0 = time.perf_counter()
+    paths = mcts_specs()
+    player = build_player("mcts", paths["policy"], paths["value"],
+                          paths["rollout"], playouts=MCTS_PLAYOUTS,
+                          leaf_batch=MCTS_LEAF_BATCH, lmbda=0.5,
+                          device_rollout=True)
+    rollout_fn = player.mcts._rollout
+    clock = WaveClock(player.mcts)
+    main = mcts_session(player, counters, clock, card)
+    main["replay"] = rollout_replay(
+        torchgo, dev, rollout_fn, NeuralNetBase.load_model(paths["rollout"]),
+        clock.leaves, counters, card)
+    state = main["state"]
+    host = build_player("mcts", paths["policy"], paths["value"],
+                        paths["rollout"], playouts=MCTS_HOST_PLAYOUTS)
+    t1 = time.perf_counter()
+    move = host.get_move(state)
+    check(move is not None and state.is_legal(move),
+          f"host-rollout genmove gave {move}")
+    log(f"mcts genmove with host rollouts [{card}]: {MCTS_HOST_PLAYOUTS} "
+        f"playouts (one wave), legal, "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    mcts_card_vs_cpu(pygo, dev, paths["pooled"])
+    vp = ValuePlayer(NeuralNetBase.load_model(paths["value"]),
+                     NeuralNetBase.load_model(paths["policy"]),
+                     top_k=VALUE_TOP_K)
+    t1 = time.perf_counter()
+    move = vp.get_move(state)
+    check(move is not None and state.is_legal(move),
+          f"value player gave {move}")
+    log(f"value player [{card}]: top-{VALUE_TOP_K} policy pre-filter, one "
+        f"batched value call, legal, "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    mcts_tournament(card, paths)
+    log(f"mcts phase: {time.perf_counter() - t0:.1f} s")
+    return main
+
+
 def labels_sweeps(boards: torch.Tensor) -> int:
     """Sweeps the hook-and-jump fill needs on these boards (the same
     iteration the kernel runs, counted on the plain version's loop)."""
@@ -2676,15 +3076,17 @@ def main() -> int:
     rf = phase_reinforcement(torchgo, dev, card, (L, C), sv["export"])
     gb = phase_gumbel(pygo, torchgo, dev, card, (L, C, T), phase8, specs,
                       main_path)
-    # the launches of phases 11-16's paths: policy self-play (labels,
+    mc = phase_mcts(pygo, torchgo, dev, card, (L, C))
+    # the launches of phases 11-17's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
-    # Gumbel GTP session and Gumbel self-play (all three); the kernels
-    # timed at self-play's shapes
+    # Gumbel GTP session and Gumbel self-play (all three), the mcts GTP
+    # session (labels, chase); the kernels timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
                 + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
-                + gb["sp_launches"][k] for k in ss["launches"]}
+                + gb["sp_launches"][k] + mc["launches"].get(k, 0)
+                for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
     kernels = []
@@ -2716,6 +3118,12 @@ def main() -> int:
         f"launches {gb['main']['launches']}; Gumbel self-play "
         f"{gb['sp_rate']:.1f} simulations/s at batch {SS_BATCH}, launches "
         f"{gb['sp_launches']} on {card}")
+    log(f"mcts genmove p50 {mc['p50']:.2f} ms at {MCTS_PLAYOUTS} playouts "
+        f"(device rollouts), {mc['rate']:.2f} playouts/s, launches "
+        f"{mc['launches']}; a rollout wave of {MCTS_LEAF_BATCH}: "
+        f"{mc['replay']['plies']} plies, launches "
+        f"{mc['replay']['wave_launches']}, {mc['plies_per_s']:.1f} rollout "
+        f"plies/s on {card}")
     log(f"greedy session launches {greedy_launches}; converter launches "
         f"{sv['launches']}; RL iteration launches {rf['launches']}; "
         f"generator launches {rf['gen_launches']}")

@@ -7,8 +7,8 @@ clear_board komi fixed_handicap place_free_handicap
 set_free_handicap``), play (``play genmove undo``), time
 (``time_settings time_left``) and ``showboard final_score``. Before
 every genmove the engine hands the moving colour's budget in seconds
-to the player's ``set_move_time`` (the device-search player turns it
-into simulations and a deadline). The reference's resilience ladder,
+to the player's ``set_move_time`` (the search players turn it into
+playouts or simulations). The reference's resilience ladder,
 operator probes and serve pool are not ported yet, so this engine
 behaves like the reference under ``--no-resilient``: a player error
 is a ``? error`` reply, never a silent fallback move.
@@ -19,7 +19,12 @@ Run it as::
     python -m rocalphago_tpu_torch.interface.gtp --player device-mcts \
         --policy policy.json --value value.json [--playouts 100]
 
-(``--player gumbel-mcts`` searches with the Gumbel root rule.)
+(``--player gumbel-mcts`` searches with the Gumbel root rule.) The
+reference's AlphaGo player, host APV-MCTS with rollouts::
+
+    python -m rocalphago_tpu_torch.interface.gtp --player mcts \
+        --policy policy.json --value value.json --rollout rollout.json \
+        [--device-rollout] [--lmbda 0.5] [--leaf-batch 8] [--symmetric]
 """
 
 from __future__ import annotations
@@ -422,15 +427,27 @@ def main(argv=None):
         description="GTP engine over the PyTorch port's players")
     ap.add_argument("--policy", required=True,
                     help="policy model JSON spec (the reference's format)")
-    ap.add_argument("--value", help="value model JSON spec (device-mcts, "
-                    "gumbel-mcts)")
+    ap.add_argument("--value", help="value model JSON spec (mcts, "
+                    "device-mcts, gumbel-mcts)")
+    ap.add_argument("--rollout", help="rollout model JSON spec (mcts; "
+                    "default: the policy rolls out)")
     ap.add_argument("--player", default="greedy",
-                    choices=("greedy", "probabilistic", "device-mcts",
-                             "gumbel-mcts"))
+                    choices=("greedy", "probabilistic", "mcts",
+                             "device-mcts", "gumbel-mcts"))
     ap.add_argument("--temperature", type=float, default=0.1)
+    ap.add_argument("--lmbda", type=float, default=0.5,
+                    help="mcts leaf value mix: (1 - λ)·value + λ·rollout")
     ap.add_argument("--playouts", type=int, default=100,
-                    help="simulations per move (device-mcts, "
-                         "gumbel-mcts)")
+                    help="playouts (simulations) per move (mcts, "
+                         "device-mcts, gumbel-mcts)")
+    ap.add_argument("--leaf-batch", type=int, default=8,
+                    help="mcts playouts per leaf wave")
+    ap.add_argument("--symmetric", action="store_true",
+                    help="ensemble evaluations over the 8 board "
+                         "symmetries (greedy, probabilistic, mcts)")
+    ap.add_argument("--device-rollout", action="store_true",
+                    help="mcts rollouts wholly on the device, one run a "
+                         "wave, instead of on host rules")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on "
                          "the CPU)")
@@ -439,8 +456,12 @@ def main(argv=None):
 
     try:
         player = build_player(a.player, a.policy, value_path=a.value,
+                              rollout_path=a.rollout,
                               temperature=a.temperature,
-                              playouts=a.playouts, device=a.device)
+                              playouts=a.playouts, leaf_batch=a.leaf_batch,
+                              lmbda=a.lmbda, symmetric=a.symmetric,
+                              device_rollout=a.device_rollout,
+                              device=a.device)
     except ValueError as e:
         raise SystemExit(str(e))
     run_gtp(player)

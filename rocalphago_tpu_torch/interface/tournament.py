@@ -9,9 +9,11 @@ reads::
         gumbel-mcts:policy.json:value.json device-mcts:policy.json:value.json \\
         --games 20 --board 9 --playouts 100 --log games.jsonl [--device cpu]
 
-A player is ``kind:policy.json[:value.json]`` with the kinds of
-:func:`~rocalphago_tpu_torch.search.players.build_player`. The players
-run on the card unless ``--device`` names another device.
+A player is ``kind:policy.json[:value.json[:rollout.json]]`` with the
+kinds of :func:`~rocalphago_tpu_torch.search.players.build_player` (the
+rollout net for ``mcts``; ``--device-rollout`` plays its rollouts on
+the device). The players run on the card unless ``--device`` names
+another device.
 """
 
 from __future__ import annotations
@@ -124,23 +126,21 @@ def run_tournament(player_a, player_b, games: int, size: int = 19,
 
 
 def _build_player(spec: str, temperature: float, playouts: int,
-                  board: int, device=None):
-    """``kind:policy.json[:value.json]`` → agent at ``board``: nets saved
-    at another size re-board through ``at_board`` when their heads are
-    FCN; a size-locked net is refused up front instead of failing with a
-    shape error mid-game."""
+                  board: int, device=None, device_rollout: bool = False):
+    """``kind:policy.json[:value.json[:rollout.json]]`` → agent at
+    ``board``: nets saved at another size re-board through ``at_board``
+    when their heads are FCN; a size-locked net is refused up front
+    instead of failing with a shape error mid-game."""
     from rocalphago_tpu_torch.search.players import build_player, player_board
 
     parts = spec.split(":")
-    if len(parts) > 3:
-        raise SystemExit(f"bad player spec {spec!r}: rollout nets (a "
-                         "fourth part) come with the mcts player, which "
-                         "is not ported yet")
     try:
         player = build_player(parts[0], parts[1],
                               parts[2] if len(parts) > 2 else None,
+                              parts[3] if len(parts) > 3 else None,
                               temperature=temperature, playouts=playouts,
-                              device=device, board=board)
+                              device_rollout=device_rollout, device=device,
+                              board=board)
     except (ValueError, IndexError) as e:
         raise SystemExit(f"bad player spec {spec!r}: {e}")
     net_board = player_board(player)
@@ -154,8 +154,10 @@ def _build_player(spec: str, temperature: float, playouts: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Agent-vs-agent evaluation tournament")
-    ap.add_argument("player_a", help="kind:policy.json[:value.json]")
-    ap.add_argument("player_b", help="kind:policy.json[:value.json]")
+    ap.add_argument("player_a",
+                    help="kind:policy.json[:value.json[:rollout.json]]")
+    ap.add_argument("player_b",
+                    help="kind:policy.json[:value.json[:rollout.json]]")
     ap.add_argument("--games", type=int, default=20)
     ap.add_argument("--board", type=int, default=19)
     ap.add_argument("--komi", type=float, default=None,
@@ -169,6 +171,9 @@ def main(argv=None):
                          "games)")
     ap.add_argument("--temperature", type=float, default=0.67)
     ap.add_argument("--playouts", type=int, default=100)
+    ap.add_argument("--device-rollout", action="store_true",
+                    help="mcts rollouts wholly on the device, one run a "
+                         "wave, instead of on host rules")
     ap.add_argument("--log", default=None, help="JSONL game log path")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on "
@@ -186,9 +191,9 @@ def main(argv=None):
         except ValueError as e:
             raise SystemExit(f"--handicap {a.handicap}: {e}")
     pa = _build_player(a.player_a, a.temperature, a.playouts, a.board,
-                       a.device)
+                       a.device, a.device_rollout)
     pb = _build_player(a.player_b, a.temperature, a.playouts, a.board,
-                       a.device)
+                       a.device, a.device_rollout)
     log = open(a.log, "w") if a.log else None
     try:
         tally = run_tournament(pa, pb, a.games, size=a.board,

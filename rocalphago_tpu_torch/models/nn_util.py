@@ -31,6 +31,10 @@ from rocalphago_tpu_torch.models.weights import (
     read_flax_msgpack,
     write_flax_msgpack,
 )
+from rocalphago_tpu_torch.training.symmetries import (
+    inverse_transform_planes,
+    transform_planes,
+)
 
 NEURALNETS: dict[str, type] = {}
 
@@ -38,16 +42,46 @@ NEURALNETS: dict[str, type] = {}
 SPEC_FORMAT = 2
 
 
+class GlobalPoolBias(nn.Module):
+    """KataGo-style global-pooling bias block: a 1×1 conv projects the
+    trunk to ``pool_filters`` channels (ReLU), their board-wide mean and
+    max are concatenated, and a dense layer maps those ``2 ·
+    pool_filters`` scalars back to one bias per trunk channel, added at
+    every point. No parameter shape depends on the board. NCHW in and
+    out; computes in ``dtype``."""
+
+    def __init__(self, channels: int, pool_filters: int = 32,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.pool_conv = nn.Conv2d(channels, pool_filters, 1)
+        self.pool_dense = nn.Linear(2 * pool_filters, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = F.relu(F.conv2d(x, self.pool_conv.weight.to(self.dtype),
+                            self.pool_conv.bias.to(self.dtype)))
+        pooled = torch.cat([g.mean(dim=(2, 3)), g.amax(dim=(2, 3))], dim=-1)
+        bias = F.linear(pooled, self.pool_dense.weight.to(self.dtype),
+                        self.pool_dense.bias.to(self.dtype))
+        return x + bias[:, :, None, None]
+
+
 class ConvTrunk(nn.Module):
     """The AlphaGo conv trunk: ``layers - 1`` convolutions, a
     ``filter_width_1`` first one and then ``filter_width_K``, ReLU, SAME
     padding (symmetric, ``width // 2``); at ``layers=1`` it is empty, as
     in the reference. Computes in ``dtype``; NCHW in and out, with
-    ``out_channels`` channels out."""
+    ``out_channels`` channels out.
+
+    ``global_pool=g > 0`` puts :class:`GlobalPoolBias` blocks
+    (``gpool1..gpoolG``) after the convolutions ``(j + 1) · convs // (g
+    + 1)``, ``j < g``, as the reference does; ``g = 0`` adds no
+    module."""
 
     def __init__(self, input_planes: int, layers: int = 12,
                  filters_per_layer: int = 128, filter_width_1: int = 5,
-                 filter_width_K: int = 3, dtype=torch.bfloat16):
+                 filter_width_K: int = 3, dtype=torch.bfloat16,
+                 global_pool: int = 0):
         super().__init__()
         self.dtype = dtype
         convs = layers - 1
@@ -58,13 +92,25 @@ class ConvTrunk(nn.Module):
         self.convs = nn.ModuleList(
             nn.Conv2d(cin, filters_per_layer, w, padding=w // 2)
             for cin, w in zip(chans, widths))
+        # conv index (1-based) -> pooling block ordinal after it; as in
+        # the reference, a block whose index is 0 or is taken by a later
+        # block is never built
+        pool_after = {(j + 1) * convs // (global_pool + 1): j + 1
+                      for j in range(global_pool)}
+        self.pool_after = {i: j for i, j in pool_after.items() if i >= 1}
+        for j in self.pool_after.values():
+            self.add_module(f"gpool{j}", GlobalPoolBias(
+                self.out_channels, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        for conv in self.convs:
+        for i, conv in enumerate(self.convs):
             x = F.relu(F.conv2d(x, conv.weight.to(self.dtype),
                                 conv.bias.to(self.dtype),
                                 padding=conv.padding))
+            j = self.pool_after.get(i + 1)
+            if j is not None:
+                x = getattr(self, f"gpool{j}")(x)
         return x
 
 
@@ -139,6 +185,29 @@ class NeuralNetBase:
     def forward(self, planes: torch.Tensor) -> torch.Tensor:
         """Logits of encoded planes ``[B, s, s, F]``."""
         return self.module(planes.to(self.device))
+
+    @torch.no_grad()
+    def forward_symmetric(self, planes: torch.Tensor) -> torch.Tensor:
+        """The forward ensembled over the 8 board symmetries (the AlphaGo
+        paper's evaluation-time averaging): the ``B`` positions under
+        every element go through the net as one batch of ``8 · B``,
+        each output is mapped back (``_symmetric_spec``), and the 8 are
+        averaged."""
+        planes = planes.to(self.device)
+        b = planes.shape[0]
+        t = torch.arange(8, device=self.device).repeat_interleave(b)
+        out = self.module(transform_planes(planes.repeat(8, 1, 1, 1), t))
+        per_transform, finalize = self._symmetric_spec()
+        if per_transform is not None:
+            out = per_transform(out, t)
+        mean = out.reshape((8, b) + tuple(out.shape[1:])).mean(dim=0)
+        return finalize(mean) if finalize is not None else mean
+
+    def _symmetric_spec(self):
+        """``(per_transform(out, t), finalize(mean))`` for
+        :meth:`forward_symmetric`; either may be None."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support symmetry ensembling")
 
     def _states_to_planes(self, states) -> torch.Tensor:
         """Host ``pygo.GameState`` list, or a batched ``GoState`` →
@@ -296,22 +365,47 @@ def legal_moves_mask_host(state: pygo.GameState) -> np.ndarray:
 
 class PointPolicyEval:
     """Host-facing evaluation for nets whose output is logits over
-    board points (``batch_eval_state``). Mixed into a
-    :class:`NeuralNetBase` subclass. Symmetry ensembling waits for a
-    later slice."""
+    board points (``eval_state``, ``batch_eval_state``), shared by the
+    policy and the rollout net. Mixed into a :class:`NeuralNetBase`
+    subclass."""
 
-    def batch_eval_state(self, states, moves_lists=None):
+    def _symmetric_spec(self):
+        """Each transform's point probabilities mapped back, averaged,
+        and returned as ``log p̄`` -- logits under the masked softmax
+        (renormalising over the legal support gives the average back)."""
+        s = self.board
+
+        def per_transform(logits, t):
+            probs = torch.softmax(logits, dim=-1).reshape(-1, s, s, 1)
+            return inverse_transform_planes(probs, t).reshape(-1, s * s)
+
+        return per_transform, lambda mean: torch.log(mean + 1e-30)
+
+    def eval_state(self, state, moves=None):
+        """Distribution over the legal moves of one state, ``[((x, y),
+        prob), ...]``; ``moves`` (legal moves only) restricts the
+        support."""
+        return self.batch_eval_state(
+            [state], [moves] if moves is not None else None)[0]
+
+    def batch_eval_state(self, states, moves_lists=None,
+                         symmetric: bool = False):
         """One encode, one forward and one masked softmax for the whole
         batch; ``moves_lists[i]``, when given, is state ``i``'s support
-        verbatim."""
+        verbatim. ``symmetric`` ensembles the forward over the 8 board
+        symmetries (8× the net's work)."""
         states = self._as_state_list(states)
         return self.dists_from_planes(
-            states, self._states_to_planes(states), moves_lists)
+            states, self._states_to_planes(states), moves_lists,
+            symmetric=symmetric)
 
-    def dists_from_planes(self, states, planes, moves_lists=None):
-        """As :meth:`batch_eval_state`, from already-encoded planes."""
+    def dists_from_planes(self, states, planes, moves_lists=None,
+                          symmetric: bool = False):
+        """As :meth:`batch_eval_state`, from already-encoded planes (the
+        seam that lets one encode feed two nets)."""
         planes, b = self._pad_bucket(planes)
-        logits = self.forward(planes)
+        logits = (self.forward_symmetric(planes) if symmetric
+                  else self.forward(planes))
         size = self.board
         legal_rows = []
         for i, state in enumerate(states):

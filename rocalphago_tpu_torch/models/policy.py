@@ -24,7 +24,8 @@ from rocalphago_tpu_torch.models.nn_util import (
 class PolicyNet(nn.Module):
     """Conv trunk → point head; NHWC float32 planes in, float32 logits
     ``[B, N]`` out. ``head="fcn"`` has no size-locked parameter;
-    ``head="bias"`` is the legacy per-position bias."""
+    ``head="bias"`` is the legacy per-position bias. ``trunk_pool``
+    global-pooling bias blocks sit in the trunk (default none)."""
 
     def __init__(self, board: int = 19, input_planes: int = 48,
                  layers: int = 12, filters_per_layer: int = 128,
@@ -32,12 +33,10 @@ class PolicyNet(nn.Module):
                  head: str = "fcn", trunk_pool: int = 0,
                  dtype=torch.bfloat16):
         super().__init__()
-        if trunk_pool:
-            raise NotImplementedError(
-                "global-pooling trunks are not ported yet")
         self.dtype = dtype
         self.trunk = ConvTrunk(input_planes, layers, filters_per_layer,
-                               filter_width_1, filter_width_K, dtype)
+                               filter_width_1, filter_width_K, dtype,
+                               global_pool=trunk_pool)
         self.head = PointHead(self.trunk.out_channels, board, head, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,11 @@ Head variants (``head=``, recorded in saved specs):
   before the ``head`` kwarg existed load as this (:meth:`CNNValue.
   migrate_spec`).
 
+``trunk_pool=g`` puts ``g`` global-pooling bias blocks in the trunk
+(:class:`~.nn_util.GlobalPoolBias`), as the reference's ladder-free
+configuration does; ``symmetric=`` on the evaluation methods averages
+the value over the 8 board symmetries.
+
 Auxiliary heads (``aux_heads=("ownership", "score")``) exist as
 parameters, so such specs load; the value output does not read them.
 Their training-side forward belongs to the trainer slice.
@@ -54,13 +59,11 @@ class ValueNet(nn.Module):
             raise ValueError(
                 f"unknown aux heads {sorted(set(aux_heads) - set(AUX_HEADS))}"
                 f"; supported: {sorted(AUX_HEADS)}")
-        if trunk_pool:
-            raise NotImplementedError(
-                "global-pooling trunks are not ported yet")
         self.head = head
         self.dtype = dtype
         self.trunk = ConvTrunk(input_planes, layers, filters_per_layer,
-                               filter_width_1, filter_width_K, dtype)
+                               filter_width_1, filter_width_K, dtype,
+                               global_pool=trunk_pool)
         chans = self.trunk.out_channels
         if "ownership" in aux_heads:
             self.own_conv = nn.Conv2d(chans, 1, 1)
@@ -127,16 +130,24 @@ class CNNValue(NeuralNetBase):
     def size_generic(self) -> bool:
         return self.module.head == "fcn"
 
-    def eval_state(self, state) -> float:
+    def _symmetric_spec(self):
+        """The scalar value needs no inverse mapping: a plain mean."""
+        return None, None
+
+    def eval_state(self, state, symmetric: bool = False) -> float:
         """Expected outcome of one state from the player to move's
         view, in [-1, 1]."""
-        return float(self.batch_eval_state([state])[0])
+        return float(self.batch_eval_state([state], symmetric)[0])
 
-    def batch_eval_state(self, states) -> np.ndarray:
+    def batch_eval_state(self, states, symmetric: bool = False) -> np.ndarray:
         states = self._as_state_list(states)
-        return self.values_from_planes(self._states_to_planes(states))
+        return self.values_from_planes(self._states_to_planes(states),
+                                       symmetric=symmetric)
 
-    def values_from_planes(self, planes: torch.Tensor) -> np.ndarray:
-        """Values of already-encoded planes, as float32 numpy ``[B]``."""
+    def values_from_planes(self, planes: torch.Tensor,
+                           symmetric: bool = False) -> np.ndarray:
+        """Values of already-encoded planes, as float32 numpy ``[B]``;
+        ``symmetric`` averages them over the 8 board symmetries."""
         planes, b = self._pad_bucket(planes)
-        return self.forward(planes)[:b].cpu().numpy()
+        fwd = self.forward_symmetric if symmetric else self.forward
+        return fwd(planes)[:b].cpu().numpy()

@@ -13,10 +13,14 @@ param tree onto the port's modules (:func:`params_from_flax`) and back
   ``bias`` as is;
 * ``head/conv/kernel`` and ``bias`` ↔ ``head.conv.weight``/``bias``;
 * ``head/position_bias`` (legacy ``bias`` head) ↔ ``head.position_bias``;
-* the value net's top-level modules ``head_conv`` and ``own_conv``
-  (1×1 convs, HWIO ↔ OIHW) and ``dense1``, ``dense2`` and
-  ``score_dense`` (Flax ``Dense`` kernels are ``[in, out]``, an
-  ``nn.Linear`` weight ``[out, in]``: transposed both ways).
+* ``trunk/gpool{j}/pool_conv`` (a 1×1 conv) and ``pool_dense`` ↔
+  ``trunk.gpool{j}.pool_conv`` and ``pool_dense``, the global-pooling
+  blocks of a ``trunk_pool`` trunk;
+* the top-level convolutions -- the value net's ``head_conv`` and
+  ``own_conv`` (1×1) and the rollout net's ``conv1`` (3×3), HWIO ↔
+  OIHW -- and dense layers ``dense1``, ``dense2`` and ``score_dense``
+  (Flax ``Dense`` kernels are ``[in, out]``, an ``nn.Linear`` weight
+  ``[out, in]``: transposed both ways).
 """
 
 from __future__ import annotations
@@ -172,9 +176,10 @@ def write_flax_msgpack(path: str, tree: dict) -> None:
 # --------------------------------------------------------------------------
 
 
-#: the value net's top-level modules: 1×1 convs and dense layers
-VALUE_CONVS = ("head_conv", "own_conv")
-VALUE_DENSES = ("dense1", "dense2", "score_dense")
+#: top-level modules: the value net's 1×1 convs and dense layers, the
+#: rollout net's 3×3 conv
+TOP_CONVS = ("head_conv", "own_conv", "conv1")
+TOP_DENSES = ("dense1", "dense2", "score_dense")
 
 
 def _tensor(a, hwio: bool = False, transpose: bool = False) -> torch.Tensor:
@@ -187,15 +192,25 @@ def _tensor(a, hwio: bool = False, transpose: bool = False) -> torch.Tensor:
 
 
 def params_from_flax(tree: dict) -> dict:
-    """The reference's policy or value param tree (``{"params": {...}}``
-    or its inner dict) as numpy → a ``state_dict`` of the port's
-    :class:`~.policy.PolicyNet` or :class:`~.value.ValueNet`."""
+    """The reference's policy, value or rollout param tree
+    (``{"params": {...}}`` or its inner dict) as numpy → a
+    ``state_dict`` of the port's :class:`~.policy.PolicyNet`,
+    :class:`~.value.ValueNet` or :class:`~.rollout.RolloutNet`."""
     params = tree.get("params", tree)
     sd = {}
     for name, leaf in params.get("trunk", {}).items():
+        if name.startswith("gpool"):
+            sd[f"trunk.{name}.pool_conv.weight"] = _tensor(
+                leaf["pool_conv"]["kernel"], hwio=True)
+            sd[f"trunk.{name}.pool_conv.bias"] = _tensor(
+                leaf["pool_conv"]["bias"])
+            sd[f"trunk.{name}.pool_dense.weight"] = _tensor(
+                leaf["pool_dense"]["kernel"], transpose=True)
+            sd[f"trunk.{name}.pool_dense.bias"] = _tensor(
+                leaf["pool_dense"]["bias"])
+            continue
         if not name.startswith("conv"):
-            raise ValueError(f"unsupported trunk module {name!r} "
-                             "(global pooling waits for a later slice)")
+            raise ValueError(f"unsupported trunk module {name!r}")
         i = int(name[len("conv"):]) - 1
         sd[f"trunk.convs.{i}.weight"] = _tensor(leaf["kernel"], hwio=True)
         sd[f"trunk.convs.{i}.bias"] = _tensor(leaf["bias"])
@@ -205,13 +220,13 @@ def params_from_flax(tree: dict) -> dict:
         sd["head.conv.bias"] = _tensor(head["conv"]["bias"])
         if "position_bias" in head:
             sd["head.position_bias"] = _tensor(head["position_bias"])
-    for name in VALUE_CONVS + VALUE_DENSES:
+    for name in TOP_CONVS + TOP_DENSES:
         if name in params:
             sd[f"{name}.weight"] = _tensor(
-                params[name]["kernel"], hwio=name in VALUE_CONVS,
-                transpose=name in VALUE_DENSES)
+                params[name]["kernel"], hwio=name in TOP_CONVS,
+                transpose=name in TOP_DENSES)
             sd[f"{name}.bias"] = _tensor(params[name]["bias"])
-    unknown = set(params) - {"trunk", "head", *VALUE_CONVS, *VALUE_DENSES}
+    unknown = set(params) - {"trunk", "head", *TOP_CONVS, *TOP_DENSES}
     if unknown:
         raise ValueError(f"unsupported modules {sorted(unknown)}")
     return sd
@@ -233,7 +248,13 @@ def params_to_flax(state_dict: dict) -> dict:
     out: dict = {}
     for key, t in state_dict.items():
         parts = key.split(".")
-        if parts[0] == "trunk":
+        if parts[0] == "trunk" and parts[1].startswith("gpool"):
+            block = out.setdefault("trunk", {}).setdefault(
+                parts[1], {}).setdefault(parts[2], {})
+            kind = "conv" if parts[2] == "pool_conv" else "dense"
+            block["kernel" if parts[3] == "weight" else "bias"] = leaf(
+                t, kind if parts[3] == "weight" else "bias")
+        elif parts[0] == "trunk":
             conv = out.setdefault("trunk", {}).setdefault(
                 f"conv{int(parts[2]) + 1}", {})
             conv["kernel" if parts[3] == "weight" else "bias"] = leaf(
@@ -247,7 +268,7 @@ def params_to_flax(state_dict: dict) -> dict:
             else:
                 head["position_bias"] = arr(t)
         else:
-            kind = "conv" if parts[0] in VALUE_CONVS else "dense"
+            kind = "conv" if parts[0] in TOP_CONVS else "dense"
             out.setdefault(parts[0], {})[
                 "kernel" if parts[1] == "weight" else "bias"] = leaf(
                 t, kind if parts[1] == "weight" else "bias")

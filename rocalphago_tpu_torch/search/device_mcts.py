@@ -63,7 +63,11 @@ from rocalphago_tpu_torch.ops import tree as tree_ops
 from rocalphago_tpu_torch.runtime.deadline import Deadline
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.clock import MoveClock
-from rocalphago_tpu_torch.search.selfplay import gumbel_argmax, sensible_mask
+from rocalphago_tpu_torch.search.selfplay import (
+    gumbel_argmax,
+    gumbel_noise,
+    sensible_mask,
+)
 
 
 class SimStep(NamedTuple):
@@ -471,10 +475,7 @@ class GumbelMCTS:
                    generator: torch.Generator) -> torch.Tensor:
         """Standard Gumbel noise f32 ``[batch, A]`` on the generator's
         device."""
-        f32 = torch.finfo(torch.float32)
-        u = torch.rand((batch, self.cfg.num_points + 1), generator=generator,
-                       device=generator.device)
-        return -torch.log(-torch.log(torch.clamp(u, min=f32.tiny)))
+        return gumbel_noise((batch, self.cfg.num_points + 1), generator)
 
     def root_draw(self, tree: DeviceTree, noise: torch.Tensor):
         """``(g f32 [B, A], cand i32 [B, m], logits f32 [B, A])`` off a

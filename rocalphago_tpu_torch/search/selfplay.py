@@ -18,6 +18,10 @@ Move rule, the reference's: sample from ``softmax(logits / T)`` over the
 no move is sensible. Games end by two passes or at ``max_moves``;
 unfinished games are scored as they stand (area scoring).
 
+:func:`make_device_rollout` is the rollout leg of the host MCTS's λ
+mix on the card: one rollout net plays a wave of leaves to the end,
+reading the done flag once every :data:`ROLLOUT_CHECK_PLIES` plies.
+
 The sampler is Gumbel-max -- ``argmax(masked + G)`` with ``G =
 -log(-log(U))`` drawn from the caller's ``torch.Generator`` -- in place
 of ``torch.multinomial``, which raises a device-side assert on a row
@@ -48,6 +52,11 @@ from rocalphago_tpu_torch.engine.torchgo import (
 )
 from rocalphago_tpu_torch.features.planes import encode, true_eyes
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
+
+# plies a device rollout plays between two reads of its done flag: the
+# reference's while_loop tests the flag on the device every ply, which
+# in eager PyTorch would be a device→host sync a ply
+ROLLOUT_CHECK_PLIES = 16
 
 
 def sensible_mask(cfg: GoConfig, state: GoState, gd=None) -> torch.Tensor:
@@ -308,3 +317,87 @@ def host_winners(cfg: GoConfig, boards) -> np.ndarray:
         diff = black - white
         out[b] = 0 if diff == 0 else (1 if diff > 0 else -1)
     return out
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws, float32 on the generator's device:
+    ``-log(-log(u))`` with ``u`` uniform in ``[finfo.tiny, 1)``, as JAX's
+    ``random.gumbel`` draws them."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(
+        torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
+def make_device_rollout(cfg: GoConfig, features: tuple, apply_fn: Callable,
+                        rollout_limit: int = 500, temperature: float = 1.0,
+                        with_steps: bool = False):
+    """``run(states, generator=None, noise=None, record=None) ->
+    winners`` (``with_steps=True``: ``-> (winners, executed_plies)``):
+    play a batched :class:`GoState` -- a wave of MCTS leaves -- to the
+    end of the game, at most ``rollout_limit`` more plies, with one
+    rollout net (``apply_fn``: NHWC planes → float32 logits) playing
+    both colours, then area-score. Winners are int32 ``[B]`` (+1 black,
+    -1 white, 0 draw) on the states' device.
+
+    Each ply: the group analysis, the encode of ``features``, the
+    forward, the sensible mask, ``masked = where(sens, logits / T,
+    finfo.min)``, a categorical draw by Gumbel-max (``argmax(masked +
+    g)``, the form of ``jax.random.categorical``), a pass on rows with
+    nothing sensible, and ``step``. Finished or padded games stay frozen.
+
+    The loop ends at the first ply after which every game is done, as
+    the reference's ``while_loop`` does, but it reads the done flag only
+    once every :data:`ROLLOUT_CHECK_PLIES` plies (each ply records its
+    flag on the device; a segment's flags come back in one read). The
+    few plies past the end step nothing, so the winners are the same;
+    ``executed_plies`` is the reference's count.
+
+    ``g`` is drawn from ``generator`` (on the states' device), or taken
+    from ``noise[t]`` at ply ``t`` (float32 ``[B, N]`` rows -- the seam
+    for the reference's draws). ``record``, a list, receives the int32
+    ``[B]`` actions of the executed plies. ``run.ply(states, g) ->
+    (states, action)`` is one ply."""
+    n = cfg.num_points
+
+    def ply(states: GoState, g: torch.Tensor):
+        gd = group_data(cfg, states.board, with_zxor=cfg.enforce_superko,
+                        labels=states.labels)
+        logits = apply_fn(encode(cfg, states, features, gd=gd))
+        sens = sensible_mask(cfg, states, gd)
+        masked = torch.where(sens, logits / temperature,
+                             torch.finfo(logits.dtype).min)
+        action = torch.argmax(masked + g.to(masked.device), dim=-1)
+        action = torch.where(sens.any(dim=-1), action, n).int()
+        return step(cfg, states, action, gd), action
+
+    @torch.no_grad()
+    def run(states: GoState, generator: torch.Generator | None = None,
+            noise=None, record: list | None = None):
+        b = states.board.shape[0]
+        kept = len(record) if record is not None else 0
+        # counts[k]: plies played when flags[k] was taken
+        counts, flags = [0], [states.done.all()]
+        t = 0
+        executed = rollout_limit
+        while t < rollout_limit:
+            for _ in range(min(ROLLOUT_CHECK_PLIES, rollout_limit - t)):
+                g = (noise[t] if noise is not None
+                     else gumbel_noise((b, n), generator))
+                states, action = ply(states, g)
+                if record is not None:
+                    record.append(action)
+                t += 1
+                counts.append(t)
+                flags.append(states.done.all())
+            hit = np.flatnonzero(torch.stack(flags).cpu().numpy())
+            if hit.size:
+                executed = counts[hit[0]]
+                break
+            counts, flags = [], []
+        if record is not None:
+            del record[kept + executed:]
+        winners = winner(cfg, states)
+        return (winners, executed) if with_steps else winners
+
+    run.ply = ply
+    return run

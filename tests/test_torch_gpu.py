@@ -658,3 +658,104 @@ def test_value_games_on_the_card_replay_on_the_cpu(cuda_device):
     for name in ("z", "valid", "u"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
     assert bool(got.valid.any())
+
+
+def mcts_nets(device, dtype=torch.float32):
+    """Small seeded nets of this slice at 9×9: a 2-pool policy, a value
+    net and a rollout net."""
+    from rocalphago_tpu_torch.models import CNNRollout, CNNValue
+
+    feats = ("board", "ones", "turns_since", "liberties", "sensibleness")
+    return (CNNPolicy(feats, board=9, layers=4, filters_per_layer=16,
+                      trunk_pool=2, seed=7, device=device, dtype=dtype),
+            CNNValue(feats + ("color",), board=9, layers=3,
+                     filters_per_layer=16, seed=8, device=device,
+                     dtype=dtype),
+            CNNRollout(board=9, seed=9, device=device, dtype=dtype))
+
+
+def test_device_rollout_on_the_card_equals_the_cpu(cuda_device):
+    """A wave of 8 leaves (2 of them done padding) rolled out on the card
+    and on the CPU under the same draws: the same actions, executed
+    plies and winners (float32, TF32 off)."""
+    from rocalphago_tpu_torch.search import selfplay
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = torchgo.GoConfig(size=9, komi=7.0)
+    states = random_positions(9, 8, 4, 30, 10)
+    for st in states[6:]:
+        st.do_move(None)
+        st.do_move(None)
+    noise = selfplay.gumbel_noise((500, 8, 81),
+                                  torch.Generator().manual_seed(2))
+    out = []
+    for device in (cuda_device, torch.device("cpu")):
+        net = mcts_nets(device)[2]
+        run = selfplay.make_device_rollout(cfg, net.feature_list,
+                                           net.forward, with_steps=True)
+        batched = torchgo.seed_labels(cfg, torchgo.from_pygo(
+            cfg, states, device=device, with_history=False,
+            with_labels=False))
+        record = []
+        before = labels.launches
+        winners, plies = run(batched, noise=noise.to(device), record=record)
+        if device.type == "cuda":
+            assert labels.launches > before      # area scoring
+        out.append((winners.tolist(), plies,
+                    torch.stack(record).cpu().tolist()))
+    assert out[0] == out[1] and 0 < out[0][1] < 500
+
+
+def test_symmetric_and_pooled_forwards_on_the_card_equal_the_cpu(
+        cuda_device):
+    """The 8-symmetry policy distributions and values, and a pooled
+    trunk, card against CPU within 1e-3 + 1e-4·|x| (float32, TF32 off:
+    summation order only)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    states = random_positions(9, 8, 4, 40, 11)
+    sens = [s.get_legal_moves(include_eyes=False) for s in states]
+    got = []
+    for device in (cuda_device, torch.device("cpu")):
+        pol, val, _ = mcts_nets(device)
+        got.append((pol.batch_eval_state(states, sens, symmetric=True),
+                    val.batch_eval_state(states, symmetric=True),
+                    pol.forward(pol._states_to_planes(states)).cpu()))
+    (cd, cv, cl), (hd, hv, hl) = got
+    for a, b in zip(cd, hd):
+        assert [m for m, _ in a] == [m for m, _ in b]
+        np.testing.assert_allclose([p for _, p in a], [p for _, p in b],
+                                   rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(cv, hv, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(cl.numpy(), hl.numpy(), rtol=1e-4, atol=1e-3)
+
+
+def test_mcts_player_plays_on_the_card_and_needs_one(cuda_device,
+                                                      monkeypatch, tmp_path):
+    """``build_player("mcts")`` over spec-CLI nets answers legal genmoves
+    on the card with device rollouts (both kernels launched), and raises
+    when no card is there and no device is named."""
+    import os
+
+    from rocalphago_tpu_torch.models import specs
+    from rocalphago_tpu_torch.search.players import build_player
+
+    paths = []
+    for kind, extra in (("policy", ["--layers", "3", "--filters", "16"]),
+                        ("value", ["--layers", "3", "--filters", "16"]),
+                        ("rollout", [])):
+        paths.append(os.path.join(tmp_path, f"{kind}.json"))
+        specs.main([kind, "--out", paths[-1], "--board", "9", *extra])
+    player = build_player("mcts", *paths, playouts=16, device_rollout=True)
+    out = io.StringIO()
+    before = (labels.launches, chase.launches)
+    engine = run_gtp(player, io.StringIO(
+        "boardsize 9\ngenmove b\ngenmove w\nquit\n"), out)
+    assert labels.launches > before[0] and chase.launches > before[1]
+    moves = [r[2:] for r in out.getvalue().split("\n\n")
+             if r.startswith("= ")]
+    assert len(moves) == 2 and engine.illegal_from_player == 0
+    assert all(vertex_to_move(v, 9) is not None for v in moves)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_player("mcts", *paths)

@@ -20,11 +20,17 @@ import torch
 
 from rocalphago_tpu_torch import resolve_device
 from rocalphago_tpu_torch.features import Preprocess
-from rocalphago_tpu_torch.engine import torchgo
+from rocalphago_tpu_torch.engine import pygo, torchgo
 from rocalphago_tpu_torch.interface import elo, gtp, selfplay_cli, tournament
-from rocalphago_tpu_torch.models import CNNPolicy, CNNValue, NeuralNetBase
+from rocalphago_tpu_torch.models import (
+    CNNPolicy,
+    CNNRollout,
+    CNNValue,
+    NeuralNetBase,
+    specs,
+)
 from rocalphago_tpu_torch.ops import chase, labels, tree
-from rocalphago_tpu_torch.search import selfplay
+from rocalphago_tpu_torch.search import mcts, selfplay
 from rocalphago_tpu_torch.search.players import build_player
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
 from rocalphago_tpu_torch.data import convert
@@ -209,6 +215,35 @@ def test_gumbel_and_evaluation_entry_points_need_a_card_or_an_explicit_cpu(
     assert elo.main([log]) == 0
     table = json.loads(capsys.readouterr().out)
     assert set(table["players"]) == {"A", "B"}
+
+
+def test_mcts_player_and_spec_cli_need_a_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path, capsys):
+    """The host APV-MCTS player, its GTP and tournament modes, the
+    rollout net, the device rollout and the spec CLI raise with no card
+    unless the CPU is named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "rollout.json")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        specs.main(["rollout", "--out", out, "--board", "9"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CNNRollout(board=9)
+    assert not os.listdir(tmp_path)
+    specs.main(["rollout", "--out", out, "--board", "9", "--device",
+                "cpu"])
+    capsys.readouterr()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_player("mcts", SPEC, VALUE_SPEC, out, device_rollout=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gtp.main(["--player", "mcts", "--policy", SPEC, "--value",
+                  VALUE_SPEC, "--rollout", out, "--device-rollout"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tournament.main([f"mcts:{SPEC}:{VALUE_SPEC}:{out}", f"greedy:{SPEC}",
+                         "--board", "9", "--device-rollout"])
+    player = build_player("mcts", SPEC, VALUE_SPEC, out, playouts=8,
+                          device_rollout=True, device="cpu")
+    assert isinstance(player, mcts.MCTSPlayer)
+    assert player.get_move(pygo.GameState(size=9)) is not None
 
 
 def test_kernel_wrappers_do_not_fall_back():

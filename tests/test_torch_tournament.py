@@ -133,7 +133,8 @@ def test_play_match_handicap_opening():
 def test_fcn_nets_reboard_and_size_locked_ones_are_refused(tmp_path):
     """A spec saved at one size plays at another through ``--board``:
     FCN nets re-board through ``at_board``, sharing their module;
-    size-locked heads are refused up front."""
+    size-locked heads are refused up front, and so is an ``mcts`` spec
+    without its value net."""
     policy = CNNPolicy(("board", "ones"), board=5, layers=2,
                        filters_per_layer=4, device="cpu")
     value = CNNValue(("board", "ones", "color"), board=5, layers=2,
@@ -163,10 +164,10 @@ def test_fcn_nets_reboard_and_size_locked_ones_are_refused(tmp_path):
                      filters_per_layer=4, head="dense", device="cpu")
     with pytest.raises(ValueError, match="size-locked"):
         dense.at_board(7)
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="needs a value model"):
         tournament.main([f"mcts:{spec}", f"greedy:{spec}", "--games", "1",
                          "--board", "5", "--device", "cpu"])
-    with pytest.raises(ValueError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="needs a value model"):
         build_player("mcts", spec, device="cpu")
 
 
