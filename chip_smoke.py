@@ -160,11 +160,33 @@ Phases, in order; any failure exits non-zero before the result line:
     move with a top-16 policy pre-filter; and the tournament CLI,
     ``mcts`` with a rollout spec and ``--device-rollout`` against
     ``greedy`` on the committed 9×9 nets (2 games, 8 playouts, move
-    limit 60, no forfeit).
+    limit 60, no forfeit);
+18. the AlphaZero loop, in ``build/smoke_zero``: fresh seeded 19×19
+    specs from the spec CLI (the 12 × 128 policy, 48 planes, and the
+    12 × 128 FCN value net, 49 planes, with the auxiliary heads grafted
+    on); the zero CLI (``rocalphago_tpu_torch.training.zero``) at game
+    batch 8, 16 simulations, move limit ``ZERO_MOVES``, 3 iterations, a
+    checkpoint every iteration, the gate every 2 (8 games), Dir(0.03):
+    straight, killed after iteration 2 and resumed with the same
+    command, and with ``--actor-learner --actors 1`` -- the last two
+    end on the straight run's checkpoint, exports, pool and metric rows
+    (wall times aside) bit for bit; one iteration in process with the
+    playout caps (p 0.25, cheap 4) and the auxiliary heads (weight 1),
+    timed by phase (play, replay, update, a gate match; a sync after
+    each) with games/min, simulations/s, the full-search fraction, ms a
+    replay ply and the replay's MFU share, the labels, chase and tree
+    launches of the iteration (counts reset just before, read just
+    after); a replay segment under ``set_sync_debug_mode("error")``; a
+    profile of 10 replay plies (kernels a ply, idle share); its first 2
+    games learned in float32 (TF32 off) on the card and on the CPU,
+    both nets' updates within ``FORWARD_ATOL``/``FORWARD_RTOL``; and the
+    committed 9×9 pool of ``results/zero_r5/run`` loaded through
+    ``ZeroGate.load``, its last incumbent against its first in an
+    8-game raw match (move limit 60).
 
 The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
-iteration and generator, 16's GTP session and self-play, and 17's GTP
-session together,
+iteration and generator, 16's GTP session and self-play, 17's GTP
+session and 18's zero iteration together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -253,6 +275,23 @@ MCTS_HOST_PLAYOUTS = 8   # one wave with host rollouts
 VALUE_TOP_K = 16         # the value player's policy pre-filter
 MCTS_TOURNEY_GAMES = 2   # mcts vs greedy, 8 playouts, move limit 60
 ROLLOUT_PROFILE_PLIES = 10
+ZERO_DIR = os.path.join("build", "smoke_zero")
+ZERO_BATCH, ZERO_SIMS = 8, 16     # the zero CLI's game batch and search
+ZERO_MOVES = 24          # the cut game length (depth, not width)
+ZERO_GATE_GAMES = 8
+ZERO_ALPHA = 0.03
+ZERO_CAP_P, ZERO_CAP_CHEAP, ZERO_AUX = 0.25, 4, 1.0   # the timed iteration
+ZERO_CPU_GAMES = 2       # games of the timed iteration learned on the CPU
+# card vs CPU learn, per tensor of either net's float32 update summed
+# over 48 position-plies of 12-layer forward and backward passes: the
+# relative L2 error, and the largest error over the tensor's largest
+# entry (each with an absolute floor of FORWARD_ATOL an entry); the
+# ReLU gates that float32 rounding flips leave ~1e-3 on the value
+# trunk's biases
+ZERO_GRAD_L2, ZERO_GRAD_MAX = 5e-3, 1e-2
+ZERO_PROFILE_PLIES = 10
+ZERO_POOL = os.path.join("results", "zero_r5", "run")
+ZERO_POOL_GAMES, ZERO_POOL_MOVES = 8, 60
 
 
 class SmokeFailure(RuntimeError):
@@ -3014,6 +3053,432 @@ def phase_mcts(pygo, torchgo, dev, card, counters):
     return main
 
 
+# ------------------------------------------------------- the zero loop
+
+
+def zero_specs(work: str) -> tuple:
+    """Fresh seeded 19×19 specs from the port's spec CLI: the 12 × 128
+    policy (48 planes) and the 12 × 128 FCN value net (49 planes), the
+    auxiliary heads grafted on (``with_aux_heads``)."""
+    from rocalphago_tpu_torch.models import NeuralNetBase, specs
+    from rocalphago_tpu_torch.models.value import with_aux_heads
+
+    paths = [os.path.join(work, f"{n}.json") for n in ("policy", "value")]
+    plain = os.path.join(work, "value_plain.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        specs.main(["policy", "--seed", str(SEED + 40), "--out", paths[0]])
+        specs.main(["value", "--seed", str(SEED + 41), "--out", plain])
+    with_aux_heads(NeuralNetBase.load_model(plain),
+                   seed=SEED + 42).save_model(paths[1])
+    pol, val = (NeuralNetBase.load_model(x) for x in paths)
+    check(pol.preprocess.output_dim == 48 and val.preprocess.output_dim == 49
+          and tuple(val.module.aux_heads) == ("ownership", "score")
+          and pol.spec_kwargs["layers"] == val.spec_kwargs["layers"] == 12,
+          "zero specs: not 12 x 128 nets of 48 / 49 planes with aux heads")
+    return tuple(paths)
+
+
+def zero_argv(paths, out: str, iterations: int = 3, *extra) -> list:
+    """The zero CLI's command line: full width, depth cut."""
+    return [*paths, out, "--game-batch", str(ZERO_BATCH), "--sims",
+            str(ZERO_SIMS), "--move-limit", str(ZERO_MOVES), "--iterations",
+            str(iterations), "--save-every", "1", "--gate-every", "2",
+            "--gate-games", str(ZERO_GATE_GAMES), "--dirichlet-alpha",
+            str(ZERO_ALPHA), "--seed", str(SEED), *extra]
+
+
+def zero_artifacts(out: str, step: int = 3):
+    """A run's final checkpoint, its metric rows without wall times, and
+    the bytes of its exports, specs and pool."""
+    state = torch.load(os.path.join(out, "checkpoints", str(step),
+                                    "state.pt"), map_location="cpu",
+                       weights_only=True)
+    rows = []
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["event"] in ("iteration", "gate", "ladder"):
+                rows.append({k: v for k, v in r.items() if k not in (
+                    "time", "games_per_min", "replay_version",
+                    "replay_staleness_s")})
+    files = {}
+    for sub in ("", "pool"):
+        for name in sorted(os.listdir(os.path.join(out, sub))):
+            if name.endswith((".msgpack", ".json")) and \
+                    name != "metadata.json":
+                with open(os.path.join(out, sub, name), "rb") as f:
+                    files[os.path.join(sub, name)] = f.read()
+    return state, rows, files
+
+
+def same_tree(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def zero_cli(work: str, paths, card: str):
+    """The zero CLI three ways: straight, killed after iteration 2 and
+    resumed with the same command, and with one lockstep actor; the
+    last two end on the straight run's checkpoint, exports, pool and
+    metric rows bit for bit."""
+    from rocalphago_tpu_torch.io.checkpoint import TrainCheckpointer
+    from rocalphago_tpu_torch.training import zero
+
+    walls = {}
+
+    def run(name, iterations=3, *extra):
+        out = os.path.join(work, name)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            final = zero.run_training(zero_argv(paths, out, iterations,
+                                                *extra))
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out, final
+
+    straight, final = run("straight")
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "the zero trainer left cuDNN non-deterministic")
+    check(final["iteration"] == 2 and all(
+        np.isfinite(final[k]) for k in zero.METRICS),
+        f"zero final row {final}")
+    want = zero_artifacts(straight)
+    for name in ("policy.json", "value.json", "policy.00003.flax.msgpack",
+                 "value.00003.flax.msgpack", "pool/best.00000.policy.msgpack",
+                 "pool/rollout.json"):
+        check(name in want[2], f"zero: no {name}")
+    gates = [r for r in want[1] if r["event"] == "gate"]
+    check(len(gates) == 2, f"zero: {len(gates)} gate matches, not 2")
+
+    real = TrainCheckpointer.save
+
+    def killing_save(self, step, state):
+        real(self, step, state)
+        if step == 2:
+            raise KeyboardInterrupt("killed after iteration 2")
+
+    TrainCheckpointer.save = killing_save
+    try:
+        run("killed")
+        raise SmokeFailure("the zero run was not killed")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        TrainCheckpointer.save = real
+    killed, _ = run("killed")
+    got = zero_artifacts(killed)
+    check(same_tree(got[0], want[0]) and got[1] == want[1]
+          and got[2] == want[2],
+          "zero killed after iteration 2 and resumed: the checkpoint, "
+          "exports, pool or metric rows differ from the straight run's")
+    al, _ = run("actor_learner", 3, "--actor-learner", "--actors", "1")
+    got = zero_artifacts(al)
+    check(same_tree(got[0], want[0]) and got[1] == want[1]
+          and got[2] == want[2],
+          "zero --actor-learner --actors 1: the checkpoint, exports, pool "
+          "or metric rows differ from the synchronous run's")
+    log(f"zero cli [{card}]: 3 iterations at game batch {ZERO_BATCH}, "
+        f"{ZERO_SIMS} simulations, move limit {ZERO_MOVES}, Dir("
+        f"{ZERO_ALPHA}), gate every 2 ({ZERO_GATE_GAMES} games), 19x19 "
+        f"12x128 bf16: straight {walls['straight']:.1f} s (last row: policy "
+        f"loss {final['policy_loss']:.3f}, {final['games_per_min']:.2f} "
+        f"games/min; gates "
+        + ", ".join(f"{g['wins_a']}-{g['wins_b']}-{g['draws']} "
+                    f"promoted={g['promoted']}" for g in gates)
+        + f"); killed after iteration 2 and resumed ({walls['killed']:.1f} "
+        f"s) and --actor-learner --actors 1 ({walls['actor_learner']:.1f} "
+        "s): checkpoint, exports, pool and rows bit-identical")
+    return walls
+
+
+def zero_timed(torchgo, dev, card, counters, paths):
+    """One iteration in process with the playout caps (p 0.25, cheap 4)
+    and the auxiliary heads (weight 1): the wall of play, replay,
+    update and a gate match (a sync after each), with the launches of
+    the iteration counted from zero; a replay segment under
+    ``set_sync_debug_mode("error")``; a profile of replay plies."""
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training import zero
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    pol, val = (NeuralNetBase.load_model(x) for x in paths)
+    cfg = torchgo.GoConfig(size=SIZE, komi=torchgo.default_komi(SIZE))
+    it = zero.ZeroIteration(
+        cfg, pol.feature_list, val.feature_list, ZERO_BATCH, ZERO_MOVES,
+        ZERO_SIMS, dirichlet_alpha=ZERO_ALPHA, cap_p=ZERO_CAP_P,
+        cap_cheap=ZERO_CAP_CHEAP, aux_weight=ZERO_AUX, device=dev)
+    state = zero.init_zero_state(pol.module, val.module, seed=SEED + 43)
+    laps = {}
+    real_update = it.apply_updates
+
+    def timed_update(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_update(*a)
+        torch.cuda.synchronize()
+        laps["update"] = time.perf_counter() - t0
+        return out
+
+    it.apply_updates = timed_update
+    before = {k: v.detach().clone() for k, v in pol.module.state_dict().items()}
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    _, game_seed = zero.next_keys(state.rng)
+    t0 = time.perf_counter()
+    games = it.play(state.policy, state.value, game_seed)
+    torch.cuda.synchronize()
+    laps["play"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    state, m = it.learn(state, games)
+    metrics = zero.metrics_to_host(m)
+    learn_s = time.perf_counter() - t1
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    laps["replay"] = learn_s - laps["update"]
+    del it.apply_updates
+    run = it.last_selfplay
+    plies = games.actions.shape[0]
+    for name, k in launches.items():
+        check(k > 0, f"the {name} kernel was not launched by the zero "
+              "iteration")
+    check(plies == ZERO_MOVES and games.full is not None
+          and games.ownership is not None and games.score is not None,
+          f"zero iteration: {plies} plies, caps or aux labels missing")
+    after = pol.module.state_dict()
+    check(all(bool(torch.isfinite(after[k]).all()) for k in after)
+          and not all(torch.equal(before[k], after[k]) for k in after)
+          and all(np.isfinite(v) for v in metrics.values()),
+          "the zero update left the policy unchanged or not finite")
+    gate = zero.ZeroGate(cfg, pol.feature_list, os.path.dirname(paths[0]),
+                         games=ZERO_GATE_GAMES, threshold=0.55,
+                         temperature=1.0, move_limit=ZERO_MOVES, write=False,
+                         device=dev)
+    t0 = time.perf_counter()
+    tally = gate.match(state.policy, zero.snapshot(state.policy),
+                       zero.match_generator(SEED, 0, 0, dev))
+    laps["gate"] = time.perf_counter() - t0
+    wall = laps["play"] + laps["replay"] + laps["update"]
+    games_per_min = ZERO_BATCH * 60.0 / wall
+    sims_per_s = run.last_sims / laps["play"]
+    replay_ply_ms = laps["replay"] / plies * 1e3
+    flops = conv_flops(pol.module)[1] + conv_flops(val.module)[1]
+    positions = plies * ZERO_BATCH
+    mfu = positions * flops / laps["replay"] / BF16_FLOPS_PER_S
+    log(f"zero iteration [{card}]: game batch {ZERO_BATCH}, {ZERO_SIMS} "
+        f"simulations (cap p {ZERO_CAP_P}, cheap {ZERO_CAP_CHEAP}; full-search"
+        f" fraction {run.last_full_frac:.3f}), aux weight {ZERO_AUX}, move "
+        f"limit {ZERO_MOVES}, 19x19 12x128 bf16: play {laps['play']:.2f} s, "
+        f"replay {laps['replay']:.2f} s, update {laps['update'] * 1e3:.2f} "
+        f"ms, gate match ({ZERO_GATE_GAMES} games) {laps['gate']:.2f} s; "
+        f"{games_per_min:.2f} games/min (play + replay + update), "
+        f"{sims_per_s:.1f} simulations/s ({run.last_sims} lockstep "
+        f"simulations), {replay_ply_ms:.2f} ms a replay ply, replay MFU share "
+        f"{mfu:.5f} ({positions} positions x {flops / 1e9:.3f} GFLOP); "
+        f"policy loss {metrics['policy_loss']:.3f}, aux ownership "
+        f"{metrics['aux_loss_ownership']:.4f}; gate tally {tally}; launches "
+        f"{launches}")
+
+    # a replay segment with no device->host sync, then a profile
+    (actions, live_f, visits, winners, finished, full_f, aux_labels,
+     _) = it._record(games)
+    wf = winners.float()
+    holder = [torchgo.new_states(cfg, ZERO_BATCH, device=dev), 0]
+
+    def one_ply():
+        t = holder[1]
+        holder[0], _ = it.replay_ply(state, holder[0], wf, finished,
+                                     aux_labels, actions[t], live_f[t],
+                                     visits[t], full_f[t])
+        holder[1] += 1
+
+    one_ply()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(ZERO_PROFILE_PLIES):
+            one_ply()
+    except RuntimeError as e:
+        raise SmokeFailure(f"a host sync inside a zero replay segment: "
+                           f"{e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"zero: a replay segment of {ZERO_PROFILE_PLIES} plies at game "
+        f"batch {ZERO_BATCH} (one 49-plane encode, both nets forward and "
+        "backward, aux heads) ran with no device->host sync")
+    holder[:] = [torchgo.new_states(cfg, ZERO_BATCH, device=dev), 0]
+    for _ in range(ZERO_MOVES - ZERO_PROFILE_PLIES):
+        one_ply()
+    holder[1] = ZERO_MOVES - ZERO_PROFILE_PLIES
+    prof = profile_device(one_ply, ZERO_PROFILE_PLIES,
+                          f"{ZERO_PROFILE_PLIES} zero replay plies at game "
+                          f"batch {ZERO_BATCH}", "replay ply")
+    state.opt_policy.zero_grad(set_to_none=True)
+    state.opt_value.zero_grad(set_to_none=True)
+    return dict(launches=launches, laps=laps, wall=wall, mfu=mfu,
+                games_per_min=games_per_min, sims_per_s=sims_per_s,
+                replay_ply_ms=replay_ply_ms, profile=prof, games=games,
+                full_frac=run.last_full_frac)
+
+
+def zero_card_vs_cpu(dev, paths, games):
+    """The timed iteration's first games learned in float32 (TF32 off)
+    on the card and on the CPU, counted as finished so the value and
+    aux terms weigh in: both nets' updates within ``FORWARD_ATOL`` +
+    ``FORWARD_RTOL``·|x|."""
+    from rocalphago_tpu_torch.data.replay import ZeroGames
+    from rocalphago_tpu_torch.engine import torchgo
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training import zero
+    from rocalphago_tpu_torch.training.actor import games_to_host
+
+    host = games_to_host(games)
+    k = ZERO_CPU_GAMES
+    host = ZeroGames(host.actions[:, :k], host.live[:, :k],
+                     host.visits[:, :k], host.winners[:k],
+                     np.ones((k,), bool), host.full[:, :k],
+                     host.ownership[:k], host.score[:k])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = []
+    t0 = time.perf_counter()
+    try:
+        for device in (dev, torch.device("cpu")):
+            pol, val = (NeuralNetBase.load_model(x, device=device,
+                                                 dtype=torch.float32)
+                        for x in paths)
+            cfg = torchgo.GoConfig(size=SIZE,
+                                   komi=torchgo.default_komi(SIZE))
+            it = zero.ZeroIteration(
+                cfg, pol.feature_list, val.feature_list, k, ZERO_MOVES,
+                ZERO_SIMS, cap_p=ZERO_CAP_P, cap_cheap=ZERO_CAP_CHEAP,
+                aux_weight=ZERO_AUX, device=device)
+            state = zero.init_zero_state(pol.module, val.module, 0.1)
+            old = [{n: v.detach().clone() for n, v in
+                    m.state_dict().items()} for m in (pol.module, val.module)]
+            state, m = it.learn(state, host)
+            ups = {}
+            for o, mod, tag in zip(old, (pol.module, val.module),
+                                   ("policy", "value")):
+                ups.update({f"{tag}.{n}": ((o[n] - v) / 0.1).cpu()
+                            for n, v in mod.state_dict().items()})
+            runs.append((ups, zero.metrics_to_host(m)))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (card, card_m), (cpu, cpu_m) = runs
+    rows = []
+    for name in cpu:
+        diff = (card[name] - cpu[name]).double()
+        scale = float(cpu[name].abs().max())
+        # an absolute floor of FORWARD_ATOL per entry: a gradient that is
+        # 0 in exact arithmetic (the policy head's bias under the
+        # shift-invariant softmax) is float32 noise on both sides
+        floor = FORWARD_ATOL * cpu[name].numel() ** 0.5
+        rows.append((float(diff.norm()) / (float(cpu[name].double().norm())
+                                           + floor),
+                     float(diff.abs().max()) / (scale + FORWARD_ATOL),
+                     name, scale))
+    rows.sort(reverse=True)
+    moved = max(r[3] for r in rows)
+    log("zero learn card vs CPU, worst tensors (relative L2, max over "
+        "scale, scale): " + ", ".join(
+            f"{n} {l2:.2e} {mx:.2e} {sc:.3e}" for l2, mx, n, sc in rows[:4])
+        + "; metrics card " + json.dumps(card_m) + " cpu "
+        + json.dumps(cpu_m))
+    for l2, mx, name, scale in rows:
+        # a gradient summed over every ply, held to its own scale: a
+        # float32 rounding difference can flip a ReLU whose input is
+        # near 0, which no summation-order bound covers
+        check(l2 <= ZERO_GRAD_L2 and mx <= ZERO_GRAD_MAX,
+              f"zero learn card vs CPU: {name} relative L2 error {l2:.3e},"
+              f" largest error {mx:.3e} of its largest entry {scale:.3e}")
+    check(moved > 1e-3 and all(abs(card_m[n] - cpu_m[n])
+                               <= 1e-4 * (1 + abs(cpu_m[n])) for n in cpu_m),
+          f"zero learn card vs CPU: metrics {card_m} vs {cpu_m}")
+    log(f"zero learn, float32 (TF32 off), the timed iteration's first "
+        f"{k} games ({ZERO_MOVES} plies, counted as finished): card vs CPU "
+        f"updates of both nets within {ZERO_GRAD_L2:g} relative L2 and "
+        f"{ZERO_GRAD_MAX:g} of each tensor's largest entry (worst "
+        f"{rows[0][0]:.3e}, {max(r[1] for r in rows):.3e}; largest entry "
+        f"{moved:.3e}), the metrics equal to 1e-4; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def zero_pool(dev, work: str, card: str):
+    """The committed 9×9 pool of ``results/zero_r5/run``: its first and
+    last incumbents loaded through ``ZeroGate.load`` and a raw match
+    between them."""
+    from rocalphago_tpu_torch.engine import torchgo
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training import zero
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pool = os.path.join(root, ZERO_POOL, "pool")
+    with open(os.path.join(root, ZERO_POOL, "value.json")) as f:
+        spec = json.load(f)
+    spec["weights_file"] = os.path.join(pool, "best.00000.value.msgpack")
+    value_spec = os.path.join(work, "pool_value.json")
+    with open(value_spec, "w") as f:
+        json.dump(spec, f)
+    policy = NeuralNetBase.load_model(os.path.join(
+        pool, "best.00000.policy.json"))
+    value = NeuralNetBase.load_model(value_spec)
+    gate = zero.ZeroGate(torchgo.GoConfig(size=9, komi=7.0),
+                         policy.feature_list, pool, games=ZERO_POOL_GAMES,
+                         threshold=0.55, temperature=1.0,
+                         move_limit=ZERO_POOL_MOVES, write=False, device=dev)
+    snaps = gate.snapshots()
+    first = gate.load(snaps[0], policy.module, value.module)
+    last = gate.load(snaps[-1], policy.module, value.module)
+    check(not all(torch.equal(first[0].state_dict()[k],
+                              last[0].state_dict()[k])
+                  for k in first[0].state_dict()),
+          "the committed pool's first and last incumbents are equal")
+    t0 = time.perf_counter()
+    r = gate.match(last[0], first[0], zero.match_generator(SEED, 0, 0, dev))
+    check(r["wins_a"] + r["wins_b"] + r["draws"] == ZERO_POOL_GAMES,
+          f"pool match tally {r}")
+    log(f"committed pool [{card}]: {len(snaps)} incumbents in "
+        f"{ZERO_POOL}/pool; best.{snaps[-1][0]:05d} against "
+        f"best.{snaps[0][0]:05d}, {ZERO_POOL_GAMES} raw games at 9x9, move "
+        f"limit {ZERO_POOL_MOVES}: {r['wins_a']}-{r['wins_b']}-{r['draws']} "
+        f"(win rate {r['win_rate_a']:.3f}), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_zero(torchgo, dev, card, counters):
+    """The AlphaZero loop (phase 18)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ZERO_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    paths = zero_specs(work)
+    walls = zero_cli(work, paths, card)
+    t1 = time.perf_counter()
+    out = zero_timed(torchgo, dev, card, counters, paths)
+    t2 = time.perf_counter()
+    zero_card_vs_cpu(dev, paths, out["games"])
+    zero_pool(dev, work, card)
+    out["phase_s"] = time.perf_counter() - t0
+    out["cli_walls"] = walls
+    log(f"zero phase: {out['phase_s']:.1f} s (specs and the three CLI runs "
+        f"{t1 - t0:.1f} s, the timed iteration and its checks "
+        f"{t2 - t1:.1f} s, card vs CPU and the pool "
+        f"{time.perf_counter() - t2:.1f} s)")
+    return out
+
+
 def labels_sweeps(boards: torch.Tensor) -> int:
     """Sweeps the hook-and-jump fill needs on these boards (the same
     iteration the kernel runs, counted on the plain version's loop)."""
@@ -3077,15 +3542,18 @@ def main() -> int:
     gb = phase_gumbel(pygo, torchgo, dev, card, (L, C, T), phase8, specs,
                       main_path)
     mc = phase_mcts(pygo, torchgo, dev, card, (L, C))
-    # the launches of phases 11-17's paths: policy self-play (labels,
+    zr = phase_zero(torchgo, dev, card, (L, C, T))
+    # the launches of phases 11-18's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
     # Gumbel GTP session and Gumbel self-play (all three), the mcts GTP
-    # session (labels, chase); the kernels timed at self-play's shapes
+    # session (labels, chase), the zero iteration (all three); the
+    # kernels timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
                 + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
                 + gb["sp_launches"][k] + mc["launches"].get(k, 0)
+                + zr["launches"][k]
                 for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
@@ -3140,6 +3608,19 @@ def main() -> int:
             f"{t['ms']:.3f} ms at minibatch {b} ({b / t['ms'] * 1e3:.1f} "
             f"positions/s, MFU share {t['mfu']:.4f})"
             for b, t in sv["timings"].items()) + f" on {card}")
+    prof = zr["profile"] or {}
+    log(f"zero iteration at game batch {ZERO_BATCH}, {ZERO_SIMS} "
+        f"simulations (caps {ZERO_CAP_P}/{ZERO_CAP_CHEAP}, aux), move limit "
+        f"{ZERO_MOVES}: play {zr['laps']['play']:.2f} s, replay "
+        f"{zr['laps']['replay']:.2f} s, update "
+        f"{zr['laps']['update'] * 1e3:.2f} ms, gate {zr['laps']['gate']:.2f} "
+        f"s; {zr['games_per_min']:.2f} games/min, {zr['sims_per_s']:.1f} "
+        f"simulations/s, full-search fraction {zr['full_frac']:.3f}, "
+        f"{zr['replay_ply_ms']:.2f} ms and "
+        f"{prof.get('launches', float('nan')):.0f} kernels a replay ply, "
+        f"idle share {prof.get('idle', float('nan')):.3f}, replay MFU share "
+        f"{zr['mfu']:.5f}; launches {zr['launches']}; phase 18 "
+        f"{zr['phase_s']:.1f} s on {card}")
     log(f"genmove p50 {p50:.2f} ms on {card}; smoke took "
         f"{time.monotonic() - t0:.0f} s")
     print(card)

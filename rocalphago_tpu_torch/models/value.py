@@ -20,9 +20,15 @@ Head variants (``head=``, recorded in saved specs):
 configuration does; ``symmetric=`` on the evaluation methods averages
 the value over the 8 board symmetries.
 
-Auxiliary heads (``aux_heads=("ownership", "score")``) exist as
-parameters, so such specs load; the value output does not read them.
-Their training-side forward belongs to the trainer slice.
+Auxiliary heads (``aux_heads=("ownership", "score")``, KataGo's):
+per-point terminal ownership (tanh ``[B, N]``, a 1×1 conv off the
+trunk) and the final score margin (a dense layer off the penultimate
+features), trained against the engine's terminal labels
+(:func:`~rocalphago_tpu_torch.ops.labels.terminal_labels`). The plain
+forward returns the value only and runs neither head; the training
+forward ``module(x, with_aux=True)`` returns ``(value, {"ownership",
+"score"})``. :func:`with_aux_heads` grafts fresh heads onto a net
+without them, its value unchanged bit for bit.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ class ValueNet(nn.Module):
                 f"unknown aux heads {sorted(set(aux_heads) - set(AUX_HEADS))}"
                 f"; supported: {sorted(AUX_HEADS)}")
         self.head = head
+        self.aux_heads = tuple(aux_heads)
         self.dtype = dtype
         self.trunk = ConvTrunk(input_planes, layers, filters_per_layer,
                                filter_width_1, filter_width_K, dtype,
@@ -81,8 +88,15 @@ class ValueNet(nn.Module):
         return F.linear(x, layer.weight.to(self.dtype),
                         layer.bias.to(self.dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_aux: bool = False):
+        """Values ``[B]``; with ``with_aux``, ``(values, {head:
+        prediction})`` for the heads the net has."""
         t = self.trunk(x.permute(0, 3, 1, 2))
+        aux = {}
+        if with_aux and "ownership" in self.aux_heads:
+            o = F.conv2d(t, self.own_conv.weight.to(self.dtype),
+                         self.own_conv.bias.to(self.dtype))
+            aux["ownership"] = torch.tanh(o.reshape(o.shape[0], -1).float())
         h = F.conv2d(t, self.head_conv.weight.to(self.dtype),
                      self.head_conv.bias.to(self.dtype))
         if self.head == "dense":
@@ -91,7 +105,10 @@ class ValueNet(nn.Module):
             h = F.relu(h)
             h = torch.cat([h.mean(dim=(2, 3)), h.amax(dim=(2, 3))], dim=-1)
         h = F.relu(self._linear(self.dense1, h))
-        return torch.tanh(self._linear(self.dense2, h)[:, 0].float())
+        if with_aux and "score" in self.aux_heads:
+            aux["score"] = self._linear(self.score_dense, h)[:, 0].float()
+        value = torch.tanh(self._linear(self.dense2, h)[:, 0].float())
+        return (value, aux) if with_aux else value
 
 
 @neuralnet
@@ -151,3 +168,27 @@ class CNNValue(NeuralNetBase):
         planes, b = self._pad_bucket(planes)
         fwd = self.forward_symmetric if symmetric else self.forward
         return fwd(planes)[:b].cpu().numpy()
+
+    @torch.no_grad()
+    def forward_aux(self, planes: torch.Tensor):
+        """``(values [B], {head: prediction})`` of encoded planes: the
+        training-side forward of the auxiliary heads (:meth:`forward`
+        keeps the value-only contract the search uses)."""
+        return self.module(planes.to(self.device), with_aux=True)
+
+
+def with_aux_heads(net: CNNValue, aux_heads=AUX_HEADS,
+                   seed: int = 0) -> CNNValue:
+    """A copy of ``net`` with auxiliary heads grafted on: the trunk and
+    the value head are ``net``'s (copied, not shared), the new heads
+    start from fresh weights drawn from ``seed``. The value output is
+    ``net``'s bit for bit."""
+    kwargs = dict(net.spec_kwargs)
+    kwargs["aux_heads"] = tuple(aux_heads)
+    grown = CNNValue(net.feature_list, board=net.board, seed=seed,
+                     device=net.device, dtype=net.module.dtype, **kwargs)
+    old = net.module.state_dict()
+    merged = {k: (old[k].clone() if k in old else v)
+              for k, v in grown.module.state_dict().items()}
+    grown.module.load_state_dict(merged)
+    return grown

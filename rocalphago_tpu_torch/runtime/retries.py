@@ -1,7 +1,8 @@
 """Retry with deterministic-jitter exponential backoff.
 
 A copy of the part of the reference package's ``runtime/retries.py``
-that the checkpointer uses: :func:`retry` with its defaults, the
+that the checkpointer and the zero loop use: :func:`retry` with its
+defaults and :func:`retry_call`, the
 backoff with jitter hashed from a seed, the wrapped function's name
 and the attempt index (so an interrupted-and-resumed run replays the
 identical sleep schedule), and the classifier. Infrastructure flake --
@@ -45,11 +46,13 @@ def backoff_delay(attempt: int, base: float, cap: float,
     return envelope * (0.5 + 0.5 * frac)
 
 
-def retry(max_attempts: int = 3, base_delay: float = 0.5):
+def retry(max_attempts: int = 3, base_delay: float = 0.5, logger=None):
     """Decorator: re-invoke on transient failures (:func:`is_transient`),
     with deterministic-jitter exponential backoff between attempts
     (seed 0, capped at ``_MAX_DELAY`` seconds); non-transient exceptions and the final attempt's
-    exception propagate unchanged."""
+    exception propagate unchanged. ``logger`` (``log(event, **fields)``,
+    a ``MetricsLogger``) also gets a ``retry`` event per retried
+    failure."""
     if max_attempts < 1:
         raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
 
@@ -66,6 +69,10 @@ def retry(max_attempts: int = 3, base_delay: float = 0.5):
                         raise
                     delay = backoff_delay(attempt, base_delay,
                                           _MAX_DELAY, 0, key)
+                    if logger is not None:
+                        logger.log("retry", fn=key, attempt=attempt + 1,
+                                   error=f"{type(e).__name__}: {e}",
+                                   delay_s=round(delay, 3))
                     print(f"retries: {key} attempt "
                           f"{attempt + 1}/{max_attempts} failed "
                           f"({type(e).__name__}: {e}); retrying "
@@ -76,3 +83,8 @@ def retry(max_attempts: int = 3, base_delay: float = 0.5):
         return wrapper
 
     return decorate
+
+
+def retry_call(fn, *args, _retry_kwargs: dict | None = None, **kwargs):
+    """One-shot form: ``retry_call(f, x, y)`` is ``retry()(f)(x, y)``."""
+    return retry(**(_retry_kwargs or {}))(fn)(*args, **kwargs)

@@ -33,9 +33,17 @@ target (:meth:`DeviceMCTS.pruned_targets`) serve search self-play
 Dirichlet root noise and the move sampled from the root visits, or
 Gumbel playing the halving winner or sampling π′).
 
-Not ported yet: the playout caps, per-row komi, the incremental root
-encode and the serving seam's transposition keys (later slices,
-``ROADMAP.md``).
+Playout caps (``budget=`` on :meth:`DeviceMCTS.run_sims_chunked` and
+:meth:`GumbelMCTS.run_chunked`, ``cap_p`` / ``cap_cheap`` /
+``cap_per_row`` on :func:`make_mcts_selfplay`): a row past its
+simulation budget keeps its slab bit for bit. The mask is plain PyTorch
+inside :meth:`DeviceMCTS.apply_sim` -- a retired row writes no node and
+backs nothing up (its backup starts at node -1, which the tree kernel
+skips) -- so the tree kernel is unchanged and the mask adds no host
+sync.
+
+Not ported yet: per-row komi, the incremental root encode and the
+serving seam's transposition keys (later slices, ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -224,15 +232,21 @@ class DeviceMCTS:
 
     @torch.no_grad()
     def apply_sim(self, tree: DeviceTree, ctx: SimStep, priors: torch.Tensor,
-                  values: torch.Tensor) -> DeviceTree:
+                  values: torch.Tensor,
+                  active: torch.Tensor | None = None) -> DeviceTree:
         """WRITE + BACKUP, in place: store the evaluated leaf where
         expanding and the slab is not full, then back ``values`` (the
         evaluation of ``ctx.eval_states``) up the path (the tree
-        kernel). Returns ``tree``."""
+        kernel). ``active`` (bool ``[B]``, None = every row) retires the
+        other rows: they write nothing and back nothing up, so their
+        slabs stay bit for bit (the reference's ``_where_rows`` of a
+        budget-masked simulation). Returns ``tree``."""
         b = tree.n_nodes.shape[0]
         ar = torch.arange(b, device=tree.n_nodes.device)
         node, act = ctx.node.long(), ctx.safe_action.long()
         write = ctx.expanding & (tree.n_nodes < self.max_nodes)
+        if active is not None:
+            write = write & active
         idx = torch.where(write, torch.clamp(tree.n_nodes,
                                              max=self.max_nodes - 1), 0)
         idx_l = idx.long()
@@ -257,6 +271,8 @@ class DeviceMCTS:
                                  tree.parent[ar, node])
         start_action = torch.where(ctx.expanding, ctx.safe_action,
                                    tree.paction[ar, node])
+        if active is not None:
+            start_node = torch.where(active, start_node, -1)
         tree_ops.backup(tree.visits, tree.value_sum, tree.parent,
                         tree.paction, start_node.contiguous(),
                         start_action.contiguous(),
@@ -268,14 +284,16 @@ class DeviceMCTS:
 
     @torch.no_grad()
     def simulate(self, tree: DeviceTree,
-                 root_actions: torch.Tensor | None = None) -> DeviceTree:
+                 root_actions: torch.Tensor | None = None,
+                 active: torch.Tensor | None = None) -> DeviceTree:
         """One lockstep simulation of every game, in place:
-        :meth:`prepare_sim` → :meth:`eval_batch` → :meth:`apply_sim`."""
+        :meth:`prepare_sim` → :meth:`eval_batch` → :meth:`apply_sim`
+        (``active`` as there)."""
         if root_actions is None:
             root_actions = self._free(tree)
         ctx = self.prepare_sim(tree, root_actions)
         priors, values = self.eval_batch(ctx.eval_states)
-        return self.apply_sim(tree, ctx, priors, values)
+        return self.apply_sim(tree, ctx, priors, values, active)
 
     # ------------------------------------------------------ driving
 
@@ -291,15 +309,22 @@ class DeviceMCTS:
     def run_sims_chunked(self, tree: DeviceTree, chunk: int,
                          n: int | None = None,
                          deadline: Deadline | None = None,
-                         owned: bool = False):
+                         owned: bool = False,
+                         budget: torch.Tensor | None = None):
         """``n`` simulations (default ``n_sim``) in chunks of ``chunk``,
         queued on the card one chunk ahead of the host
         (:class:`~..runtime.pipeline.ChunkPipeline`). ``deadline`` is
         checked before every chunk after the first (one chunk is the
         anytime floor); on expiry at most one more chunk is in flight,
         and its simulations count. ``owned=False`` works on a copy of
-        ``tree``. Returns ``(tree, ran)``."""
+        ``tree``. ``budget`` (i32 ``[B]``, the playout caps) runs
+        simulation ``j`` only on the rows whose budget exceeds ``j``;
+        the others keep their slabs bit for bit. Callers pass ``n =
+        max(budget)`` (host-known) so the loop stops there. Returns
+        ``(tree, ran)``."""
         n = self.n_sim if n is None else n
+        if budget is not None:
+            budget = budget.to(torch.int32)
         enforce = deadline is not None and not deadline.unlimited
         pipe = ChunkPipeline(tree.n_nodes.device)
         if not owned and n > 0:
@@ -310,8 +335,9 @@ class DeviceMCTS:
             if ran and enforce and deadline.expired():
                 break
             k = min(chunk, n - done)
-            for _ in range(k):
-                self.simulate(tree, free)
+            for i in range(k):
+                self.simulate(tree, free, None if budget is None
+                              else budget > done + i)
             pipe.push()
             ran += k
         pipe.drain()
@@ -321,15 +347,16 @@ class DeviceMCTS:
     def run_chunked(self, roots: GoState, chunk: int,
                     tree: DeviceTree | None = None,
                     deadline: Deadline | None = None, owned: bool = False,
-                    n: int | None = None):
+                    n: int | None = None,
+                    budget: torch.Tensor | None = None):
         """A whole search as chunks (see :meth:`run_sims_chunked`), from
         ``init(roots)`` or from a prepared ``tree``; returns
-        :meth:`root_stats`."""
+        :meth:`root_stats`. ``last_ran`` holds the simulations run."""
         if tree is None:
             tree = self.init(roots)
             owned = True
         tree, self.last_ran = self.run_sims_chunked(
-            tree, chunk, n=n, deadline=deadline, owned=owned)
+            tree, chunk, n=n, deadline=deadline, owned=owned, budget=budget)
         return self.root_stats(tree)
 
     @torch.no_grad()
@@ -552,13 +579,18 @@ class GumbelMCTS:
 
     @torch.no_grad()
     def run_phase(self, tree: DeviceTree, g: torch.Tensor,
-                  cand: torch.Tensor, j0: int, count: int,
-                  k: int) -> DeviceTree:
+                  cand: torch.Tensor, j0: int, count: int, k: int,
+                  ran0: int = 0,
+                  budget: torch.Tensor | None = None) -> DeviceTree:
         """``count`` scheduled simulations in place: simulation ``i``
-        forces candidate slot ``(j0 + i) % k``."""
+        forces candidate slot ``(j0 + i) % k``. ``budget`` (i32 ``[B]``)
+        counts the plan's simulations globally (``ran0`` already run):
+        a row past its budget keeps its slab bit for bit."""
         for i in range(count):
             self.base.simulate(tree,
-                               self.forced_candidate(g, cand, (j0 + i) % k))
+                               self.forced_candidate(g, cand, (j0 + i) % k),
+                               None if budget is None
+                               else budget > ran0 + i)
         return tree
 
     @torch.no_grad()
@@ -577,14 +609,19 @@ class GumbelMCTS:
     def run_chunked(self, roots: GoState, chunk: int,
                     generator: torch.Generator | None = None,
                     noise: torch.Tensor | None = None,
-                    deadline: Deadline | None = None, n: int | None = None):
+                    deadline: Deadline | None = None, n: int | None = None,
+                    budget: torch.Tensor | None = None):
         """The plan phase by phase, in chunks of ``chunk`` simulations
         queued one chunk ahead of the host (:class:`ChunkPipeline`); the
         same result as :meth:`__call__` unless cut. ``deadline`` is
         checked before every chunk after the first, and ``n`` truncates
         the plan; a cut phase is still re-ranked, so ``best`` is the
-        anytime answer. ``last_ran`` holds the simulations run. Nothing
-        in the loop reads the card from the host."""
+        anytime answer. ``budget`` (i32 ``[B]``, the playout caps)
+        freezes each row past its budget of the plan's simulations
+        (see :meth:`run_phase`). ``last_ran`` holds the simulations
+        run. Nothing in the loop reads the card from the host."""
+        if budget is not None:
+            budget = budget.to(torch.int32)
         tree, g, cand, logits = self.init(roots, noise, generator)
         enforce = deadline is not None and not deadline.unlimited
         pipe = ChunkPipeline(tree.n_nodes.device)
@@ -599,7 +636,7 @@ class GumbelMCTS:
                 count = min(chunk, total - j0)
                 if n is not None:
                     count = min(count, n - ran)
-                self.run_phase(tree, g, cand, j0, count, k)
+                self.run_phase(tree, g, cand, j0, count, k, ran, budget)
                 pipe.push()
                 ran += count
             cand = self.rerank(tree, g, cand, k)
@@ -828,6 +865,207 @@ class DeviceMCTSPlayer:
         return divmod(action, cfg.size)
 
 
+class MCTSSelfplay:
+    """Search self-play over one batch (built by
+    :func:`make_mcts_selfplay`; see there for the move rules and the
+    return contract of a call). Its draws go through
+    :meth:`draw_budget`, :meth:`draw_noise`, :meth:`draw_gamma` and
+    :meth:`sample_weighted`, so a caller can hand in another stream's
+    draws (the parity tests replace them with the reference's);
+    :meth:`search_ply`, :meth:`pick_and_step`, :meth:`step_best` and
+    :meth:`add_root_noise` are the parts of a ply; ``search`` is the
+    searcher."""
+
+    def __init__(self, cfg: GoConfig, search, batch: int, max_moves: int,
+                 n_sim: int, temperature: float, sim_chunk: int,
+                 record_visits: bool, gumbel: bool, gumbel_sample: bool,
+                 dirichlet_alpha: float, noise_frac: float, forced_k: float,
+                 cap_p: float, cheap: int, cap_per_row: bool, device):
+        self.cfg = cfg
+        self.search = search
+        self.batch = batch
+        self.max_moves = max_moves
+        self.n_sim = n_sim
+        self.temperature = temperature
+        self.sim_chunk = sim_chunk
+        self.record_visits = record_visits
+        self.gumbel = gumbel
+        self.gumbel_sample = gumbel_sample
+        self.dirichlet_alpha = dirichlet_alpha
+        self.noise_frac = noise_frac
+        self.forced_k = forced_k
+        self.cap_p = cap_p
+        self.cheap = cheap
+        self.cap_per_row = cap_per_row
+        # playout-cap randomisation is live only when a cheap search is
+        # really cheaper; the flags off draw nothing, so the run's
+        # stream (and everything after it) is the uncapped runner's
+        self.econ = cap_p > 0 and cheap < n_sim
+        self.device = device
+        self.last_full_frac = None     # full-search share of the last run
+        self.last_sims = None          # lockstep simulations it ran
+
+    # ---------------------------------------------------------- draws
+
+    def draw_budget(self, generator: torch.Generator):
+        """``(full bool [B], budget i32 [B])``: one Bernoulli(cap_p)
+        for the whole batch (lockstep games: a full row makes the batch
+        pay full price), or one per game with ``cap_per_row``; a full
+        ply gets ``n_sim`` simulations, the rest ``cap_cheap``."""
+        shape = (self.batch,) if self.cap_per_row else (1,)
+        return self.budget_from(torch.rand(shape, generator=generator,
+                                           device=self.device))
+
+    def budget_from(self, u: torch.Tensor):
+        """:meth:`draw_budget` from given uniforms ``u`` (f32 ``[1]``,
+        or ``[B]`` with ``cap_per_row``): a ply is full where ``u <
+        cap_p``, the Bernoulli draw's own rule."""
+        full = (u.to(self.device) < self.cap_p).expand(self.batch)
+        return full, torch.where(full, self.n_sim, self.cheap).int()
+
+    def draw_noise(self, generator: torch.Generator) -> torch.Tensor:
+        """The Gumbel root draw of a ply (f32 ``[B, A]``)."""
+        return self.search.draw_noise(self.batch, generator)
+
+    def draw_gamma(self, noise_rng: np.random.Generator) -> torch.Tensor:
+        """The gamma draws behind a ply's ``Dir(α)`` root noise, made on
+        the host (torch's gamma sampler takes no generator)."""
+        return torch.as_tensor(
+            noise_rng.gamma(self.dirichlet_alpha,
+                            size=(self.batch, self.cfg.num_points + 1)),
+            dtype=torch.float32).to(self.device)
+
+    def sample_weighted(self, weights: torch.Tensor,
+                        generator: torch.Generator) -> torch.Tensor:
+        """An action per game ``∝ weights^(1/temperature)``; argmax at
+        temperature 0."""
+        if self.temperature > 0:
+            logits = torch.where(
+                weights > 0,
+                torch.log(torch.clamp(weights, min=1e-9)) / self.temperature,
+                float("-inf"))
+            return gumbel_argmax(logits, generator).int()
+        return torch.argmax(weights, dim=-1).int()
+
+    # ---------------------------------------------------------- a ply
+
+    @torch.no_grad()
+    def pick_and_step(self, states: GoState, weights: torch.Tensor,
+                      generator: torch.Generator):
+        """``(new states, action i32 [B], live bool [B])``, the action
+        sampled from ``weights`` (root visits, or π′)."""
+        action = self.sample_weighted(weights.float(), generator)
+        return step(self.cfg, states, action), action, ~states.done
+
+    @torch.no_grad()
+    def step_best(self, states: GoState, best: torch.Tensor):
+        """The Gumbel move rule: play the halving winner."""
+        return step(self.cfg, states, best), best, ~states.done
+
+    @torch.no_grad()
+    def add_root_noise(self, tree: DeviceTree,
+                       gamma: torch.Tensor) -> DeviceTree:
+        """Mix ``Dir(α)``, normalised from the gamma draws ``gamma``
+        (f32 ``[B, A]``), into the root priors, in place."""
+        p0 = tree.prior[:, 0]
+        valid = p0 > 0
+        gam = torch.where(valid, gamma, 0.0)
+        dirichlet = gam / torch.clamp(gam.sum(dim=-1, keepdim=True),
+                                      min=1e-12)
+        tree.prior[:, 0] = torch.where(
+            valid, (1.0 - self.noise_frac) * p0
+            + self.noise_frac * dirichlet, 0.0)
+        return tree
+
+    @torch.no_grad()
+    def search_ply(self, states: GoState, gamma: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None, n: int | None = None,
+                   budget: torch.Tensor | None = None):
+        """One ply's search: PUCT ``(root visits i32 [B, A], target)``;
+        Gumbel ``(root visits, π′ f32 [B, A], best i32 [B])`` from the
+        root noise ``noise``. ``n`` caps the simulations and ``budget``
+        (i32 ``[B]``) masks rows past their own cap (the playout caps)."""
+        search = self.search
+        if self.gumbel:
+            visits, _, best, pi = search.run_chunked(
+                states, self.sim_chunk, noise=noise, n=n, budget=budget)
+            return visits, pi, best
+        tree = search.init(states)
+        if gamma is not None:
+            self.add_root_noise(tree, gamma)
+        tree, search.last_ran = search.run_sims_chunked(
+            tree, self.sim_chunk, n=n, owned=True, budget=budget)
+        visits, _ = search.root_stats(tree)
+        target = search.pruned_targets(tree)[0] if self.forced_k else visits
+        return visits, target
+
+    # ---------------------------------------------------------- a run
+
+    def __call__(self, generator: torch.Generator,
+                 noise_rng: np.random.Generator | None = None):
+        if self.dirichlet_alpha > 0 and noise_rng is None:
+            raise ValueError("root noise needs a numpy noise_rng")
+        batch, dev = self.batch, self.device
+        states = new_states(self.cfg, batch, device=dev)
+        actions, lives, targets, fulls = [], [], [], []
+        full_sum, sims = 0.0, 0
+        for _ in range(self.max_moves):
+            n_ply = budget = None
+            if self.econ:
+                # the budget is drawn first; the ply's simulation count
+                # is host-known (a read of the draw), so the chunk loop
+                # stops at the batch's largest budget
+                full, budget_rows = self.draw_budget(generator)
+                fh = full.cpu()
+                n_ply = self.n_sim if bool(fh.any()) else self.cheap
+                budget = budget_rows if self.cap_per_row else None
+                full_sum += float(fh.float().mean())
+                fulls.append(full)
+            if self.gumbel:
+                _, target, best = self.search_ply(
+                    states, noise=self.draw_noise(generator), n=n_ply,
+                    budget=budget)
+                if self.gumbel_sample:
+                    states, action, live = self.pick_and_step(
+                        states, target, generator)
+                else:
+                    states, action, live = self.step_best(states, best)
+            else:
+                gamma = (self.draw_gamma(noise_rng)
+                         if self.dirichlet_alpha > 0 else None)
+                visits, target = self.search_ply(states, gamma, n=n_ply,
+                                                 budget=budget)
+                # the move comes from the raw visits; pruning reshapes
+                # only the recorded target
+                states, action, live = self.pick_and_step(states, visits,
+                                                          generator)
+            sims += self.search.last_ran
+            actions.append(action)
+            lives.append(live)
+            if self.record_visits:
+                targets.append(target)
+            if bool(states.done.all()):
+                break
+        self.last_full_frac = (full_sum / len(fulls)) if fulls else None
+        self.last_sims = sims
+        out = (states, self._stack(actions, torch.int32),
+               self._stack(lives, torch.bool))
+        if self.record_visits:
+            tdtype = (torch.float32 if (self.gumbel or self.forced_k)
+                      else torch.int32)
+            n_act = self.cfg.num_points + 1
+            out += (torch.stack(targets) if targets else torch.zeros(
+                (0, batch, n_act), dtype=tdtype, device=dev),)
+            if self.econ:
+                out += (self._stack(fulls, torch.bool),)
+        return out
+
+    def _stack(self, rows: list, dtype) -> torch.Tensor:
+        if rows:
+            return torch.stack(rows)
+        return torch.zeros((0, self.batch), dtype=dtype, device=self.device)
+
+
 def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
                        value_features: tuple, policy_fn: Callable,
                        value_fn: Callable, batch: int, max_moves: int,
@@ -838,7 +1076,9 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
                        gumbel_sample: bool = False,
                        dirichlet_alpha: float = 0.0,
                        noise_frac: float = 0.25, forced_k: float = 0.0,
-                       device=None):
+                       cap_p: float = 0.0, cap_cheap: int | None = None,
+                       cap_per_row: bool = False,
+                       device=None) -> MCTSSelfplay:
     """Search self-play: every move of every game comes from a fresh
     search over the batch (no subtree reuse), ``n_sim`` simulations in
     chunks of ``sim_chunk``; one net plays both colours.
@@ -862,13 +1102,22 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
     target is π′ (f32). Root noise and forced playouts are PUCT knobs
     and raise ``ValueError`` with ``gumbel``.
 
-    Returns ``run(generator, noise_rng=None) -> (final GoState, actions
-    i32 [T, B], live bool [T, B])``, and ``targets [T, B, A]`` after
-    them with ``record_visits`` (i32 root visits under plain PUCT, f32
-    otherwise). The loop stops after the ply on which every game has
-    ended (a host read of the done flags per ply). ``run.search_ply``,
-    ``run.pick_and_step``, ``run.step_best`` and ``run.add_root_noise``
-    are its parts; ``run.search`` is the searcher."""
+    Playout caps (KataGo's playout-cap randomisation, off by default):
+    with ``cap_p > 0`` each ply first draws its budget from the run's
+    generator -- ``n_sim`` simulations with probability ``cap_p``, else
+    ``cap_cheap`` (default ``max(1, n_sim // 4)``) -- shared by the
+    batch, or per game with ``cap_per_row`` (rows past their budget are
+    masked, :meth:`DeviceMCTS.run_sims_chunked`). The draw is read on
+    the host once a ply. With the caps off nothing is drawn for them, so
+    the games are those of the uncapped runner.
+
+    Returns an :class:`MCTSSelfplay`: ``run(generator, noise_rng=None)
+    -> (final GoState, actions i32 [T, B], live bool [T, B])``, and
+    ``targets [T, B, A]`` after them with ``record_visits`` (i32 root
+    visits under plain PUCT, f32 otherwise), and then ``full bool [T,
+    B]`` (the plies searched in full) when the caps are live. The loop
+    stops after the ply on which every game has ended (a host read of
+    the done flags per ply)."""
     if gumbel and dirichlet_alpha > 0:
         raise ValueError(
             "dirichlet_alpha is a PUCT-mode knob; gumbel self-play's "
@@ -877,6 +1126,11 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
         raise ValueError(
             "forced_k is a PUCT-root knob; gumbel search visits "
             "candidates by schedule, not PUCT selection")
+    if not 0.0 <= cap_p <= 1.0:
+        raise ValueError(f"cap_p must be in [0, 1], got {cap_p}")
+    if cap_cheap is None:
+        cap_cheap = max(1, n_sim // 4)
+    cheap = max(1, min(int(cap_cheap), n_sim))
     dev = resolve_device(device)
     if gumbel:
         search = make_gumbel_mcts(cfg, policy_features, value_features,
@@ -886,110 +1140,7 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
         search = make_device_mcts(cfg, policy_features, value_features,
                                   policy_fn, value_fn, n_sim, max_nodes,
                                   c_puct, forced_k=forced_k)
-    n_act = cfg.num_points + 1
-
-    def sample_weighted(weights: torch.Tensor,
-                        generator: torch.Generator) -> torch.Tensor:
-        """An action per game ``∝ weights^(1/temperature)``; argmax at
-        temperature 0."""
-        if temperature > 0:
-            logits = torch.where(
-                weights > 0,
-                torch.log(torch.clamp(weights, min=1e-9)) / temperature,
-                float("-inf"))
-            return gumbel_argmax(logits, generator).int()
-        return torch.argmax(weights, dim=-1).int()
-
-    @torch.no_grad()
-    def pick_and_step(states: GoState, weights: torch.Tensor,
-                      generator: torch.Generator):
-        """``(new states, action i32 [B], live bool [B])``, the action
-        sampled from ``weights`` (root visits, or π′)."""
-        action = sample_weighted(weights.float(), generator)
-        return step(cfg, states, action), action, ~states.done
-
-    @torch.no_grad()
-    def step_best(states: GoState, best: torch.Tensor):
-        """The Gumbel move rule: play the halving winner."""
-        return step(cfg, states, best), best, ~states.done
-
-    @torch.no_grad()
-    def add_root_noise(tree: DeviceTree, gamma: torch.Tensor) -> DeviceTree:
-        """Mix ``Dir(α)``, normalised from the gamma draws ``gamma``
-        (f32 ``[B, A]``), into the root priors, in place."""
-        p0 = tree.prior[:, 0]
-        valid = p0 > 0
-        gam = torch.where(valid, gamma, 0.0)
-        dirichlet = gam / torch.clamp(gam.sum(dim=-1, keepdim=True),
-                                      min=1e-12)
-        tree.prior[:, 0] = torch.where(
-            valid, (1.0 - noise_frac) * p0 + noise_frac * dirichlet, 0.0)
-        return tree
-
-    @torch.no_grad()
-    def search_ply(states: GoState, gamma: torch.Tensor | None = None,
-                   noise: torch.Tensor | None = None):
-        """One ply's search: PUCT ``(root visits i32 [B, A], target)``;
-        Gumbel ``(root visits, π′ f32 [B, A], best i32 [B])`` from the
-        root noise ``noise``."""
-        if gumbel:
-            visits, _, best, pi = search.run_chunked(states, sim_chunk,
-                                                     noise=noise)
-            return visits, pi, best
-        tree = search.init(states)
-        if gamma is not None:
-            add_root_noise(tree, gamma)
-        tree, _ = search.run_sims_chunked(tree, sim_chunk, owned=True)
-        visits, _ = search.root_stats(tree)
-        target = search.pruned_targets(tree)[0] if forced_k else visits
-        return visits, target
-
-    def run(generator: torch.Generator,
-            noise_rng: np.random.Generator | None = None):
-        if dirichlet_alpha > 0 and noise_rng is None:
-            raise ValueError("root noise needs a numpy noise_rng")
-        states = new_states(cfg, batch, device=dev)
-        actions, lives, targets = [], [], []
-        for _ in range(max_moves):
-            if gumbel:
-                _, target, best = search_ply(
-                    states, noise=search.draw_noise(batch, generator))
-                if gumbel_sample:
-                    states, action, live = pick_and_step(states, target,
-                                                         generator)
-                else:
-                    states, action, live = step_best(states, best)
-            else:
-                gamma = None
-                if dirichlet_alpha > 0:
-                    gamma = torch.as_tensor(
-                        noise_rng.gamma(dirichlet_alpha,
-                                        size=(batch, n_act)),
-                        dtype=torch.float32).to(dev)
-                visits, target = search_ply(states, gamma)
-                states, action, live = pick_and_step(states, visits,
-                                                     generator)
-            actions.append(action)
-            lives.append(live)
-            if record_visits:
-                targets.append(target)
-            if bool(states.done.all()):
-                break
-        out = (states,
-               torch.stack(actions) if actions else torch.zeros(
-                   (0, batch), dtype=torch.int32, device=dev),
-               torch.stack(lives) if lives else torch.zeros(
-                   (0, batch), dtype=torch.bool, device=dev))
-        if record_visits:
-            tdtype = (torch.float32 if (gumbel or forced_k)
-                      else torch.int32)
-            out += (torch.stack(targets) if targets else torch.zeros(
-                (0, batch, n_act), dtype=tdtype, device=dev),)
-        return out
-
-    run.search = search
-    run.search_ply = search_ply
-    run.pick_and_step = pick_and_step
-    run.step_best = step_best
-    run.add_root_noise = add_root_noise
-    return run
+    return MCTSSelfplay(cfg, search, batch, max_moves, n_sim, temperature,
+                        sim_chunk, record_visits, gumbel, gumbel_sample,
+                        dirichlet_alpha, noise_frac, forced_k, cap_p, cheap,
+                        cap_per_row, dev)

@@ -1,1 +1,3 @@
-"""Trainers: supervised policy, value regression, the evaluator."""
+"""Trainers: supervised policy, value regression, the evaluator, the
+reinforcement stage, and the AlphaZero loop with its actors, learner and
+curriculum."""

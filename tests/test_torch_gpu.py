@@ -759,3 +759,126 @@ def test_mcts_player_plays_on_the_card_and_needs_one(cuda_device,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_player("mcts", *paths)
+
+
+def test_budget_masked_search_on_the_card_equals_the_cpu(cuda_device):
+    """Mixed per-row simulation budgets (the playout caps): the card's
+    slab equals the CPU's, every retired row bit for bit."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+
+    cfg = torchgo.GoConfig(size=9)
+    states = random_positions(9, 4, 0, 60, 8)
+    budget = torch.tensor([3, 24, 11, 1], dtype=torch.int32)
+    before = tree.launches
+    trees = []
+    for device in (cuda_device, torch.device("cpu")):
+        search = fake_search(9, DEFAULT_FEATURES)
+        roots = torchgo.seed_labels(cfg, torchgo.from_pygo(
+            cfg, states, device=device, with_labels=False))
+        t, ran = search.run_sims_chunked(search.init(roots), 5, n=24,
+                                         owned=True,
+                                         budget=budget.to(device))
+        assert ran == 24
+        trees.append(t)
+    for name in ("prior", "visits", "value_sum", "child", "parent",
+                 "paction", "n_nodes"):
+        assert torch.equal(getattr(trees[0], name).cpu(),
+                           getattr(trees[1], name)), name
+    assert trees[1].visits[:, 0].sum(1).tolist() == budget.tolist()
+    assert tree.launches > before
+
+
+def zero_setup(device, dtype, aux=True):
+    """A 9×9 zero iteration over 2 × 8 nets (48 planes, so the chase
+    kernel runs), caps and the auxiliary heads on."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES, VALUE_FEATURES
+    from rocalphago_tpu_torch.models import CNNValue
+    from rocalphago_tpu_torch.training import zero
+
+    pol = CNNPolicy(board=9, layers=2, filters_per_layer=8, seed=1,
+                    device=device, dtype=dtype)
+    val = CNNValue(board=9, layers=2, filters_per_layer=8, seed=2,
+                   device=device, dtype=dtype,
+                   aux_heads=("ownership", "score") if aux else ())
+    it = zero.ZeroIteration(torchgo.GoConfig(size=9, komi=7.0),
+                            DEFAULT_FEATURES, VALUE_FEATURES, 4, 20, 8,
+                            sim_chunk=4, replay_chunk=7, cap_p=0.5,
+                            cap_cheap=2, aux_weight=1.0 if aux else 0.0,
+                            device=device)
+    state = zero.init_zero_state(pol.module, val.module, 0.1, seed=4)
+    return it, state
+
+
+def zero_updates(state, old):
+    out = {}
+    for name, module in (("policy", state.policy), ("value", state.value)):
+        new = module.state_dict()
+        out.update({f"{name}.{k}": ((old[name][k] - new[k]) / 0.1).cpu()
+                    for k in new})
+    return out
+
+
+def test_zero_learn_on_the_card_equals_the_cpu(cuda_device):
+    """Float32 with TF32 off: the card plays a batch (all three kernels
+    launched), then the card's ``learn`` and the CPU's, on the same
+    record, agree within 1e-3 + 1e-4·|x|; the metrics within 1e-5."""
+    from rocalphago_tpu_torch.training import zero
+    from rocalphago_tpu_torch.training.actor import games_to_host
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = {m: m.launches for m in (labels, chase, tree)}
+    try:
+        it, state = zero_setup(cuda_device, torch.float32)
+        games = it.play(state.policy, state.value, 5)
+        assert all(m.launches > before[m] for m in before)
+        host = games_to_host(games)
+        runs = []
+        for device in (cuda_device, torch.device("cpu")):
+            it, state = zero_setup(device, torch.float32)
+            old = {"policy": {k: v.clone() for k, v in
+                              state.policy.state_dict().items()},
+                   "value": {k: v.clone() for k, v in
+                             state.value.state_dict().items()}}
+            state, m = it.learn(state, host)
+            runs.append((zero_updates(state, old), zero.metrics_to_host(m)))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (card, card_m), (cpu, cpu_m) = runs
+    assert card_m.keys() == cpu_m.keys()
+    for k in cpu_m:
+        np.testing.assert_allclose(card_m[k], cpu_m[k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    moved = 0.0
+    for k in cpu:
+        np.testing.assert_allclose(card[k].numpy(), cpu[k].numpy(),
+                                   atol=1e-3, rtol=1e-4, err_msg=k)
+        moved = max(moved, float(cpu[k].abs().max()))
+    assert moved > 1e-3
+
+
+def test_zero_iterations_on_the_card_repeat_bit_for_bit(cuda_device):
+    """bf16, deterministic cuDNN (as the trainer sets it): two
+    iterations from one state end on the same bits."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ends = []
+        for _ in range(2):
+            it, state = zero_setup(cuda_device, torch.bfloat16)
+            for _ in range(2):
+                state, m = it(state)
+            ends.append((state, {k: float(v) for k, v in m.items()}))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    (a, ma), (b, mb) = ends
+    assert ma == mb and torch.equal(a.rng, b.rng)
+    for x, y in ((a.policy, b.policy), (a.value, b.value)):
+        sx, sy = x.state_dict(), y.state_dict()
+        assert all(torch.equal(sx[k], sy[k]) for k in sx)

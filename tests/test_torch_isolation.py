@@ -33,8 +33,19 @@ from rocalphago_tpu_torch.ops import chase, labels, tree
 from rocalphago_tpu_torch.search import mcts, selfplay
 from rocalphago_tpu_torch.search.players import build_player
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
-from rocalphago_tpu_torch.data import convert
-from rocalphago_tpu_torch.training import evaluate, rl, selfplay_data, sl, value
+from rocalphago_tpu_torch.data import convert, replay
+from rocalphago_tpu_torch.runtime import supervisor, watchdog
+from rocalphago_tpu_torch.training import (
+    actor,
+    curriculum,
+    evaluate,
+    learner,
+    rl,
+    selfplay_data,
+    sl,
+    value,
+    zero,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rocalphago_tpu_torch")
@@ -244,6 +255,40 @@ def test_mcts_player_and_spec_cli_need_a_card_or_an_explicit_cpu(
                           device_rollout=True, device="cpu")
     assert isinstance(player, mcts.MCTSPlayer)
     assert player.get_move(pygo.GameState(size=9)) is not None
+
+
+def test_zero_loop_entry_points_need_a_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path):
+    """The zero CLI, its iteration and gate, and the curriculum raise
+    with no card unless the CPU is named; the replay buffer, the actor
+    and learner plumbing, the supervisor and the watchdog touch no
+    device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zero.run_training([SPEC, VALUE_SPEC, out])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        curriculum.run_curriculum([SPEC, VALUE_SPEC, out, "--stages",
+                                   "9:1"])
+    cfg = torchgo.GoConfig(size=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zero.ZeroIteration(cfg, ("board",), ("board", "color"), 2, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zero.ZeroGate(cfg, ("board",), out, 2, 0.55, 1.0, 10)
+    assert not os.path.exists(out)
+    # host plumbing needs no device at all
+    buf = replay.ReplayBuffer(capacity=1)
+    pub = actor.ParamsPublisher()
+    learner.ZeroLearner(None, buf)
+    supervisor.Supervisor()
+    watchdog.Watchdog(1.0)
+    assert pub.get()[0] == -1 and buf.fill == 0
+    # the same CLI runs when the CPU is named
+    res = zero.run_training([SPEC, VALUE_SPEC, out, "--game-batch", "2",
+                             "--sims", "2", "--iterations", "1",
+                             "--move-limit", "2", "--gate-games", "2",
+                             "--device", "cpu"])
+    assert res["iteration"] == 0
 
 
 def test_kernel_wrappers_do_not_fall_back():
