@@ -182,11 +182,38 @@ Phases, in order; any failure exits non-zero before the result line:
     both nets' updates within ``FORWARD_ATOL``/``FORWARD_RTOL``; and the
     committed 9×9 pool of ``results/zero_r5/run`` loaded through
     ``ZeroGate.load``, its last incumbent against its first in an
-    8-game raw match (move limit 60).
+    8-game raw match (move limit 60);
+19. serving, in ``build/smoke_serve``: fresh seeded 19×19 12 × 128 bf16
+    specs from the spec CLI (the policy, 48 planes, and the FCN value
+    net, 49 planes) loaded into a ``ServePool`` at 100 simulations and
+    warmed; ``FleetDriver.genmove_all`` at 1, 8 and 64 sessions, 2
+    genmoves each (moves/s, game-simulations/s against the 1,000 limit,
+    evaluator batches, mean occupancy, the three kernels' launches,
+    counts reset just before and read just after), a round at 8
+    sessions under ``set_sync_debug_mode("error")``, a profiled round
+    at 64 sessions and 10 simulations (kernels and host ms a convoy,
+    idle share); 4 threaded sessions through the ladder, 2 genmoves
+    each (p50, p99 against the 5 s limit, launches a genmove); a
+    session under ``slo_s=2.0`` with more simulations than fit,
+    answering before the SLO plus about one simulation; a one-session
+    pooled genmove and a standalone ``DeviceMCTSPlayer``'s with
+    bit-equal root visits; ``eval_batch_komi`` at the default komi
+    equal to ``eval_batch`` and a custom komi flipping a passed-out
+    row; an ``EvalCache`` hit and an in-batch dedup equal to the
+    uncached rows; every rung of the ladder through a GTP engine on a
+    pooled session (a fault plan, a real out-of-memory error, a hang
+    abandoned by the watchdog, the fallback), every answer legal and
+    counted by ``rocalphago-stats``, and a sticky CUDA error raised in
+    a child process, classified not transient; and two GTP
+    subprocesses, ``--serve`` on the committed 9×9 nets (genmove,
+    komi, both probes) and ``--serve-sizes 9,13,19`` on the 19×19
+    12 × 128 FCN specs re-routed by ``boardsize 13``, both exiting 0
+    with no genmove degraded.
 
 The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
 iteration and generator, 16's GTP session and self-play, 17's GTP
-session and 18's zero iteration together,
+session, 18's zero iteration and 19's fleets and threaded sessions
+together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -292,6 +319,19 @@ ZERO_GRAD_L2, ZERO_GRAD_MAX = 5e-3, 1e-2
 ZERO_PROFILE_PLIES = 10
 ZERO_POOL = os.path.join("results", "zero_r5", "run")
 ZERO_POOL_GAMES, ZERO_POOL_MOVES = 8, 60
+SERVE_DIR = os.path.join("build", "smoke_serve")
+SERVE_SIMS = 100         # simulations a genmove (the GTP default)
+SERVE_FLEETS = (1, 8, 64)  # sessions driven in lockstep
+SERVE_GENMOVES = 2       # fleet rounds per fleet size
+SERVE_THREADS = 4        # threaded sessions through the ladder
+SERVE_THREAD_GENMOVES = 2
+SERVE_SLO_S = 2.0        # the SLO run's per-genmove deadline
+SERVE_SLO_SIMS = 2000    # more than fit the SLO: the answer is anytime
+SERVE_GENMOVE_LIMIT_S = 5.0        # PERF.md section 2: genmove p50
+SERVE_SIMS_LIMIT = 1000.0          # PERF.md section 2: game-sims/s
+SERVE_HANG_S = 3.0       # the ladder's hang timeout in the hang check
+SERVE_PROFILE_SIMS = 10  # the profiled fleet round (64 sessions)
+SIZE_ULPS = 4            # bf16 ulps a row may move between padded sizes
 
 
 class SmokeFailure(RuntimeError):
@@ -305,6 +345,15 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def undegraded(engine) -> None:
+    """The GTP engine wraps its player in the degradation ladder: a
+    session of an earlier phase must have served every genmove from the
+    search rung, so that a player error cannot pass as a move."""
+    stats = engine._serve.stats()
+    check(stats["degraded_total"] == 0 and not stats["rung_failures"][
+        "search"], f"a genmove degraded: {stats}")
 
 
 # ----------------------------------------------------------------- inputs
@@ -894,6 +943,7 @@ def phase_gtp(dev, counters):
         c.launches = 0
     engine = run_gtp(player, instream, out)
     torch.cuda.synchronize()
+    undegraded(engine)
     launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
     replies = [r for r in out.getvalue().split("\n\n") if r.strip()]
     check(len(replies) == len(setup) + len(moves) + 2,
@@ -1098,6 +1148,7 @@ def phase_search_gtp(player, counters, what: str = "device-search"):
         c.launches = 0
     engine = run_gtp(player, instream, out)
     torch.cuda.synchronize()
+    undegraded(engine)
     launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
     player.get_move = inner
     replies = [r for r in out.getvalue().split("\n\n") if r.strip()]
@@ -1836,6 +1887,7 @@ def sl_train(dev, work: str, corpus: str):
     engine = run_gtp(player, io.StringIO(
         "boardsize 19\nclear_board\nplay b D4\ngenmove w\ngenmove b\nquit\n"),
         replies)
+    undegraded(engine)
     answers = [r for r in replies.getvalue().split("\n\n") if r.strip()]
     for reply in answers[3:5]:
         check(reply.startswith("=") and vertex_to_move(
@@ -2394,6 +2446,7 @@ def rl_value_and_search(dev, work: str, corpus: str, rl_export: str):
     engine = run_gtp(player, io.StringIO(
         "boardsize 19\nclear_board\ngenmove b\ngenmove w\nquit\n"),
         replies)
+    undegraded(engine)
     wall = time.perf_counter() - t0
     answers = [r for r in replies.getvalue().split("\n\n") if r.strip()]
     for reply in answers[2:4]:
@@ -2814,6 +2867,7 @@ def mcts_session(player, counters, clock, card):
         c.launches = 0
     engine = run_gtp(player, instream, out)
     torch.cuda.synchronize()
+    undegraded(engine)
     launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
     player.get_move = inner
     replies = [r for r in out.getvalue().split("\n\n") if r.strip()]
@@ -3479,6 +3533,602 @@ def phase_zero(torchgo, dev, card, counters):
     return out
 
 
+# -------------------------------------------------------------- serving
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def serve_specs(work: str) -> dict:
+    """Fresh seeded specs from the port's spec CLI: the 19×19 12 × 128
+    policy (48 planes) and value net (49 planes), both with FCN heads,
+    which serve every board of the multi-size pool too."""
+    from rocalphago_tpu_torch.models import specs
+
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, seed in (("policy19", 60), ("value19", 61)):
+            out[name] = os.path.join(work, f"{name}.json")
+            specs.main([name[:-2], "--board", "19", "--seed",
+                        str(SEED + seed), "--out", out[name]])
+    return out
+
+
+def serve_launches(counters) -> dict:
+    return {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+
+
+def serve_positions(pygo, n: int, seed: int) -> list:
+    """``n`` distinct 19×19 positions of 6 to 40 seeded random moves."""
+    return random_positions(pygo, n, (6, 40), seed, size=SIZE)
+
+
+def serve_fleet(pygo, pool, counters, card) -> dict:
+    """``FleetDriver.genmove_all`` at every fleet size: moves/s,
+    game-simulations/s, evaluator batches and occupancy, launches; one
+    round at 8 sessions under ``set_sync_debug_mode("error")``; a
+    profiled round at 64 sessions."""
+    from rocalphago_tpu_torch.serve.sessions import ServePool, bridge_roots
+
+    out = {}
+    for n in SERVE_FLEETS:
+        sessions = [pool.open_session(resilient=False) for _ in range(n)]
+        try:
+            drv = pool.driver(sessions)
+            drv.warm()
+            games = serve_positions(pygo, n, SEED + 70 + n)
+            ev0 = pool.evaluator.stats()
+            padded0 = pool.evaluator.padded_total
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(SERVE_GENMOVES):
+                moves = drv.genmove_all(games)
+                for st, mv in zip(games, moves):
+                    check(mv is None or st.is_legal(mv),
+                          f"fleet {n}: illegal {mv}")
+                    st.do_move(mv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = serve_launches(counters)
+            ev = pool.evaluator.stats()
+            batches = ev["batches"] - ev0["batches"]
+            rows = ev["rows"] - ev0["rows"]
+            padded = pool.evaluator.padded_total - padded0
+            check(drv.last_n_sim == SERVE_SIMS,
+                  f"fleet {n} ran {drv.last_n_sim} simulations")
+            check(batches == SERVE_GENMOVES * (SERVE_SIMS + 1),
+                  f"fleet {n}: {batches} evaluator batches, expected one "
+                  "a convoy")
+            for name, k in launches.items():
+                check(k > 0, f"fleet {n}: the {name} kernel was not "
+                      "launched")
+            row = dict(sessions=n, wall_s=wall,
+                       moves_per_s=n * SERVE_GENMOVES / wall,
+                       sims_per_s=n * SERVE_GENMOVES * SERVE_SIMS / wall,
+                       round_ms=wall / SERVE_GENMOVES * 1e3,
+                       batches=batches, occupancy=rows / padded,
+                       launches=launches)
+            out[n] = row
+            log(f"serve fleet [{card}]: {n} sessions x {SERVE_GENMOVES} "
+                f"genmoves at {SERVE_SIMS} simulations in {wall:.2f} s: "
+                f"{row['moves_per_s']:.2f} moves/s, "
+                f"{row['sims_per_s']:.1f} game-simulations/s (limit "
+                f"{SERVE_SIMS_LIMIT:.0f}), a round {row['round_ms']:.1f} "
+                f"ms, {batches} evaluator batches, mean occupancy "
+                f"{row['occupancy']:.3f}, launches {launches}")
+            if n == 8:
+                roots = bridge_roots(pool.cfg, games, pool.device)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    tree = drv.run_round(roots)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                visits = pool.search.root_stats(tree)[0].cpu()
+                check(bool((visits.sum(dim=1) == SERVE_SIMS).all()),
+                      "the sync-free fleet round lost visits")
+                log(f"serve fleet [{card}]: a round of 8 sessions at "
+                    f"{SERVE_SIMS} simulations ran under "
+                    "set_sync_debug_mode('error'): no host sync")
+        finally:
+            for s in sessions:
+                s.close()
+    # a profiled round at the largest fleet, cut to a few simulations
+    short = ServePool(pool.value, pool.policy, n_sim=SERVE_PROFILE_SIMS,
+                      searcher=pool.search)
+    try:
+        n = SERVE_FLEETS[-1]
+        sessions = [short.open_session(resilient=False) for _ in range(n)]
+        drv = short.driver(sessions)
+        drv.warm()
+        roots = bridge_roots(short.cfg, serve_positions(pygo, n, SEED + 79),
+                             short.device)
+        prof = profile_device(lambda: drv.run_round(roots), 1,
+                              f"a fleet round of {n} sessions at "
+                              f"{SERVE_PROFILE_SIMS} simulations", "round")
+        if prof is not None:
+            convoys = SERVE_PROFILE_SIMS + 1
+            prof["per_sim"] = {k: prof[k] / convoys
+                               for k in ("launches", "busy_ms", "wall_ms")}
+            log(f"serve fleet [{card}]: per convoy of {n} rows "
+                f"{prof['per_sim']['launches']:.0f} kernels, "
+                f"{prof['per_sim']['wall_ms']:.2f} ms host, "
+                f"{prof['per_sim']['busy_ms']:.3f} ms device busy (idle "
+                f"share {prof['idle']:.3f})")
+        out["profile"] = prof
+    finally:
+        short.close()
+    return out
+
+
+def serve_threaded(pygo, pool, counters, card) -> dict:
+    """``SERVE_THREADS`` sessions through the ladder, each in its own
+    thread, ``SERVE_THREAD_GENMOVES`` genmoves each: genmove p50 and p99
+    against the 5 s limit, launches per genmove."""
+    import threading
+
+    sessions = [pool.open_session() for _ in range(SERVE_THREADS)]
+    games = serve_positions(pygo, SERVE_THREADS, SEED + 80)
+    lat, errors = [], []
+
+    def play(sess, game):
+        try:
+            for _ in range(SERVE_THREAD_GENMOVES):
+                t0 = time.perf_counter()
+                mv = sess.get_move(game)
+                lat.append(time.perf_counter() - t0)
+                check(mv is None or game.is_legal(mv), f"illegal {mv}")
+                game.do_move(mv)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    ev0 = pool.evaluator.stats()
+    padded0 = pool.evaluator.padded_total
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=play, args=(s, g))
+                   for s, g in zip(sessions, games)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = serve_launches(counters)
+        check(not errors, f"threaded sessions raised: {errors!r}")
+        check(all(not t.is_alive() for t in threads),
+              "a threaded session did not finish")
+        for s in sessions:
+            check(s.player.served["search"] == SERVE_THREAD_GENMOVES
+                  and s.raw.last_n_sim == SERVE_SIMS,
+                  f"a threaded session degraded: {s.player.stats()}")
+    finally:
+        for s in sessions:
+            s.close()
+    ev = pool.evaluator.stats()
+    rows = ev["rows"] - ev0["rows"]
+    batches = ev["batches"] - ev0["batches"]
+    occupancy = rows / (pool.evaluator.padded_total - padded0)
+    lat.sort()
+    from rocalphago_tpu_torch.interface.resilient import percentile
+
+    p50, p99 = percentile(lat, 0.5), percentile(lat, 0.99)
+    genmoves = SERVE_THREADS * SERVE_THREAD_GENMOVES
+    per_genmove = {k: v / genmoves for k, v in launches.items()}
+    log(f"serve threaded [{card}]: {SERVE_THREADS} sessions x "
+        f"{SERVE_THREAD_GENMOVES} genmoves at {SERVE_SIMS} simulations "
+        f"through the ladder in {wall:.2f} s: genmove p50 {p50:.3f} s, p99 "
+        f"{p99:.3f} s (limit {SERVE_GENMOVE_LIMIT_S:.0f} s), "
+        f"{genmoves / wall:.3f} moves/s, "
+        f"{genmoves * SERVE_SIMS / wall:.1f} game-simulations/s, "
+        f"{batches} evaluator batches ({rows / batches:.2f} rows each, "
+        f"occupancy {occupancy:.3f}); launches {launches} "
+        f"({per_genmove} a genmove)")
+    return dict(p50=p50, p99=p99, wall=wall, launches=launches,
+                per_genmove=per_genmove, batches=batches,
+                occupancy=occupancy, rows_per_batch=rows / batches,
+                sims_per_s=genmoves * SERVE_SIMS / wall)
+
+
+def serve_slo(pygo, pool, card) -> dict:
+    """One session under ``slo_s=SERVE_SLO_S`` with more simulations
+    than fit: the genmove comes back with the anytime answer, before
+    the SLO plus about one simulation."""
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    slo = ServePool(pool.value, pool.policy, n_sim=SERVE_SLO_SIMS,
+                    slo_s=SERVE_SLO_S)
+    try:
+        slo.warm()
+        sess = slo.open_session()
+        st = serve_positions(pygo, 1, SEED + 85)[0]
+        t0 = time.perf_counter()
+        mv = sess.get_move(st)
+        took = time.perf_counter() - t0
+        ran = sess.raw.last_n_sim
+        per_sim = took / ran
+        check(mv is not None and st.is_legal(mv), f"SLO move {mv}")
+        check(sess.raw.last_deadline_hit and 0 < ran < SERVE_SLO_SIMS,
+              f"the SLO run ran {ran} simulations")
+        check(sess.player.last_rung == "search",
+              f"the SLO run served from {sess.player.last_rung}")
+        # the deadline is checked between simulations: the overshoot is
+        # one simulation, and the root bridge and evaluation before the
+        # first (about one more)
+        check(took <= SERVE_SLO_S + 2 * per_sim,
+              f"the SLO genmove took {took:.3f} s, {ran} simulations of "
+              f"{per_sim * 1e3:.1f} ms")
+        sess.close()
+    finally:
+        slo.close()
+    log(f"serve SLO [{card}]: slo_s {SERVE_SLO_S}: an anytime answer after "
+        f"{took:.3f} s, {ran} of {SERVE_SLO_SIMS} simulations "
+        f"({per_sim * 1e3:.2f} ms each)")
+    return dict(took=took, ran=ran)
+
+
+def serve_equalities(pygo, torchgo, pool, card):
+    """A one-session pooled genmove equals a standalone
+    ``DeviceMCTSPlayer``'s root visits bit for bit (both evaluate at
+    batch 1); ``eval_batch_komi`` at the default komi is ``eval_batch``
+    bit for bit and a custom komi flips a passed-out row's sign; with an
+    ``EvalCache`` a hit is the uncached output exactly and in-batch
+    duplicates fan out."""
+    from rocalphago_tpu_torch.search import device_mcts
+    from rocalphago_tpu_torch.serve import BatchingEvaluator
+    from rocalphago_tpu_torch.serve.evalcache import EvalCache
+    from rocalphago_tpu_torch.serve.evaluator import cat_states, pad_rows
+
+    seen = []
+    orig = device_mcts.DeviceMCTS.root_stats
+
+    def rec(tree):
+        out = orig(tree)
+        seen.append(out[0].cpu().clone())
+        return out
+
+    device_mcts.DeviceMCTS.root_stats = staticmethod(rec)
+    try:
+        st = serve_positions(pygo, 1, SEED + 86)[0]
+        alone = device_mcts.DeviceMCTSPlayer(pool.value, pool.policy,
+                                             n_sim=SERVE_SIMS)
+        want = alone.get_move(st)
+        sess = pool.open_session(resilient=False)
+        got = sess.get_move(st)
+        sess.close()
+    finally:
+        device_mcts.DeviceMCTS.root_stats = staticmethod(orig)
+    check(got == want and torch.equal(seen[-1], seen[-2]),
+          f"pooled {got} / standalone {want}: root visits differ by "
+          f"{int((seen[-1] - seen[-2]).abs().sum())}")
+    # komi
+    search, cfg = pool.search, pool.cfg
+    passed = pygo.GameState(size=SIZE)
+    passed.do_move(None)
+    passed.do_move(None)
+    states = torchgo.seed_labels(cfg, torchgo.from_pygo(
+        cfg, [pygo.GameState(size=SIZE), passed], device=pool.device,
+        with_labels=False))
+    p0, v0 = search.eval_batch(states)
+    p1, v1 = search.eval_batch_komi(
+        states, torch.full((2,), cfg.komi, device=pool.device))
+    check(torch.equal(p0, p1) and torch.equal(v0, v1),
+          "eval_batch_komi at the default komi differs from eval_batch")
+    _, v2 = search.eval_batch_komi(
+        states, torch.tensor([cfg.komi, -25.0], device=pool.device))
+    check(float(v2[1]) == -float(v0[1]) != 0.0 and float(v2[0]) ==
+          float(v0[0]), f"komi -25 gave {v2.tolist()} against {v0.tolist()}")
+    # padding: at a fixed padded size the pad rows are ignored bit for
+    # bit; across sizes cuDNN may pick another algorithm per shape, so a
+    # row at size 8 is held to size 1 within SIZE_ULPS bf16 ulps of the
+    # largest output (on an H100 the two agree bit for bit; PERF.md §6)
+    many = torchgo.seed_labels(cfg, torchgo.from_pygo(
+        cfg, serve_positions(pygo, 8, SEED + 87), device=pool.device,
+        with_labels=False))
+    real = torchgo.GoState(*(x[:3] for x in many))
+    pa = pool.evaluator.eval_direct(pad_rows(real, 8))
+    pb = pool.evaluator.eval_direct(cat_states(
+        [real, torchgo.GoState(*(x[3:] for x in many))]))
+    check(torch.equal(pa[0][:3], pb[0][:3]) and torch.equal(pa[1][:3],
+                                                              pb[1][:3]),
+          "padded rows changed the real rows at a fixed padded size")
+    p8, v8 = pool.evaluator.eval_direct(many)
+    alone = [pool.evaluator.eval_direct(
+        torchgo.GoState(*(x[i:i + 1] for x in many))) for i in range(8)]
+    p1 = torch.cat([a[0] for a in alone])
+    v1 = torch.cat([a[1] for a in alone])
+    size_err = (float((p8 - p1).abs().max()), float((v8 - v1).abs().max()))
+    size_lim = tuple(SIZE_ULPS * bf16_ulp(float(x.abs().max()))
+                     for x in (p1, v1))
+    argmax_same = int((p8.argmax(dim=1) == p1.argmax(dim=1)).sum())
+    check(torch.isfinite(p8).all() and size_err[0] <= size_lim[0]
+          and size_err[1] <= size_lim[1],
+          f"size 8 vs size 1: {size_err} over the limits {size_lim}")
+    log(f"serve padding [{card}]: pad rows ignored bit for bit at size 8; "
+        f"8 rows at size 8 vs alone at size 1 (bf16): priors max |diff| "
+        f"{size_err[0]:.3e} (limit {size_lim[0]:.3e}), values "
+        f"{size_err[1]:.3e} (limit {size_lim[1]:.3e}), argmax equal on "
+        f"{argmax_same} of 8")
+    # the cache
+    ev = BatchingEvaluator(search.eval_with, *pool.evaluator.version_params(),
+                           batch_sizes=(1, 4), cache=EvalCache(capacity=64),
+                           key_fn=search.eval_key, board=SIZE, start=False,
+                           eval_komi_fn=search.eval_with,
+                           default_komi=cfg.komi)
+    try:
+        one = torchgo.GoState(*(x[:1] for x in states))
+        other = torchgo.GoState(*(x[1:] for x in states))
+        want_p, want_v = ev.eval_direct(one)
+        outs = []
+        for _ in range(2):                       # a miss, then a hit
+            req = ev.submit(one)
+            ev.drain_once()
+            outs.append(req.result(timeout=60))
+        check(all(torch.equal(p, want_p) and torch.equal(v, want_v)
+                  for p, v in outs) and ev.cache.stats()["hits"] == 1,
+              f"a cache hit differs from the uncached row "
+              f"({ev.cache.stats()})")
+        ev.cache.clear()
+        up, uv = ev.eval_direct(pad_rows(cat_states([one, other]), 4))
+        reqs = [ev.submit(x) for x in (one, one, other, one)]
+        ev.drain_once()
+        res = [r.result(timeout=60) for r in reqs]
+        check(ev.dedup_rows_saved_total == 2 and all(
+            torch.equal(p, up[j:j + 1]) and torch.equal(v, uv[j:j + 1])
+            for (p, v), j in zip(res, (0, 0, 1, 0))),
+              "in-batch dedup did not fan out the unique rows")
+    finally:
+        ev.close()
+    log(f"serve equalities [{card}]: pooled genmove {got} = standalone, "
+        f"root visits bit-equal ({int(seen[-1].sum())} visits); "
+        f"eval_batch_komi at komi {cfg.komi} = eval_batch bit for bit, "
+        f"komi -25 flips the passed-out row ({float(v0[1])} -> "
+        f"{float(v2[1])}); cache hit and dedup fan-out bit-exact")
+
+
+def serve_ladder(pygo, pool, card) -> dict:
+    """Every rung of the ladder on the card, through a GTP engine on a
+    pooled session: a fault plan on ``serve.search`` (the policy rung),
+    a real ``torch.cuda.OutOfMemoryError`` inside the search (the reduced
+    rung), a hang past ``hang_timeout_s`` (abandoned: the policy rung),
+    and the search and policy rungs failing (the fallback rung). Every
+    answer legal; ``rocalphago-stats`` counts each rung. A sticky CUDA
+    error is raised in a child process, and both errors' types are
+    classified as ``is_transient`` says."""
+    from rocalphago_tpu_torch.interface.gtp import GTPEngine, vertex_to_move
+    from rocalphago_tpu_torch.runtime import faults
+    from rocalphago_tpu_torch.runtime.retries import is_transient
+
+    sess = pool.open_session()
+    raw = sess.raw.get_move
+    oom = {}
+
+    def raising(state):
+        if not oom:
+            try:
+                torch.empty(1 << 46, dtype=torch.uint8, device=pool.device)
+            except BaseException as e:  # noqa: BLE001 -- recorded
+                oom["type"] = type(e).__qualname__
+                oom["transient"] = is_transient(e)
+                raise
+        return raw(state)
+
+    engine = GTPEngine(sess.player, serve_pool=pool, serve_session=sess)
+    for cmd in (f"boardsize {SIZE}", "clear_board", "play b C3",
+                "play w G7"):
+        check(engine.handle(cmd)[0].startswith("="), cmd)
+    steps = (("policy", "error@serve.search", None),
+             ("reduced", None, raising),
+             ("policy", f"sleep@serve.search={3 * SERVE_HANG_S}", None),
+             ("fallback", "error@serve.search,error@serve.policy", None),
+             ("search", None, None))
+    rungs, hang_t = [], None
+    try:
+        for want, plan, wrap in steps:
+            hang = bool(plan) and plan.startswith("sleep")
+            # only the hang step is watched: a whole search may take
+            # longer than the hang timeout
+            sess.player.hang_timeout_s = SERVE_HANG_S if hang else None
+            faults.install(plan)
+            sess.raw.get_move = wrap or raw
+            before = engine.state.copy()
+            t0 = time.perf_counter()
+            reply = engine.handle("genmove " + "bw"[before.current_player
+                                                   == pygo.WHITE])[0]
+            took = time.perf_counter() - t0
+            faults.install(None)
+            check(reply.startswith("= "), f"{want} rung: {reply!r}")
+            mv = vertex_to_move(reply[2:].strip(), SIZE)
+            check(mv is None or before.is_legal(mv),
+                  f"{want} rung: illegal {mv}")
+            rungs.append((sess.player.last_rung,
+                          sess.player.last_fallback, sess.raw.last_n_sim))
+            check(sess.player.last_rung == want,
+                  f"expected the {want} rung, got {rungs[-1]}")
+            if hang:
+                hang_t = took
+                # the abandoned search runs on to its end: wait for it
+                # before the next step
+                join_abandoned()
+    finally:
+        faults.install(None)
+        sess.raw.get_move = raw
+        sess.player.hang_timeout_s = None
+    check(oom.get("type") == "OutOfMemoryError" and oom["transient"],
+          f"the card's out-of-memory error: {oom}")
+    check(rungs[1][2] == SERVE_SIMS // 4,
+          f"the reduced rung ran {rungs[1][2]} simulations")
+    stats = json.loads(engine.handle("rocalphago-stats")[0][2:])
+    served = stats["ladder"]["degradations"]
+    counters = stats["registry"]["counters"]
+    check(served == {"reduced": 1, "policy": 2, "fallback": 1}
+          and stats["ladder"]["reasons"] == {
+              "error": 3, "transient_error": 1, "hang": 1}
+          and all(counters.get(f'serve_rung_total{{rung="{r}"}}', 0) >= 1
+                  for r in ("search", "reduced", "policy", "fallback")),
+          f"rocalphago-stats: {stats['ladder']}")
+    sess.close()
+    code = ("import json, torch\n"
+            "from rocalphago_tpu_torch.runtime.retries import is_transient\n"
+            "x = torch.zeros(4, device='cuda')\n"
+            "i = torch.tensor([1 << 20], device='cuda')\n"
+            "try:\n"
+            "    x[i] = 1.0\n"
+            "    torch.cuda.synchronize()\n"
+            "except BaseException as e:\n"
+            "    print(json.dumps({'type': type(e).__qualname__,\n"
+            "        'mro': [c.__name__ for c in type(e).__mro__],\n"
+            "        'message': str(e)[:120],\n"
+            "        'transient': is_transient(e)}))\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(lines, f"no sticky CUDA error was raised: {proc.stderr[-1000:]}")
+    sticky = json.loads(lines[-1])
+    check(sticky["transient"] is False
+          and sticky["message"].startswith("CUDA error:"),
+          f"the sticky CUDA error: {sticky}")
+    log(f"serve ladder [{card}]: rungs {[r[0] for r in rungs]} (the hang "
+        f"abandoned after {hang_t:.2f} s at hang_timeout_s "
+        f"{SERVE_HANG_S}), every answer legal; rocalphago-stats "
+        f"{stats['ladder']['degradations']}, reasons "
+        f"{stats['ladder']['reasons']}; the card's errors: out of memory "
+        f"{oom}, sticky {sticky}")
+    return dict(oom=oom, sticky=sticky, rungs=rungs)
+
+
+def join_abandoned() -> None:
+    """Wait for the search threads the ladder abandoned as hung."""
+    import threading
+
+    for t in threading.enumerate():
+        if t.name.startswith("genmove-"):
+            t.join(timeout=300)
+
+
+def serve_gtp(card, paths) -> dict:
+    """The GTP entry as a user runs it, two subprocesses over stdin
+    scripts: ``--serve`` on the committed 9×9 gumbel nets (genmove,
+    komi, both probes), and ``--serve-sizes 9,13,19`` on the fresh 19×19
+    12 × 128 FCN specs, re-routed by ``boardsize 13``. Every genmove of
+    both is served by the search rung."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = (
+        ("serve", ["--serve", "--policy",
+                   os.path.join(root, GUMBEL_DIR, "policy.json"), "--value",
+                   os.path.join(root, GUMBEL_DIR, "value.json")],
+         ["boardsize 9", "clear_board", "genmove b", "komi 6.5",
+          "genmove w", "rocalphago-health", "rocalphago-stats", "quit"], 9),
+        ("serve-sizes", ["--serve-sizes", "9,13,19", "--policy",
+                         paths["policy19"], "--value", paths["value19"]],
+         ["boardsize 13", "komi 6.5", "genmove b", "genmove w",
+          "rocalphago-health", "rocalphago-stats", "quit"], 13))
+    out = {}
+    for name, argv, script, size in runs:
+        metrics = os.path.join(root, SERVE_DIR, f"{name}.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rocalphago_tpu_torch.interface.gtp",
+             *argv, "--metrics", metrics], cwd=root,
+            input="\n".join(script) + "\n", capture_output=True,
+            text=True, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"gtp {name} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        replies = [r for r in proc.stdout.split("\n\n") if r.strip()]
+        check(len(replies) == len(script) and all(
+            r.startswith("=") for r in replies),
+              f"gtp {name}: {replies}")
+        for cmd, reply in zip(script, replies):
+            if cmd.startswith("genmove"):
+                from rocalphago_tpu_torch.interface.gtp import vertex_to_move
+
+                check(vertex_to_move(reply[1:].strip(), size) is not None,
+                      f"gtp {name}: {cmd} -> {reply!r}")
+        health = json.loads(replies[script.index("rocalphago-health")][2:])
+        stats = json.loads(replies[script.index("rocalphago-stats")][2:])
+        check(health["status"] == "ok" and health["genmoves"] == 2
+              and stats["game"]["size"] == size
+              and stats["game"]["komi"] == 6.5,
+              f"gtp {name}: health {health}, game {stats['game']}")
+        check(stats["ladder"]["degraded_total"] == 0
+              and not stats["ladder"]["rung_failures"]["search"],
+              f"gtp {name}: a genmove degraded: {stats['ladder']}")
+        serve = health["serve"]
+        if name == "serve-sizes":
+            check(serve["multisize"] and set(serve["boards"]) ==
+                  {"9", "13", "19"} and serve["boards"]["13"]["sessions"][
+                      "live"] == 1 and serve["boards"]["9"]["sessions"][
+                          "live"] == 0,
+                  f"gtp {name}: the session was not re-routed: {serve}")
+        else:
+            check(serve["evaluator"]["komi_batches"] >= 1,
+                  f"gtp {name}: komi did not reach the session: {serve}")
+        with open(metrics) as f:
+            last = json.loads(f.read().strip().splitlines()[-1])
+        check(last["event"] == "registry",
+              f"gtp {name}: the metrics file ends with {last['event']}")
+        out[name] = wall
+        log(f"gtp {name} [{card}]: exit 0 in {wall:.1f} s with start-up; "
+            f"replies {[r[:12] for r in replies if not r.startswith('= {')]}"
+            f"; health status {health['status']}, latency "
+            f"{health['latency_s']}")
+    return out
+
+
+def phase_serve(pygo, torchgo, dev, card, counters) -> dict:
+    """Serving (phase 19)."""
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, SERVE_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    paths = serve_specs(work)
+    policy = NeuralNetBase.load_model(paths["policy19"])
+    value = NeuralNetBase.load_model(paths["value19"])
+    check(policy.module.dtype == value.module.dtype == torch.bfloat16
+          and policy.size_generic() and value.size_generic()
+          and policy.spec_kwargs["layers"] == 12
+          and policy.preprocess.output_dim == 48,
+          "serve specs: not the 12 x 128 bf16 FCN nets of 48 / 49 planes")
+    pool = ServePool(value, policy, n_sim=SERVE_SIMS)
+    try:
+        t1 = time.perf_counter()
+        pool.warm()
+        warm_s = time.perf_counter() - t1
+        log(f"serve pool [{card}]: warm {warm_s:.2f} s (one evaluation at "
+            f"each size of {pool.evaluator.batch_sizes} and a session's "
+            "path)")
+        out = dict(fleet=serve_fleet(pygo, pool, counters, card))
+        out["threaded"] = serve_threaded(pygo, pool, counters, card)
+        out["slo"] = serve_slo(pygo, pool, card)
+        serve_equalities(pygo, torchgo, pool, card)
+        out["ladder"] = serve_ladder(pygo, pool, card)
+    finally:
+        join_abandoned()
+        pool.close()
+    out["gtp"] = serve_gtp(card, paths)
+    out["launches"] = {
+        k: sum(out["fleet"][n]["launches"][k] for n in SERVE_FLEETS)
+        + out["threaded"]["launches"][k]
+        for k in out["threaded"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def labels_sweeps(boards: torch.Tensor) -> int:
     """Sweeps the hook-and-jump fill needs on these boards (the same
     iteration the kernel runs, counted on the plain version's loop)."""
@@ -3543,6 +4193,7 @@ def main() -> int:
                       main_path)
     mc = phase_mcts(pygo, torchgo, dev, card, (L, C))
     zr = phase_zero(torchgo, dev, card, (L, C, T))
+    sv19 = phase_serve(pygo, torchgo, dev, card, (L, C, T))
     # the launches of phases 11-18's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
@@ -3553,7 +4204,7 @@ def main() -> int:
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
                 + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
                 + gb["sp_launches"][k] + mc["launches"].get(k, 0)
-                + zr["launches"][k]
+                + zr["launches"][k] + sv19["launches"][k]
                 for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
@@ -3621,6 +4272,15 @@ def main() -> int:
         f"idle share {prof.get('idle', float('nan')):.3f}, replay MFU share "
         f"{zr['mfu']:.5f}; launches {zr['launches']}; phase 18 "
         f"{zr['phase_s']:.1f} s on {card}")
+    fleet = sv19["fleet"]
+    log("serving: " + "; ".join(
+        f"fleet {n}: {fleet[n]['moves_per_s']:.2f} moves/s, "
+        f"{fleet[n]['sims_per_s']:.1f} game-simulations/s, occupancy "
+        f"{fleet[n]['occupancy']:.3f}, launches {fleet[n]['launches']}"
+        for n in SERVE_FLEETS) + f"; threaded genmove p50 "
+        f"{sv19['threaded']['p50']:.3f} s, p99 {sv19['threaded']['p99']:.3f} "
+        f"s, launches a genmove {sv19['threaded']['per_genmove']}; phase 19 "
+        f"{sv19['phase_s']:.1f} s on {card}")
     log(f"genmove p50 {p50:.2f} ms on {card}; smoke took "
         f"{time.monotonic() - t0:.0f} s")
     print(card)

@@ -5,13 +5,23 @@ Commands: the GTP 2 administrative set (``protocol_version name
 version known_command list_commands quit``), setup (``boardsize
 clear_board komi fixed_handicap place_free_handicap
 set_free_handicap``), play (``play genmove undo``), time
-(``time_settings time_left``) and ``showboard final_score``. Before
-every genmove the engine hands the moving colour's budget in seconds
-to the player's ``set_move_time`` (the search players turn it into
-playouts or simulations). The reference's resilience ladder,
-operator probes and serve pool are not ported yet, so this engine
-behaves like the reference under ``--no-resilient``: a player error
-is a ``? error`` reply, never a silent fallback move.
+(``time_settings time_left``), ``showboard final_score``, and the
+operator probes ``rocalphago-health`` / ``rocalphago-stats`` (one-line
+JSON). Before every genmove the engine hands the moving colour's budget
+in seconds to the player's ``set_move_time`` (the search players turn
+it into playouts or simulations).
+
+Resilient serving (the default): a controller forfeits the game on a
+``? error`` genmove reply, so the engine wraps the player in a
+:class:`~rocalphago_tpu_torch.interface.resilient.ResilientPlayer` and
+a failing search walks the degradation ladder (search → reduced
+search → raw policy → host-rules fallback) until a legal vertex comes
+out. The fault barriers ``genmove.pre_search`` /
+``genmove.post_search`` / ``genmove.pre_apply``
+(:mod:`rocalphago_tpu_torch.runtime.faults`) cover the engine's own
+path; in resilient mode a fault there is counted and logged, never
+echoed. ``--no-resilient`` (``resilient=False``) is the raw engine: a
+player error is a ``? error`` reply.
 
 Run it as::
 
@@ -25,15 +35,29 @@ reference's AlphaGo player, host APV-MCTS with rollouts::
     python -m rocalphago_tpu_torch.interface.gtp --player mcts \
         --policy policy.json --value value.json --rollout rollout.json \
         [--device-rollout] [--lmbda 0.5] [--leaf-batch 8] [--symmetric]
+
+The serve pool: the engine's game is one session of a
+:class:`~rocalphago_tpu_torch.serve.sessions.ServePool` (the shared
+batching evaluator, admission control, pool stats on the probes), or of
+a :class:`~rocalphago_tpu_torch.multisize.MultiSizePool` whose
+``boardsize`` re-routes the session::
+
+    python -m rocalphago_tpu_torch.interface.gtp --serve \
+        --policy policy.json --value value.json [--serve-slo-ms 2000] \
+        [--serve-sizes 9,13,19] [--metrics serve.jsonl]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
 from rocalphago_tpu_torch.engine import pygo
+from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.runtime import faults
 
 COLS = "ABCDEFGHJKLMNOPQRSTUVWXYZ"  # GTP skips I
 
@@ -119,17 +143,44 @@ def parse_color(s: str) -> int:
 
 class GTPEngine:
     """Stateful GTP command dispatcher around a player with
-    ``get_move(state)``."""
+    ``get_move(state)``; a ``clear_board`` also clears the player's
+    search state. ``resilient`` (default) serves every genmove through
+    the degradation ladder; ``serve_pool`` / ``serve_session`` tie the
+    engine to a serve pool (probes, ``komi`` and ``boardsize``
+    re-routing)."""
 
-    name = "rocalphago-tpu-torch"
-    version = "0.1"
-
-    def __init__(self, player):
-        from rocalphago_tpu_torch.search.players import player_board
+    def __init__(self, player, name: str = "rocalphago-tpu-torch",
+                 version: str = "0.1", metrics=None,
+                 resilient: bool = True,
+                 hang_timeout_s: float | None = None,
+                 serve_pool=None, serve_session=None):
+        from rocalphago_tpu_torch.interface.resilient import ResilientPlayer
 
         self.player = player
-        self.illegal_from_player = 0
-        self.size = player_board(player) or 19
+        self._metrics = metrics
+        self._resilient = resilient
+        self._hang_timeout_s = hang_timeout_s
+        # multi-size serving: the engine owns its pool session handle
+        # so that boardsize can re-route it to another size's pool
+        self._serve_session = serve_session
+        if not resilient:
+            self._serve = None
+        elif isinstance(player, ResilientPlayer):
+            self._serve = player
+            if metrics is not None and player.metrics is None:
+                player.metrics = metrics
+            if hang_timeout_s is not None and player.hang_timeout_s is None:
+                player.hang_timeout_s = hang_timeout_s
+        else:
+            self._serve = ResilientPlayer(player, metrics=metrics,
+                                          hang_timeout_s=hang_timeout_s)
+        self.illegal_from_player = 0  # the engine's final-guard count
+        # a serve-backed player's pool: explicit, else found off the
+        # primary (SessionPlayer.pool)
+        self._serve_pool = serve_pool
+        self.name = name
+        self.version = version
+        self.size = self._player_board() or 19
         self.komi = 7.5
         self.state = pygo.GameState(size=self.size, komi=self.komi)
         self._undo_stack: list = []
@@ -140,8 +191,11 @@ class GTPEngine:
         self._time_left: dict = {}
         self._time_spent: dict = {}   # color -> own genmove seconds
         self._genmoves: dict = {}     # color -> genmove count
-        self._commands = sorted(m[4:] for m in dir(self)
-                                if m.startswith("cmd_"))
+        # the private extensions are dashed on the wire
+        # (rocalphago-health); method names cannot be
+        self._commands = sorted(
+            m[4:].replace("rocalphago_", "rocalphago-", 1)
+            for m in dir(self) if m.startswith("cmd_"))
 
     # ------------------------------------------------------------ admin
 
@@ -175,20 +229,53 @@ class GTPEngine:
         self._genmoves = {}
         reset_player(self.player)
 
-    def cmd_boardsize(self, args):
+    def _player_board(self):
+        """The board the player's nets were built for (None when the
+        player is size-agnostic)."""
         from rocalphago_tpu_torch.search.players import player_board
 
+        return player_board(self.player)
+
+    def cmd_boardsize(self, args):
         size = int(args[0])
         if not 2 <= size <= 25:
             raise ValueError("unacceptable size")
         # the net is built for one board; say so per GTP instead of
-        # failing inside genmove
-        net_board = player_board(self.player)
-        if net_board is not None and size != net_board:
+        # failing inside genmove. A multi-size serve pool re-routes
+        # the session to the size's member pool instead
+        net_board = self._player_board()
+        if net_board is not None and size != net_board \
+                and not self._reroute_board(size):
             raise ValueError("unacceptable size")
         self.size = size
         self._new_game()
         return ""
+
+    def _reroute_board(self, size: int) -> bool:
+        """Move this engine's serve session to ``size``'s member pool
+        (multi-size pools only); the engine's komi goes with it."""
+        from rocalphago_tpu_torch.interface.resilient import ResilientPlayer
+
+        pool = self._serve_pool
+        if pool is None or not hasattr(pool, "pool_for"):
+            return False
+        try:
+            new = pool.open_session(size=size, resilient=self._resilient)
+        except KeyError:
+            return False            # the size is not active on the pool
+        if self._serve_session is not None:
+            self._serve_session.close()
+        self._serve_session = new
+        new.set_komi(self.komi)
+        self.player = new.player
+        if isinstance(new.player, ResilientPlayer):
+            self._serve = new.player
+            if self._metrics is not None and new.player.metrics is None:
+                new.player.metrics = self._metrics
+            if self._hang_timeout_s is not None \
+                    and new.player.hang_timeout_s is None:
+                new.player.hang_timeout_s = self._hang_timeout_s
+        return True
 
     def cmd_clear_board(self, args):
         self._new_game()
@@ -197,6 +284,12 @@ class GTPEngine:
     def cmd_komi(self, args):
         self.komi = float(args[0])
         self.state.komi = self.komi
+        # a serve-backed engine re-threads the session's komi too, so
+        # the shared evaluator scores terminal leaves under it
+        primary = self._primary_player()
+        if getattr(primary, "pool", None) is not None \
+                and hasattr(primary, "komi"):
+            primary.komi = self.komi
         return ""
 
     def cmd_fixed_handicap(self, args):
@@ -243,14 +336,45 @@ class GTPEngine:
             raise
         return ""
 
+    def _serving_barrier(self, name: str) -> None:
+        """A fault barrier on the genmove path: in resilient mode a
+        fault here is counted and logged (the move still goes out); the
+        raw engine lets it raise like any command error."""
+        try:
+            faults.barrier(name, iteration=self.state.turns_played)
+        except Exception as e:  # noqa: BLE001 -- injected by design
+            if self._serve is None:
+                raise
+            self._serve.note_barrier_fault(name, e)
+
     def _generate(self, color):
-        set_time = getattr(self.player, "set_move_time", None)
-        if set_time is not None:
-            set_time(self._move_budget_s(color))
-        move = self.player.get_move(self.state)
+        """One move off the player. Resilient mode always has an answer
+        (the ladder bottoms out at pass); the raw engine lets a player
+        error through (a ``? error`` reply)."""
+        try:
+            # a raising time hook must not take the move down with it
+            set_time = getattr(self.player, "set_move_time", None)
+            if set_time is not None:
+                set_time(self._move_budget_s(color))
+        except Exception as e:  # noqa: BLE001
+            if self._serve is None:
+                raise
+            self._serve.note_barrier_fault("genmove.set_move_time", e)
+        self._serving_barrier("genmove.pre_search")
+        if self._serve is not None:
+            move = self._serve.get_move(self.state)
+        else:
+            move = self.player.get_move(self.state)
+        self._serving_barrier("genmove.post_search")
         if move is not None and not self.state.is_legal(move):
-            # final guard: count it, then pass
+            # the final guard (the ladder checks before this in
+            # resilient mode): count it, log it, then pass
             self.illegal_from_player += 1
+            if self._metrics is not None:
+                self._metrics.log(
+                    "degradation", rung="engine",
+                    reason="illegal_from_player",
+                    turn=self.state.turns_played, move=str(move))
             move = None
         return move
 
@@ -260,15 +384,20 @@ class GTPEngine:
         self.state.current_player = color
         t0 = time.monotonic()
         try:
-            move = self._generate(color)
-            self._apply_move(move, color)
+            # the span names this phase in watchdog stall events; the
+            # histogram backs the stats probe's latency section
+            with trace.span("gtp.genmove", turn=self.state.turns_played):
+                move = self._generate(color)
+                self._serving_barrier("genmove.pre_apply")
+                self._apply_move(move, color)
         except Exception:
             self.state.current_player = prev
             raise
         finally:
-            self._time_spent[color] = (self._time_spent.get(color, 0.0)
-                                       + time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            self._time_spent[color] = self._time_spent.get(color, 0.0) + dt
             self._genmoves[color] = self._genmoves.get(color, 0) + 1
+            obs_registry.histogram("gtp_genmove_seconds").observe(dt)
         return move_to_vertex(move, self.size)
 
     def cmd_undo(self, args):
@@ -279,6 +408,92 @@ class GTPEngine:
         # no player reset: the device player's subtree walk sees the
         # history go back and builds a fresh tree on its own
         return ""
+
+    # ----------------------------------------------- operator probes
+    #
+    # Private extensions (the ``rocalphago-`` prefix keeps them out of
+    # controllers' way): one-line JSON, so that an operator or a load
+    # balancer can probe a live engine over its GTP pipe.
+
+    def _primary_player(self):
+        return self._serve.primary if self._serve is not None \
+            else self.player
+
+    def _pool(self):
+        """The serve pool behind this engine's player, if any."""
+        if self._serve_pool is not None:
+            return self._serve_pool
+        return getattr(self._primary_player(), "pool", None)
+
+    def cmd_rocalphago_health(self, args):
+        """Ladder health: counts per rung, p50/p99 genmove latency, the
+        last fallback's reason, the simulations run; a serve-backed
+        engine adds the pool block (live sessions, queue depth, batch
+        occupancy, sheds)."""
+        if self._serve is None:
+            raise ValueError("resilient serving disabled")
+        s = self._serve.stats()
+        s["illegal_from_player"] += self.illegal_from_player
+        s["status"] = ("ok" if s["last_rung"] in (None, "search")
+                       else "degraded")
+        primary = self._primary_player()
+        s["sims"] = {"last": getattr(primary, "last_n_sim", None),
+                     "nominal": getattr(primary, "n_sim", None)}
+        s["deadline"] = {
+            "hits": getattr(primary, "deadline_hits", 0),
+            "last_hit": bool(getattr(primary, "last_deadline_hit", False))}
+        pool = self._pool()
+        if pool is not None:
+            s["serve"] = pool.stats()
+        return json.dumps(s, sort_keys=True)
+
+    def cmd_rocalphago_stats(self, args):
+        """Operational snapshot: game, clock and search state plus the
+        full ladder stats (a superset of ``rocalphago-health``) and the
+        live metric registry."""
+        primary = self._primary_player()
+        clock = getattr(primary, "_clock", None)
+
+        def per_color(d, r=None):
+            return {"black": (round(d.get(pygo.BLACK, 0), 3)
+                              if r else d.get(pygo.BLACK, 0)),
+                    "white": (round(d.get(pygo.WHITE, 0), 3)
+                              if r else d.get(pygo.WHITE, 0))}
+
+        pool = self._pool()
+        out = {
+            "name": self.name,
+            "version": self.version,
+            "game": {
+                "size": self.size,
+                "komi": self.komi,
+                "turns": self.state.turns_played,
+                "to_move": ("black" if self.state.current_player
+                            == pygo.BLACK else "white"),
+                "over": bool(self.state.is_end_of_game),
+            },
+            "genmoves": per_color(self._genmoves),
+            "time_spent_s": per_color(self._time_spent, r=True),
+            "clock": {
+                "settings": (list(self._time_settings)
+                             if self._time_settings else None),
+                "move_time_s": getattr(clock, "move_time", None),
+                "rate_units_per_s": getattr(clock, "rate", None),
+            },
+            "search": {
+                "last_n_sim": getattr(primary, "last_n_sim", None),
+                "nominal_n_sim": getattr(primary, "n_sim", None),
+                "reuses": getattr(primary, "reuses", None),
+                "deadline_hits": getattr(primary, "deadline_hits", None),
+                "last_deadline_hit": getattr(primary, "last_deadline_hit",
+                                             None),
+            },
+            "ladder": (self._serve.stats()
+                       if self._serve is not None else None),
+            "serve": pool.stats() if pool is not None else None,
+            "registry": obs_registry.snapshot(),
+        }
+        return json.dumps(out, sort_keys=True)
 
     # ------------------------------------------------------------- time
 
@@ -396,7 +611,10 @@ class GTPEngine:
         if not parts:
             return None, False
         cmd, args = parts[0], parts[1:]
-        fn = getattr(self, f"cmd_{cmd}", None)
+        # the private extensions are dashed on the wire
+        lookup = (cmd.replace("-", "_") if cmd.startswith("rocalphago-")
+                  else cmd)
+        fn = getattr(self, f"cmd_{lookup}", None)
         if fn is None:
             return f"?{cmd_id} unknown command\n\n", False
         try:
@@ -407,11 +625,12 @@ class GTPEngine:
         return f"={cmd_id}{sep}{result}\n\n", cmd == "quit"
 
 
-def run_gtp(player, instream=None, outstream=None):
-    """Blocking GTP loop; returns the engine."""
+def run_gtp(player, instream=None, outstream=None, **engine_kwargs):
+    """Blocking GTP loop; returns the engine (``engine_kwargs`` go to
+    :class:`GTPEngine`)."""
     instream = instream or sys.stdin
     outstream = outstream or sys.stdout
-    engine = GTPEngine(player)
+    engine = GTPEngine(player, **engine_kwargs)
     for line in instream:
         reply, done = engine.handle(line)
         if reply is not None:
@@ -428,7 +647,7 @@ def main(argv=None):
     ap.add_argument("--policy", required=True,
                     help="policy model JSON spec (the reference's format)")
     ap.add_argument("--value", help="value model JSON spec (mcts, "
-                    "device-mcts, gumbel-mcts)")
+                    "device-mcts, gumbel-mcts, --serve)")
     ap.add_argument("--rollout", help="rollout model JSON spec (mcts; "
                     "default: the policy rolls out)")
     ap.add_argument("--player", default="greedy",
@@ -439,7 +658,7 @@ def main(argv=None):
                     help="mcts leaf value mix: (1 - λ)·value + λ·rollout")
     ap.add_argument("--playouts", type=int, default=100,
                     help="playouts (simulations) per move (mcts, "
-                         "device-mcts, gumbel-mcts)")
+                         "device-mcts, gumbel-mcts, --serve)")
     ap.add_argument("--leaf-batch", type=int, default=8,
                     help="mcts playouts per leaf wave")
     ap.add_argument("--symmetric", action="store_true",
@@ -448,23 +667,92 @@ def main(argv=None):
     ap.add_argument("--device-rollout", action="store_true",
                     help="mcts rollouts wholly on the device, one run a "
                          "wave, instead of on host rules")
+    ap.add_argument("--metrics", default=None,
+                    help="JSONL path for degradation, stall and span "
+                         "events (the serving metrics.jsonl)")
+    ap.add_argument("--genmove-timeout", type=float, default=None,
+                    help="abandon a silent search after this many "
+                         "seconds and go on to the policy rung (the "
+                         "watchdog's hang protection; default off)")
+    ap.add_argument("--no-resilient", action="store_true",
+                    help="the raw engine: a player error is a ? error "
+                         "reply (a forfeit under most controllers)")
+    ap.add_argument("--serve", action="store_true",
+                    help="serve-backed player: this engine's game is one "
+                         "session of a serve pool (the shared batching "
+                         "evaluator, admission control, pool stats on the "
+                         "probes); needs --value")
+    ap.add_argument("--serve-slo-ms", type=float, default=None,
+                    help="per-genmove SLO of the serve pool in ms (the "
+                         "anytime answer on expiry; default off)")
+    ap.add_argument("--serve-sizes", default=None,
+                    help="comma list of board sizes served from one "
+                         "multi-size pool (e.g. 9,13,19; implies --serve "
+                         "and needs FCN heads): boardsize then re-routes "
+                         "the session")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on "
                          "the CPU)")
     a = ap.parse_args(argv)
-    from rocalphago_tpu_torch.search.players import build_player
+    metrics = None
+    if a.metrics:
+        from rocalphago_tpu_torch.io.metrics import MetricsLogger
 
+        metrics = MetricsLogger(a.metrics, echo=False)
+        # genmove and rung spans join the serving metrics
+        trace.configure(metrics)
+    pool = session = None
+    if a.serve or a.serve_sizes:
+        from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
+
+        if not a.value:
+            raise SystemExit("--serve needs a --value model")
+        policy = NeuralNetBase.load_model(a.policy, device=a.device)
+        value = NeuralNetBase.load_model(a.value, device=a.device)
+        slo_s = a.serve_slo_ms / 1e3 if a.serve_slo_ms is not None else None
+        kwargs = dict(n_sim=a.playouts, metrics=metrics,
+                      hang_timeout_s=a.genmove_timeout, slo_s=slo_s)
+        if a.serve_sizes:
+            from rocalphago_tpu_torch.multisize import MultiSizePool
+
+            sizes = tuple(int(s) for s in a.serve_sizes.split(",")
+                          if s.strip())
+            try:
+                pool = MultiSizePool(value, policy, sizes=sizes, **kwargs)
+            except ValueError as e:
+                raise SystemExit(str(e))
+        else:
+            from rocalphago_tpu_torch.serve.sessions import ServePool
+
+            pool = ServePool(value, policy, **kwargs)
+        pool.warm()
+        # the session arrives ladder-wrapped; the engine adopts it
+        session = pool.open_session(resilient=not a.no_resilient)
+        player = session.player
+    else:
+        from rocalphago_tpu_torch.search.players import build_player
+
+        try:
+            player = build_player(
+                a.player, a.policy, value_path=a.value,
+                rollout_path=a.rollout, temperature=a.temperature,
+                playouts=a.playouts, leaf_batch=a.leaf_batch,
+                lmbda=a.lmbda, symmetric=a.symmetric,
+                device_rollout=a.device_rollout, device=a.device)
+        except ValueError as e:
+            raise SystemExit(str(e))
     try:
-        player = build_player(a.player, a.policy, value_path=a.value,
-                              rollout_path=a.rollout,
-                              temperature=a.temperature,
-                              playouts=a.playouts, leaf_batch=a.leaf_batch,
-                              lmbda=a.lmbda, symmetric=a.symmetric,
-                              device_rollout=a.device_rollout,
-                              device=a.device)
-    except ValueError as e:
-        raise SystemExit(str(e))
-    run_gtp(player)
+        run_gtp(player, metrics=metrics, resilient=not a.no_resilient,
+                hang_timeout_s=a.genmove_timeout, serve_pool=pool,
+                serve_session=session)
+    finally:
+        if pool is not None:
+            pool.close()
+        # the end-of-session registry snapshot, as the trainers write it
+        obs_registry.log_to(metrics)
+        if metrics is not None:
+            trace.configure(None)
+            metrics.close()
 
 
 if __name__ == "__main__":

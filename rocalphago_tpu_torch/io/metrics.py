@@ -2,7 +2,11 @@
 
 A copy of the reference package's ``io/metrics.py``: one JSON object
 per event in ``metrics.jsonl`` (step, loss, accuracy, ...), echoed to
-stdout by :meth:`MetricsLogger.log`.
+stdout by :meth:`MetricsLogger.log` unless ``echo=False``. The same
+stream carries the observability records (``span`` and ``registry``
+events, :mod:`rocalphago_tpu_torch.obs`) through the file-only
+:meth:`MetricsLogger.write`. :func:`read_jsonl` is the tolerant reader
+that matches this writer.
 
 Strict-parser contract: non-finite floats (NaN/Inf -- e.g. an empty
 split's NaN) are sanitized to JSON ``null`` before serialization, and
@@ -16,6 +20,9 @@ import math
 import os
 import threading
 import time
+
+# the crash-tolerant reader matching this module's writer
+from rocalphago_tpu_torch.runtime.jsonl import read_jsonl  # noqa: F401
 
 
 def sanitize(value):
@@ -37,8 +44,9 @@ class MetricsLogger:
     can race an emit without writing to a closed file. Serialization
     happens outside the lock."""
 
-    def __init__(self, path: str | None):
+    def __init__(self, path: str | None, echo: bool = True):
         self.path = path
+        self.echo = echo
         self._lock = threading.Lock()
         if path:
             parent = os.path.dirname(path)
@@ -59,10 +67,11 @@ class MetricsLogger:
     def log(self, event: str, **fields) -> None:
         fields = sanitize(fields)
         self.write(event, **fields)
-        shown = " ".join(
-            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in fields.items())
-        print(f"[{event}] {shown}", flush=True)
+        if self.echo:
+            shown = " ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in fields.items())
+            print(f"[{event}] {shown}", flush=True)
 
     def close(self) -> None:
         with self._lock:

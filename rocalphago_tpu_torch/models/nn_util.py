@@ -13,6 +13,7 @@ its convolutions to XLA outside any Pallas kernel.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -342,6 +343,23 @@ class NeuralNetBase:
     @staticmethod
     def create_network(**kwargs) -> nn.Module:
         raise NotImplementedError
+
+
+def working_copy(module: nn.Module, state_dict=None) -> nn.Module:
+    """A copy of ``module`` (with ``state_dict`` loaded, when given)
+    whose convolution and dense parameters are cast once to the
+    module's working type ``module.dtype``. The forward casts exactly
+    those parameters to that type on every call, so the copy computes
+    the same outputs bit for bit without the per-call casts; the serve
+    pool keeps each params version so."""
+    work = copy.deepcopy(module)
+    if state_dict is not None:
+        work.load_state_dict(state_dict)
+    with torch.no_grad():
+        for sub in work.modules():
+            if isinstance(sub, (nn.Conv2d, nn.Linear)):
+                sub.to(module.dtype)
+    return work.eval()
 
 
 def masked_probs(logits: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,8 @@ import time
 
 class Deadline:
     """Absolute wall-clock cutoff (``time.monotonic`` domain);
-    ``Deadline(None)`` is unlimited: never expired."""
+    ``Deadline(None)`` is unlimited: never expired, and ``remaining()``
+    is None."""
 
     __slots__ = ("at",)
 
@@ -37,3 +38,14 @@ class Deadline:
 
     def expired(self) -> bool:
         return self.at is not None and time.monotonic() >= self.at
+
+    def remaining(self) -> float | None:
+        """Seconds left (clamped at 0.0), or None when unlimited."""
+        if self.at is None:
+            return None
+        return max(0.0, self.at - time.monotonic())
+
+    def __repr__(self) -> str:
+        if self.at is None:
+            return "Deadline(unlimited)"
+        return f"Deadline(in {self.at - time.monotonic():+.3f}s)"

@@ -9,6 +9,14 @@ identical sleep schedule), and the classifier. Infrastructure flake --
 filesystem, network, timeouts -- is transient and re-invoked;
 programming errors surface immediately.
 
+The device half of the classifier is CUDA's, where the reference names
+XLA's status words: an out-of-memory error is transient (XLA's
+``RESOURCE_EXHAUSTED``: the allocation may fit once other work frees
+its memory), while a sticky CUDA error -- ``torch.AcceleratorError``,
+or a ``RuntimeError`` whose message starts ``CUDA error:`` (an illegal
+address, a launch failure) -- is not: it poisons the context, and
+every retry would replay it.
+
 Only retry pure work: an idempotent artifact write or read.
 """
 
@@ -19,6 +27,8 @@ import hashlib
 import sys
 import time
 
+import torch
+
 _MAX_DELAY = 30.0
 
 # programming errors: never retry, whatever the message says
@@ -27,10 +37,21 @@ _FATAL_TYPES = (TypeError, ValueError, KeyError, IndexError,
                 NotImplementedError, KeyboardInterrupt, SystemExit)
 
 
+# a sticky CUDA error poisons the context: never retry
+_STICKY_TYPES = tuple(t for t in (getattr(torch, "AcceleratorError", None),)
+                      if t is not None)
+
+
 def is_transient(exc: BaseException) -> bool:
     """True if ``exc`` looks like infrastructure flake worth another
     attempt; False for programming errors."""
     if isinstance(exc, _FATAL_TYPES):
+        return False
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    if isinstance(exc, _STICKY_TYPES) or (
+            isinstance(exc, RuntimeError)
+            and str(exc).startswith("CUDA error:")):
         return False
     return isinstance(exc, (OSError, TimeoutError, ConnectionError))
 

@@ -1,5 +1,5 @@
-"""Heartbeat watchdog for long training loops. A copy of the reference
-package's ``runtime/watchdog.py``, without its tracing spans.
+"""Heartbeat watchdog for long loops and hung searches. A copy of the
+reference package's ``runtime/watchdog.py``.
 
 A wedged card program leaves a ``nohup`` run silently stuck. The
 watchdog is a daemon thread the loop feeds with :meth:`Watchdog.beat`
@@ -7,7 +7,11 @@ once per iteration; if no beat arrives within the deadline it logs a
 ``stall`` event (to the run's ``metrics.jsonl`` through the given
 logger) and, in abort mode, calls the caller's ``abort_fn`` -- whose
 job is to save the last completed state -- and exits the process with
-:data:`STALL_EXIT_CODE`. Without ``abort_fn`` it only logs.
+:data:`STALL_EXIT_CODE` (``exit=False`` keeps it: the serving ladder
+abandons a hung search that way). Without ``abort_fn`` it only logs.
+A stall event's ``span`` field is the deepest open tracing span across
+all threads (:func:`rocalphago_tpu_torch.obs.trace.where`), so the
+operator reads the stuck phase straight off ``metrics.jsonl``.
 
 Starvation against deadlock: a learner blocked on an empty replay
 buffer shows the same missing beat as a wedged program. Code that
@@ -22,6 +26,8 @@ import os
 import sys
 import threading
 import time
+
+from rocalphago_tpu_torch.obs import trace
 
 STALL_EXIT_CODE = 170
 
@@ -101,16 +107,18 @@ class Watchdog:
         self._last_beat = time.monotonic()
 
     def _log(self, elapsed: float) -> None:
+        at = trace.where()          # deepest open span, any thread
         waits = waiting_phases()
         waiting = ",".join(waits) if waits else None
         if self.metrics is not None:
             self.metrics.log("stall", watchdog=self.name,
                              elapsed_s=round(elapsed, 1),
-                             deadline_s=self.deadline_s,
+                             deadline_s=self.deadline_s, span=at,
                              waiting_on=waiting)
         else:
             print(f"watchdog[{self.name}]: no heartbeat for "
                   f"{elapsed:.0f}s (deadline {self.deadline_s:.0f}s)"
+                  f"{f' in {at}' if at else ''}"
                   f"{f' waiting on {waiting}' if waiting else ''}",
                   file=sys.stderr)
 

@@ -42,8 +42,19 @@ backs nothing up (its backup starts at node -1, which the tree kernel
 skips) -- so the tree kernel is unchanged and the mask adds no host
 sync.
 
-Not ported yet: per-row komi, the incremental root encode and the
-serving seam's transposition keys (later slices, ``ROADMAP.md``).
+The serving seam (the serve pool, :mod:`rocalphago_tpu_torch.serve`):
+:meth:`DeviceMCTS.prepare_sim` and :meth:`DeviceMCTS.apply_sim` split a
+simulation around an external evaluator, :meth:`DeviceMCTS.
+eval_with` evaluates with a given pair of nets (a params version of the
+pool), :meth:`DeviceMCTS.eval_batch_komi` rescoring terminal rows under
+a komi per row, and :meth:`DeviceMCTS.eval_key` and
+``SimStep.eval_keys`` give the transposition-cache keys. The keys are
+computed only when asked for (``keys=True``): the reference's compiler
+drops them from its fused path, and the port's eager path would
+otherwise pay their launches on every simulation.
+
+Not ported yet: the incremental root encode (a later slice,
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from rocalphago_tpu_torch.engine import torchgo
 from rocalphago_tpu_torch.engine.torchgo import (
     GoConfig,
     GoState,
+    area_scores,
     group_data,
     new_states,
     step,
@@ -89,6 +101,9 @@ class SimStep(NamedTuple):
     expanding: torch.Tensor    # bool [B] True = a new leaf was stepped
     eval_states: GoState       # [B, ...] the states to evaluate: the
     #   stepped children where ``expanding``, else the terminal node
+    eval_keys: torch.Tensor | None = None  # int64 [B, 2] (uint32 words)
+    #   eval signature of each ``eval_states`` row, the serve pool's
+    #   transposition-cache key; None unless asked for
 
 
 class DeviceTree(NamedTuple):
@@ -115,6 +130,19 @@ def _state_at(states: GoState, idx: torch.Tensor) -> GoState:
 def _terminal_value(cfg: GoConfig, st: GoState) -> torch.Tensor:
     """Outcome in {-1, 0, 1} from the player to move's view."""
     return (winner(cfg, st) * st.turn).float()
+
+
+def _terminal_value_komi(cfg: GoConfig, st: GoState,
+                         komi: torch.Tensor) -> torch.Tensor:
+    """:func:`_terminal_value` rescored under a komi per row (f32
+    ``[B]``) instead of ``cfg.komi``: ``area_scores`` counts
+    ``cfg.komi`` into white's total, so the margin shifts by the komi
+    difference -- exactly ``0.0`` at ``komi == cfg.komi``, where the
+    result is :func:`_terminal_value`'s."""
+    b, w = area_scores(cfg, st)
+    # a Python float meets a float32 tensor in float32: no host copy
+    margin = (b - w) + (cfg.komi - komi.to(torch.float32))
+    return (torch.sign(margin) * st.turn).float()
 
 
 def copy_tree(tree: DeviceTree) -> DeviceTree:
@@ -147,34 +175,58 @@ class DeviceMCTS:
 
     # ------------------------------------------------------ evaluation
 
-    def _eval_from(self, states: GoState, gd, planes: torch.Tensor):
+    def _eval_from(self, states: GoState, gd, planes: torch.Tensor,
+                   policy_fn: Callable, value_fn: Callable,
+                   komi: torch.Tensor | None = None):
         sens = sensible_mask(self.cfg, states, gd)              # [B, N]
-        logits = self.policy_fn(planes[..., :self.n_policy_planes])
+        logits = policy_fn(planes[..., :self.n_policy_planes])
         masked = torch.where(sens, logits, torch.finfo(logits.dtype).min)
         board_p = torch.softmax(masked, dim=-1)
         any_sens = sens.any(dim=-1, keepdim=True)
         board_p = torch.where(any_sens, board_p, 0.0)
         pass_p = torch.where(any_sens, 0.0, 1.0)
         priors = torch.cat([board_p, pass_p], dim=-1).float()
-        values = self.value_fn(planes).float()
-        values = torch.where(states.done,
-                             _terminal_value(self.cfg, states), values)
+        values = value_fn(planes).float()
+        term = (_terminal_value(self.cfg, states) if komi is None
+                else _terminal_value_komi(self.cfg, states, komi))
+        values = torch.where(states.done, term, values)
         return priors, values
 
     @torch.no_grad()
-    def eval_batch(self, states: GoState):
-        """One evaluation of a batch of states: ``(priors f32 [B, A],
-        values f32 [B])``. Priors are a float32 softmax over sensible
-        moves (the rest filled with the type's minimum first); pass has
-        probability 1 exactly when no move is sensible. Values are the
-        value net's where live, the terminal outcome where done."""
+    def eval_with(self, policy_fn: Callable, value_fn: Callable,
+                  states: GoState, komi: torch.Tensor | None = None):
+        """One evaluation of a batch of states with the given nets:
+        ``(priors f32 [B, A], values f32 [B])``. Priors are a float32
+        softmax over sensible moves (the rest filled with the type's
+        minimum first); pass has probability 1 exactly when no move is
+        sensible. Values are the value net's where live, the terminal
+        outcome where done -- under ``cfg.komi``, or with ``komi`` (f32
+        ``[B]``) under each row's own komi."""
         # no plane reads the dense member rows: the encode builds its
         # candidate bitmaps from the labels
         gd = group_data(self.cfg, states.board,
                         with_zxor=self.cfg.enforce_superko,
                         labels=states.labels)
         planes = encode(self.cfg, states, self.value_features, gd=gd)
-        return self._eval_from(states, gd, planes)
+        return self._eval_from(states, gd, planes, policy_fn, value_fn,
+                               komi)
+
+    def eval_batch(self, states: GoState):
+        """:meth:`eval_with` on the searcher's own nets."""
+        return self.eval_with(self.policy_fn, self.value_fn, states)
+
+    def eval_batch_komi(self, states: GoState, komi: torch.Tensor):
+        """:meth:`eval_batch` with a komi per row (f32 ``[B]``):
+        terminal rows score as if played under ``komi[i]``; rows at
+        ``cfg.komi`` score as :meth:`eval_batch`'s bit for bit."""
+        return self.eval_with(self.policy_fn, self.value_fn, states, komi)
+
+    def eval_key(self, states: GoState) -> torch.Tensor:
+        """The eval signatures of a batch of states (int64 ``[B, 2]``,
+        :func:`~rocalphago_tpu_torch.engine.torchgo.eval_signature`):
+        the transposition-cache keys of rows that do not come through
+        :meth:`prepare_sim` (root evaluations)."""
+        return torchgo.eval_signature(self.cfg, states)
 
     # ------------------------------------------------------ the slab
 
@@ -209,12 +261,13 @@ class DeviceMCTS:
     # ------------------------------------------------ one simulation
 
     @torch.no_grad()
-    def prepare_sim(self, tree: DeviceTree,
-                    root_actions: torch.Tensor) -> SimStep:
+    def prepare_sim(self, tree: DeviceTree, root_actions: torch.Tensor,
+                    keys: bool = False) -> SimStep:
         """SELECT + EXPAND: descend (the tree kernel), step the selected
         edge, and return the :class:`SimStep` whose ``eval_states`` an
         evaluator must score. ``root_actions`` (i32 [B], -1 = free)
-        forces each game's first edge."""
+        forces each game's first edge; ``keys`` fills
+        ``SimStep.eval_keys``."""
         node, action = tree_ops.descend(
             tree.prior, tree.visits, tree.value_sum, tree.child,
             tree.states.done, tree.root, root_actions, self.c_puct,
@@ -225,10 +278,11 @@ class DeviceMCTS:
         # whose result the evaluator never sees
         stepped = step(self.cfg, parent_states, safe_action)
         expanding = action >= 0
+        eval_states = torchgo.where_rows(expanding, stepped, parent_states)
         return SimStep(node=node, safe_action=safe_action.int(),
-                       expanding=expanding,
-                       eval_states=torchgo.where_rows(
-                           expanding, stepped, parent_states))
+                       expanding=expanding, eval_states=eval_states,
+                       eval_keys=(self.eval_key(eval_states) if keys
+                                  else None))
 
     @torch.no_grad()
     def apply_sim(self, tree: DeviceTree, ctx: SimStep, priors: torch.Tensor,

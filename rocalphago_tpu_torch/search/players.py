@@ -193,10 +193,15 @@ def build_player(kind: str, policy_path: str, value_path: str | None = None,
 
 
 def player_board(player) -> int | None:
-    """Board size the player's nets were built for, or None."""
+    """Board size the player's nets were built for, or None. Sees
+    through a wrapper that exposes the wrapped agent as ``primary``
+    (:class:`~rocalphago_tpu_torch.interface.resilient.
+    ResilientPlayer`)."""
     board = getattr(player, "board", None)
     if board is None:
         board = getattr(getattr(player, "policy", None), "board", None)
+    if board is None and getattr(player, "primary", None) is not None:
+        board = player_board(player.primary)
     return board
 
 

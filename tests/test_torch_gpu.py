@@ -882,3 +882,126 @@ def test_zero_iterations_on_the_card_repeat_bit_for_bit(cuda_device):
     for x, y in ((a.policy, b.policy), (a.value, b.value)):
         sx, sy = x.state_dict(), y.state_dict()
         assert all(torch.equal(sx[k], sy[k]) for k in sx)
+
+
+# ------------------------------------------------------------- serving
+
+def small_serve_nets(device, size=9, dtype=torch.bfloat16):
+    from rocalphago_tpu_torch.models import CNNValue
+
+    feats = ("board", "ones", "turns_since", "liberties")
+    kw = dict(board=size, layers=3, filters_per_layer=16, device=device,
+              dtype=dtype)
+    return (CNNPolicy(feats, seed=5, **kw),
+            CNNValue(feats + ("color",), seed=6, **kw))
+
+
+def test_pooled_genmove_on_the_card_equals_the_standalone_player(
+        cuda_device, monkeypatch):
+    """Both evaluate at batch 1: root visits bit-equal on the card; the
+    pool's fleet round and the ladder's rungs run there too."""
+    from rocalphago_tpu_torch.search import device_mcts
+    from rocalphago_tpu_torch.serve import ServePool
+
+    pol, val = small_serve_nets(cuda_device)
+    seen = []
+    orig = device_mcts.DeviceMCTS.root_stats
+
+    def rec(tree):
+        out = orig(tree)
+        seen.append(out[0].cpu().clone())
+        return out
+
+    monkeypatch.setattr(device_mcts.DeviceMCTS, "root_stats",
+                        staticmethod(rec))
+    with ServePool(val, pol, n_sim=32) as pool:
+        pool.warm()
+        sess = pool.open_session()
+        for st in random_positions(9, 3, 0, 30, 11):
+            want = device_mcts.DeviceMCTSPlayer(val, pol,
+                                                n_sim=32).get_move(st)
+            got = sess.get_move(st)
+            assert got == want and torch.equal(seen[-1], seen[-2])
+        sess.close()
+        sessions = [pool.open_session(resilient=False) for _ in range(8)]
+        moves = pool.driver(sessions).genmove_all(
+            random_positions(9, 8, 0, 30, 12))
+        assert len(moves) == 8
+        assert pool.stats()["evaluator"]["batch_occupancy"] > 0.5
+
+
+def test_komi_rescoring_and_cache_hits_on_the_card(cuda_device):
+    from rocalphago_tpu_torch.search.device_mcts import make_device_mcts
+    from rocalphago_tpu_torch.serve import BatchingEvaluator
+    from rocalphago_tpu_torch.serve.evalcache import EvalCache
+
+    pol, val = small_serve_nets(cuda_device)
+    cfg = pol.cfg
+    search = make_device_mcts(cfg, pol.feature_list, val.feature_list,
+                              pol.module, val.module, n_sim=8)
+    passed = pygo.GameState(size=9)
+    passed.do_move(None)
+    passed.do_move(None)
+    sts = random_positions(9, 6, 0, 40, 13) + [passed]
+    states = torchgo.seed_labels(cfg, torchgo.from_pygo(
+        cfg, sts, device=cuda_device, with_labels=False))
+    p0, v0 = search.eval_batch(states)
+    p1, v1 = search.eval_batch_komi(
+        states, torch.full((7,), cfg.komi, device=cuda_device))
+    assert torch.equal(p0, p1) and torch.equal(v0, v1)
+    komi = torch.full((7,), cfg.komi, device=cuda_device)
+    komi[-1] = -25.0
+    _, v2 = search.eval_batch_komi(states, komi)
+    assert float(v2[-1]) == -float(v0[-1]) != 0.0
+    assert torch.equal(v2[:-1], v0[:-1])
+    ev = BatchingEvaluator(search.eval_with, pol.module, val.module,
+                           batch_sizes=(1, 8), cache=EvalCache(capacity=64),
+                           key_fn=search.eval_key, board=9, start=False)
+    try:
+        one = torchgo.GoState(*(x[:1] for x in states))
+        want = ev.eval_direct(one)
+        for _ in range(2):
+            req = ev.submit(one)
+            ev.drain_once()
+            got = req.result(timeout=60)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        assert ev.cache.stats()["hits"] == 1
+    finally:
+        ev.close()
+
+
+def test_cuda_errors_are_classified_as_the_card_raises_them(cuda_device):
+    """The card's out-of-memory error is transient (the ladder's reduced
+    rung); a sticky CUDA error, raised in a child process because it
+    poisons the context, is not."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from rocalphago_tpu_torch.runtime.retries import is_transient
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+        torch.empty(1 << 46, dtype=torch.uint8, device=cuda_device)
+    assert is_transient(err.value)
+    code = ("import json, torch\n"
+            "from rocalphago_tpu_torch.runtime.retries import is_transient\n"
+            "x = torch.zeros(4, device='cuda')\n"
+            "i = torch.tensor([1 << 20], device='cuda')\n"
+            "try:\n"
+            "    x[i] = 1.0\n"
+            "    torch.cuda.synchronize()\n"
+            "except BaseException as e:\n"
+            "    print(json.dumps({'type': type(e).__qualname__,\n"
+            "                      'message': str(e)[:80],\n"
+            "                      'transient': is_transient(e)}))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=root))
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert rows, proc.stderr[-2000:]
+    sticky = json.loads(rows[-1])
+    assert sticky["message"].startswith("CUDA error:")
+    assert sticky["transient"] is False

@@ -2,10 +2,12 @@
 
 A scripted 9×9 session on the in-repo ``puct`` policy fixture goes
 through the port (``device="cpu"``, float32) and through the
-reference's ``run_gtp(..., resilient=False)`` with its module cloned to
-float32: the transcripts must be identical, every byte (the greedy
-player's argmax over logits that agree to ~1e-6, see
-``tests/test_torch_models.py``). Then one 19×19 genmove on a tiny
+reference's ``run_gtp`` with its module cloned to float32: the
+transcripts must be identical, every byte (the greedy player's argmax
+over logits that agree to ~1e-6, see ``tests/test_torch_models.py``),
+both for the raw engines (``resilient=False``, the CLI's
+``--no-resilient``) and for the default engines, which serve every
+genmove through the degradation ladder. Then one 19×19 genmove on a tiny
 fresh net, the protocol's error replies, and the command line. The time
 commands hand the player the same per-move budgets as the reference
 engine's; the device-search player serves a session from the command
@@ -13,6 +15,7 @@ line on the CPU.
 """
 
 import io
+import json
 import os
 
 import jax
@@ -49,27 +52,56 @@ SCRIPT = "\n".join(
        "frobnicate", "boardsize 13", "quit"]) + "\n"
 
 
-def port_session(script, player):
+def port_session(script, player, **engine_kwargs):
     out = io.StringIO()
-    engine = gtp.run_gtp(player, io.StringIO(script), out)
+    engine = gtp.run_gtp(player, io.StringIO(script), out, **engine_kwargs)
     return out.getvalue(), engine
 
 
-def test_9x9_transcript_matches_reference():
+def ref_transcript(script, resilient):
     ref = RefNet.load_model(SPEC)
     with jax.enable_checks(False):
         ref.module = ref.module.clone(dtype=jnp.float32)
         ref._apply = jax.jit(ref.module.apply)
         want = io.StringIO()
-        ref_run_gtp(RefGreedy(ref), io.StringIO(SCRIPT), want,
-                    resilient=False)
+        ref_run_gtp(RefGreedy(ref), io.StringIO(script), want,
+                    resilient=resilient)
+    return want.getvalue()
+
+
+def test_9x9_transcript_matches_reference():
+    """The raw engines: no ladder on either side."""
+    want = ref_transcript(SCRIPT, resilient=False)
     net = NeuralNetBase.load_model(SPEC, device="cpu", dtype=torch.float32)
-    got, engine = port_session(SCRIPT, GreedyPolicyPlayer(net))
-    assert got == want.getvalue()
+    got, engine = port_session(SCRIPT, GreedyPolicyPlayer(net),
+                               resilient=False)
+    assert engine._serve is None
+    assert got == want
     assert engine.illegal_from_player == 0
     replies = got.split("\n\n")
     assert "? illegal move" in replies and "? unacceptable size" in replies
     assert sum(r.startswith("= ") and len(r) <= 5 for r in replies) >= 16
+
+
+def test_9x9_transcript_matches_reference_in_default_mode():
+    """The default engines wrap the player in the degradation ladder;
+    with a player that never fails, every genmove is served by the
+    search rung and the transcript is the raw one, the reference's
+    default transcript byte for byte."""
+    script = SCRIPT.replace("quit\n", "rocalphago-health\nquit\n")
+    want = ref_transcript(script, resilient=True)
+    net = NeuralNetBase.load_model(SPEC, device="cpu", dtype=torch.float32)
+    got, engine = port_session(script, GreedyPolicyPlayer(net))
+    health = [r for r in got.split("\n\n") if r.startswith("= {")]
+    want_health = [r for r in want.split("\n\n") if r.startswith("= {")]
+    strip = [r for r in got.split("\n\n") if not r.startswith("= {")]
+    assert strip == [r for r in want.split("\n\n")
+                     if not r.startswith("= {")]
+    got_h, want_h = json.loads(health[0][2:]), json.loads(want_health[0][2:])
+    got_h.pop("latency_s"), want_h.pop("latency_s")
+    assert got_h == want_h
+    assert got_h["genmoves"] == 19 and got_h["last_rung"] == "search"
+    assert engine._serve.served["search"] == 19
 
 
 def test_19x19_genmove_on_a_fresh_net():
@@ -149,10 +181,21 @@ TIME_SCRIPT = [
 
 
 def test_time_commands_give_the_reference_budgets():
+    """The raw engines."""
+    check_time_budgets(resilient=False)
+
+
+def test_time_commands_give_the_reference_budgets_in_default_mode():
+    """The default engines: a player that passes on a finished game
+    bottoms out the ladder on both sides alike."""
+    check_time_budgets(resilient=True)
+
+
+def check_time_budgets(resilient):
     port, ref = BudgetRecorder(), BudgetRecorder()
-    engine = gtp.GTPEngine(port)
+    engine = gtp.GTPEngine(port, resilient=resilient)
     with jax.enable_checks(False):
-        ref_engine = RefEngine(ref, resilient=False)
+        ref_engine = RefEngine(ref, resilient=resilient)
         for cmd in TIME_SCRIPT:
             got, want = engine.handle(cmd), ref_engine.handle(cmd)
             assert got[0].split()[0] == want[0].split()[0], (cmd, got, want)

@@ -291,6 +291,42 @@ def test_zero_loop_entry_points_need_a_card_or_an_explicit_cpu(
     assert res["iteration"] == 0
 
 
+def test_serving_entry_points_need_a_card_or_an_explicit_cpu(
+        monkeypatch, capsys):
+    """GTP ``--serve`` and ``--serve-sizes`` raise with no card unless
+    the CPU is named; the ladder, the fault barriers, the registry and
+    the admission controller touch no device."""
+    from rocalphago_tpu_torch.interface import resilient
+    from rocalphago_tpu_torch.obs import registry
+    from rocalphago_tpu_torch.runtime import faults
+    from rocalphago_tpu_torch.serve import AdmissionController, evalcache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flag in (["--serve"], ["--serve-sizes", "9,13"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gtp.main(flag + ["--policy", SPEC, "--value", VALUE_SPEC])
+    faults.install("error@nowhere")
+    faults.barrier("serve.search")
+    faults.install(None)
+    registry.Registry().counter("x").inc()
+    AdmissionController().admit_session()
+    evalcache.EvalCache(capacity=2).insert((1, 2, 9, 7.5, 0), None)
+
+    class Passer:
+        def get_move(self, state):
+            raise RuntimeError("no search")
+
+    ladder = resilient.ResilientPlayer(Passer())
+    assert ladder.get_move(pygo.GameState(size=9)) is not None
+    assert ladder.last_rung == "fallback"
+    monkeypatch.setattr("sys.stdin", __import__("io").StringIO(
+        "genmove b\nrocalphago-health\nquit\n"))
+    gtp.main(["--serve", "--policy", SPEC, "--value", VALUE_SPEC,
+              "--playouts", "2", "--device", "cpu"])
+    replies = capsys.readouterr().out.split("\n\n")
+    assert replies[0].startswith("= ") and '"live": 1' in replies[1]
+
+
 def test_kernel_wrappers_do_not_fall_back():
     """Off the CPU a wrapper launches its kernel or raises; a device it
     has no kernel for is refused, not quietly run on the CPU."""
