@@ -208,12 +208,36 @@ Phases, in order; any failure exits non-zero before the result line:
     subprocesses, ``--serve`` on the committed 9×9 nets (genmove,
     komi, both probes) and ``--serve-sizes 9,13,19`` on the 19×19
     12 × 128 FCN specs re-routed by ``boardsize 13``, both exiting 0
-    with no genmove degraded.
+    with no genmove degraded;
+20. the incremental encode: three seeded 19×19 games of ``INCR_PLIES``
+    plies (one from a ladder board, two from the empty board, with
+    passes and captures), encoded one after another through one carried
+    cache (so the second and third start with a jump), on the card
+    through the cache and from scratch, bit for bit at every ply, and
+    through the cache on the CPU, planes and every cache field equal to
+    the card's; the reuse statistics; the chase kernel on every lane
+    those encodes launched, disabled lanes included, verdicts and cores
+    bit-exact; µs a warm root encode, scratch and incremental, in turns
+    (CUDA events and wall), and kernels an encode (the profiler); the
+    main path, a GTP session of ``INCR_GENMOVES`` genmoves at 100
+    simulations on a ladder board then ``clear_board``, a genmove,
+    ``boardsize 19`` and a genmove, by a ``DeviceMCTSPlayer`` over the
+    nets ``build_player("device-mcts", ...)`` loaded from phase 9's
+    specs with the incremental root encode (the labels, chase and tree
+    kernels launched, counts reset just before and read just after;
+    every reply legal; the registry's ``encode_delta_total``,
+    ``encode_incr_*_total`` and both reset reasons), the same session
+    without the cache giving the same replies, each session's genmove
+    p50, and a Gumbel genmove with its caches; policy self-play at
+    phase 11's shape with the cache and without it, ``INCR_SP_RUNS``
+    timed runs each in turns from one seed (the same actions every
+    time; games/min), and a segment with the cache under
+    ``set_sync_debug_mode("error")``.
 
 The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
 iteration and generator, 16's GTP session and self-play, 17's GTP
-session, 18's zero iteration and 19's fleets and threaded sessions
-together,
+session, 18's zero iteration, 19's fleets and threaded sessions and
+20's GTP session and self-play runs with the cache together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -332,6 +356,13 @@ SERVE_SIMS_LIMIT = 1000.0          # PERF.md section 2: game-sims/s
 SERVE_HANG_S = 3.0       # the ladder's hang timeout in the hang check
 SERVE_PROFILE_SIMS = 10  # the profiled fleet round (64 sessions)
 SIZE_ULPS = 4            # bf16 ulps a row may move between padded sizes
+INCR_GAMES = 3           # phase 20: seeded 19×19 games through one cache
+INCR_PLIES = 120
+INCR_PASS_EVERY = 23     # a pass every this many plies
+INCR_TIMED_PLIES = 60    # warm plies of game 2 timed in turns
+INCR_GENMOVES = 4        # per GTP session before its resets, both
+#                          colours (6 in all with the two after them)
+INCR_SP_RUNS = 3         # timed self-play runs per mode
 
 
 class SmokeFailure(RuntimeError):
@@ -4150,6 +4181,345 @@ def labels_sweeps(boards: torch.Tensor) -> int:
     return n
 
 
+def incr_games(pygo):
+    """Phase 20's seeded 19×19 games: the host state after every ply of
+    ``INCR_GAMES`` games of ``INCR_PLIES`` random sensible moves, the
+    first from a ladder board and the others from the empty board, a
+    pass every ``INCR_PASS_EVERY`` plies."""
+    rng = np.random.default_rng(SEED + 90)
+    games = []
+    for g in range(INCR_GAMES):
+        st = (ladder_positions(pygo, 1, SEED + 91, SIZE)[0] if g == 0
+              else pygo.GameState(size=SIZE, komi=7.5))
+        seq = []
+        for i in range(INCR_PLIES):
+            if st.is_end_of_game:
+                break
+            moves = st.get_legal_moves(include_eyes=False)
+            st.do_move(None if (i % INCR_PASS_EVERY == INCR_PASS_EVERY - 1
+                                or not moves)
+                       else moves[rng.integers(len(moves))])
+            seq.append(st.copy())
+        games.append(seq)
+    return games
+
+
+def incr_trajectories(torchgo, dev, card, games):
+    """The games through one carried cache on the card (against the
+    card's scratch encode) and on the CPU (against the card's planes and
+    carry); the chase kernel on every lane the card's encodes launched.
+    Returns the card's final stats (int ``[9]``)."""
+    from rocalphago_tpu_torch.features import incremental as I
+    from rocalphago_tpu_torch.features.planes import encode
+    from rocalphago_tpu_torch.ops import chase as C
+
+    cfg = torchgo.GoConfig(size=SIZE)
+    card_c = I.init_cache(cfg, device=dev)
+    cpu_c = I.init_cache(cfg)
+    plies, lanes = 0, []
+    with torch.no_grad():
+        for g, seq in enumerate(games):
+            for i, st in enumerate(seq):
+                tc = torchgo.from_pygo(cfg, [st], device="cpu")
+                tg = torchgo.GoState(*(x.to(dev) for x in tc))
+                with LaneRecorder(C) as rec:
+                    got, card_c = I.encode_step(cfg, tg, card_c)
+                lanes += rec.lanes
+                check(torch.equal(got, encode(cfg, tg)),
+                      f"incremental encode on the card differs from the "
+                      f"scratch encode: game {g}, ply {i}")
+                want, cpu_c = I.encode_step(cfg, tc, cpu_c)
+                check(torch.equal(got.cpu(), want),
+                      f"incremental planes card vs CPU: game {g}, ply {i}")
+                for name, a, b in zip(I.EncodeCache._fields, card_c, cpu_c):
+                    check(torch.equal(a.cpu(), b),
+                          f"incremental carry card vs CPU: {name}, game "
+                          f"{g}, ply {i}")
+                plies += 1
+    stats = card_c.stats[0].cpu().numpy()
+    log(f"incremental encode [{card}]: {plies} plies of {len(games)} {SIZE}x{SIZE} "
+        "games through one cache (two jumps between games): card = scratch "
+        "= CPU, planes and every cache field, at every ply; stats "
+        + ", ".join(f"{k} {int(v)}" for k, v in zip(I.STAT_FIELDS, stats)))
+    check(stats[I.STAT_CHASES] > 0 and stats[I.STAT_REUSED] > 0,
+          f"the trajectories neither chased nor reused: {stats}")
+    check(len(lanes) == plies, f"{len(lanes)} chase launches on the card "
+          f"for {plies} incremental encodes")
+    boards = torch.cat([b for b, _, _ in lanes])
+    labels = torch.cat([lab for _, lab, _ in lanes])
+    prey = torch.cat([p for _, _, p in lanes])
+    want_c = check_chase(C, boards, labels, prey, SIZE,
+                         f"incremental {len(prey)} lanes")
+    log(f"incremental chase lanes [{card}]: {len(prey)} lanes "
+        f"({int((prey >= 0).sum())} live, {int(want_c.sum())} captured, "
+        f"{int((prey < 0).sum())} disabled), one launch an encode: "
+        "verdicts and cores bit-exact")
+    return stats
+
+
+def incr_encode_timings(torchgo, dev, card, seq):
+    """A warm root encode, scratch and incremental in turns over
+    ``INCR_TIMED_PLIES`` plies of one game (batch 1): median µs by CUDA
+    events and by the host's clock (synchronised), and kernels an encode
+    from the profiler."""
+    from rocalphago_tpu_torch.features import incremental as I
+    from rocalphago_tpu_torch.features.planes import encode
+
+    cfg = torchgo.GoConfig(size=SIZE)
+    states = [torchgo.from_pygo(cfg, [st], device=dev)
+              for st in seq[:INCR_TIMED_PLIES]]
+    cache = I.init_cache(cfg, device=dev)
+    times = {"scratch": ([], []), "incremental": ([], [])}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        for i, st in enumerate(states):
+            for mode in ("scratch", "incremental"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                if mode == "scratch":
+                    encode(cfg, st)
+                else:
+                    _, cache = I.encode_step(cfg, st, cache)
+                end.record()
+                torch.cuda.synchronize()
+                if i >= 5:             # warm: the cache holds lanes
+                    times[mode][0].append(start.elapsed_time(end) * 1e3)
+                    times[mode][1].append((time.perf_counter() - t0) * 1e6)
+    out = {m: (float(np.median(ev)), float(np.median(wall)))
+           for m, (ev, wall) in times.items()}
+    holder = {"scratch": [0], "incremental": [0, cache]}
+
+    def walk(mode):
+        def one():
+            h = holder[mode]
+            st = states[h[0] % len(states)]
+            h[0] += 1
+            with torch.no_grad():
+                if mode == "scratch":
+                    encode(cfg, st)
+                else:
+                    _, h[1] = I.encode_step(cfg, st, h[1])
+        return one
+
+    kernels = {m: profile_device(walk(m), 10, f"a {m} root encode",
+                                 "encode") for m in out}
+    log(f"root encode at {SIZE}x{SIZE}, batch 1, warm [{card}]: " + "; ".join(
+        f"{m} {ev:.1f} us by events, {wall:.1f} us wall, "
+        f"{(kernels[m] or {}).get('launches', float('nan')):.0f} kernels"
+        for m, (ev, wall) in out.items()))
+    return out, kernels
+
+
+def incr_gtp_session(player, counters, script, cmds):
+    """One scripted GTP session (``cmds``, its commands): ``(replies,
+    each genmove's seconds, launches, registry counter deltas)``."""
+    from rocalphago_tpu_torch.interface.gtp import run_gtp
+    from rocalphago_tpu_torch.obs import registry
+
+    before = registry.snapshot()["counters"]
+    for c in counters:
+        c.launches = 0
+    instream, out = Timed(script), io.StringIO()
+    engine = run_gtp(player, instream, out)
+    torch.cuda.synchronize()
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    undegraded(engine)
+    check(engine.illegal_from_player == 0,
+          f"illegal_from_player = {engine.illegal_from_player}")
+    after = registry.snapshot()["counters"]
+    deltas = {k: v - before.get(k, 0) for k, v in after.items()
+              if v != before.get(k, 0)}
+    st = instream.stamps
+    lat = [st[i + 1] - st[i] for i, cmd in enumerate(cmds)
+           if cmd.startswith("genmove")]
+    return ([r for r in out.getvalue().split("\n\n") if r.strip()], lat,
+            launches, deltas)
+
+
+def incr_main_path(pygo, card, counters, specs):
+    """The device-search GTP session with the incremental root encode and
+    without it, and a Gumbel genmove with its caches."""
+    from rocalphago_tpu_torch.interface.gtp import (
+        move_to_vertex,
+        vertex_to_move,
+    )
+    from rocalphago_tpu_torch.search.device_mcts import DeviceMCTSPlayer
+    from rocalphago_tpu_torch.search.players import build_player
+
+    base = build_player("device-mcts", specs[0], value_path=specs[1])
+    board = ladder_positions(pygo, 1, SEED + 92, SIZE)[0]
+    plays = [f"play {'b' if board.board[x, y] == 1 else 'w'} "
+             f"{move_to_vertex((int(x), int(y)), SIZE)}"
+             for x, y in zip(*np.nonzero(board.board))]
+    setup = [f"boardsize {SIZE}", "clear_board", "komi 7.5"] + plays
+    genmoves = [f"genmove {'bw'[i % 2]}" for i in range(INCR_GENMOVES)]
+    tail = ["clear_board", "genmove b", f"boardsize {SIZE}", "genmove w"]
+    cmds = setup + genmoves + tail
+    script = "\n".join(cmds + ["quit"]) + "\n"
+    runs = {}
+    for flag in (True, False):
+        player = DeviceMCTSPlayer(base.value, base.policy, n_sim=base.n_sim,
+                                  incremental=flag)
+        runs[flag] = incr_gtp_session(player, counters, script, cmds)
+    replies, _, launches, deltas = runs[True]
+    check(len(replies) == len(cmds) + 1,
+          f"{len(replies)} replies to {len(cmds) + 1} commands")
+    for cmd, reply in zip(cmds, replies):
+        check(reply.startswith("="), f"{cmd!r} -> {reply!r}")
+        if cmd.startswith("genmove"):
+            check(vertex_to_move(reply[1:].strip(), SIZE) is not None,
+                  f"genmove passed: {reply!r}")
+    check(replies == runs[False][0],
+          "the device-search session with the incremental root encode "
+          "moved otherwise than without it")
+    for name, n in launches.items():
+        check(n > 0, f"the {name} kernel was not launched by the "
+              "incremental device-search session")
+    for key in ("encode_delta_total",
+                'encode_cache_resets_total{reason="clear_board"}',
+                'encode_cache_resets_total{reason="boardsize"}'):
+        check(deltas.get(key, 0) > 0, f"{key} did not move: {deltas}")
+    check(any(k.startswith("encode_incr_") for k in deltas),
+          f"no encode_incr_*_total moved: {deltas}")
+    check(not any(k.startswith("encode_") for k in runs[False][3]),
+          f"the session without the cache counted {runs[False][3]}")
+    p50 = {flag: sorted(r[1])[len(r[1]) // 2] * 1e3
+           for flag, r in runs.items()}
+    spread = {flag: (min(r[1]) * 1e3, max(r[1]) * 1e3)
+              for flag, r in runs.items()}
+    log(f"incremental device-search gtp [{card}]: {INCR_GENMOVES} genmoves "
+        f"at {base.n_sim} simulations on a ladder board, clear_board, a "
+        f"genmove, boardsize {SIZE}, a genmove: every reply legal and equal "
+        "to the session without the cache; "
+        f"launches {launches}; registry "
+        + ", ".join(f"{k} +{v}" for k, v in sorted(deltas.items())
+                    if k.startswith("encode_"))
+        + f"; genmove p50 (of {len(runs[True][1])}) with the cache "
+        f"{p50[True]:.1f} ms "
+        f"({spread[True][0]:.1f}-{spread[True][1]:.1f}), without "
+        f"{p50[False]:.1f} ms ({spread[False][0]:.1f}-{spread[False][1]:.1f})")
+
+    gumbel = DeviceMCTSPlayer(base.value, base.policy, n_sim=base.n_sim,
+                              gumbel=True, incremental=True)
+    move = gumbel.get_move(board)
+    check(move is not None and board.is_legal(move),
+          f"the Gumbel genmove with caches answered {move}")
+    check(gumbel._enc_cache is not None
+          and int(gumbel._enc_cache.stats[0, 0]) == 1,
+          "the Gumbel genmove did not encode its root through the cache")
+    log(f"gumbel-mcts genmove with caches= [{card}]: {move}, "
+        f"{gumbel.last_n_sim} simulations")
+    return dict(launches=launches, p50=p50, spread=spread,
+                times={flag: r[1] for flag, r in runs.items()})
+
+
+def incr_selfplay(torchgo, dev, card, counters):
+    """Policy self-play at phase 11's shape with the encode cache and
+    without it: a segment with the cache under
+    ``set_sync_debug_mode("error")``, then ``INCR_SP_RUNS`` timed runs
+    of each mode in turns from one seed (the same actions each time)."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
+    from rocalphago_tpu_torch.search import selfplay as S
+
+    cfg = torchgo.GoConfig(size=SIZE)
+    nets = [CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                      seed=SEED + 20 + i, device=dev) for i in range(2)]
+    args = (cfg, DEFAULT_FEATURES, nets[0].module, nets[1].module, SP_BATCH)
+    gen = torch.Generator(device=dev)
+    warm = S.make_selfplay_chunked(*args, max_moves=SP_CHUNK, chunk=SP_CHUNK,
+                                   device=dev, incremental=True)
+    states = warm(gen.manual_seed(SEED)).final
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(SP_CHUNK, 2 * SP_CHUNK):
+            states, _, _ = warm.ply(states, gen, t)
+    except RuntimeError as e:
+        raise SmokeFailure(f"a host sync inside an incremental self-play "
+                           f"segment: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    runners = {flag: S.make_selfplay_chunked(
+        *args, max_moves=SP_MAX_MOVES, chunk=SP_CHUNK, device=dev,
+        incremental=flag) for flag in (True, False)}
+    rates = {True: [], False: []}
+    launches = {c.__name__.rsplit(".", 1)[-1]: 0 for c in counters}
+    plies_on, actions = 0, None
+    for flag in [False, True, True, False] * INCR_SP_RUNS:
+        if len(rates[flag]) == INCR_SP_RUNS:
+            continue
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = runners[flag](gen.manual_seed(SEED + 1), stop_when_done=True,
+                            pipeline=ChunkPipeline(dev))
+        torch.cuda.synchronize()
+        rates[flag].append(SP_BATCH * 60.0 / (time.perf_counter() - t0))
+        if flag:
+            for c in counters:
+                launches[c.__name__.rsplit(".", 1)[-1]] += c.launches
+            plies_on += int(res.live.any(dim=1).sum())
+        if actions is None:
+            actions = res.actions
+        check(torch.equal(res.actions, actions),
+              f"self-play with incremental={flag} played other actions")
+    per_ply = {k: v / max(plies_on, 1) for k, v in launches.items()}
+    log(f"policy self-play with and without the encode cache [{card}]: a "
+        f"segment of {SP_CHUNK} plies with it ran with no device->host sync; "
+        f"{INCR_SP_RUNS} runs each at batch {SP_BATCH}, the same actions "
+        "every run; games/min with the cache "
+        + ", ".join(f"{r:.2f}" for r in rates[True]) + ", without "
+        + ", ".join(f"{r:.2f}" for r in rates[False])
+        + f"; launches with the cache {launches} ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in per_ply.items()) + " a ply)")
+    return dict(rates=rates, launches=launches, per_ply=per_ply)
+
+
+def incr_verdict(on, off) -> str:
+    """``"on"`` or ``"off"`` where every run of one mode beat every run
+    of the other (higher is better), ``"tie"`` where the runs' ranges
+    overlap."""
+    if min(on) > max(off):
+        return "on"
+    if min(off) > max(on):
+        return "off"
+    return "tie"
+
+
+def phase_incremental(pygo, torchgo, dev, card, counters, specs):
+    """Phase 20: the incremental encoder on the card (see the module
+    docstring). Returns the launches of its main path and self-play
+    runs, and the measurements behind the ``incremental=`` defaults."""
+    from rocalphago_tpu_torch.search import device_mcts as D
+    from rocalphago_tpu_torch.search import selfplay as S
+
+    t0 = time.monotonic()
+    games = incr_games(pygo)
+    stats = incr_trajectories(torchgo, dev, card, games)
+    enc, kernels = incr_encode_timings(torchgo, dev, card, games[1])
+    main_path = incr_main_path(pygo, card, counters, specs)
+    sp = incr_selfplay(torchgo, dev, card, counters)
+    # genmove seconds (lower is better), games/min (higher is better)
+    faster = {"DeviceMCTSPlayer": incr_verdict(
+        [-x for x in main_path["times"][True]],
+        [-x for x in main_path["times"][False]]),
+        "self-play": incr_verdict(sp["rates"][True], sp["rates"][False])}
+    log(f"incremental defaults [{card}]: the faster mode -- "
+        + ", ".join(f"{k} {v}" for k, v in faster.items())
+        + f"; the port's defaults: DeviceMCTSPlayer {D.INCREMENTAL_DEFAULT}, "
+        f"self-play {S.INCREMENTAL_DEFAULT} (a tie keeps the reference's: "
+        f"on, off); phase 20 {time.monotonic() - t0:.1f} s")
+    launches = {k: main_path["launches"][k] + sp["launches"].get(k, 0)
+                for k in main_path["launches"]}
+    return dict(launches=launches, stats=stats, encode=enc,
+                kernels=kernels, main=main_path, selfplay=sp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4194,17 +4564,20 @@ def main() -> int:
     mc = phase_mcts(pygo, torchgo, dev, card, (L, C))
     zr = phase_zero(torchgo, dev, card, (L, C, T))
     sv19 = phase_serve(pygo, torchgo, dev, card, (L, C, T))
-    # the launches of phases 11-18's paths: policy self-play (labels,
+    inc = phase_incremental(pygo, torchgo, dev, card, (L, C, T), specs)
+    # the launches of phases 11-20's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
     # Gumbel GTP session and Gumbel self-play (all three), the mcts GTP
-    # session (labels, chase), the zero iteration (all three); the
-    # kernels timed at self-play's shapes
+    # session (labels, chase), the zero iteration, the serving fleets
+    # and sessions, the incremental GTP session and self-play runs (all
+    # three); the kernels timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
                 + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
                 + gb["sp_launches"][k] + mc["launches"].get(k, 0)
                 + zr["launches"][k] + sv19["launches"][k]
+                + inc["launches"][k]
                 for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}

@@ -203,6 +203,54 @@ def _escaper_response_full(cfg: GoConfig, b1, prey_color, prey_mask,
             torch.where(take1[:, None], c1, c2), resp_l >= 0)
 
 
+def _groups_touching(board, labels, region):
+    """bool ``[B, W, N]``: stones of every group with a stone in
+    ``region`` (bool ``[B, W, N]``), against each game's ``board`` and
+    ``labels`` (``[B, N]``). The reference multiplies by a float32
+    label one-hot; a max-scatter per group root and a gather back give
+    the same bits without the ``[N, N + 1]`` table."""
+    b, w, n = region.shape
+    stones = (board != 0)[:, None, :]
+    root = torch.where(stones, labels[:, None, :].long(), n).expand(b, w, n)
+    touched = torch.zeros((b, w, n + 1), dtype=torch.int8,
+                          device=board.device).scatter_reduce(
+        2, root, (region & stones).to(torch.int8), reduce="amax")
+    return (touched.gather(2, root) > 0) & stones
+
+
+def _chase_read_regions(cfg: GoConfig, board, labels, cores):
+    """Read footprints ``[B, W, N]`` of ``W`` read cores per game
+    (bool ``[B, W, N]``) against the encode-time ``board``/``labels``
+    (``[B, N]``): a sound over-approximation of every cell an opening's
+    or a chase's analysis can read, radiating from its core (the
+    prey's stones plus every cell the read played on or captured).
+    The reference's tight footprint, step by step: ``D2 = dilate²
+    (core)``; ``grp1``, whole groups with a stone in ``D2``; the
+    counter-capture ring ``R2 = dilate²(grp1)``; ``grp2``, whole groups
+    with a stone in ``R2 ∪ D2``; the footprint is ``D2 ∪ grp1 ∪ R2 ∪
+    grp2 ∪ dilate(grp2)`` (the reference's docstring derives each
+    step)."""
+    b, w, n = cores.shape
+
+    def dilate(m, k):
+        m = m.reshape(b * w, n)
+        for _ in range(k):
+            m = _dilate(cfg, m)
+        return m.reshape(b, w, n)
+
+    region = dilate(cores, 2)
+    grp1 = _groups_touching(board, labels, region)
+    ring = dilate(grp1, 2)
+    grp2 = _groups_touching(board, labels, ring | region)
+    return region | grp1 | ring | grp2 | dilate(grp2, 1)
+
+
+def _chase_read_region(cfg: GoConfig, board, labels, core):
+    """:func:`_chase_read_regions` of one core per game (bool
+    ``[B, N]``)."""
+    return _chase_read_regions(cfg, board, labels, core[:, None, :])[:, 0]
+
+
 def _compact_indices(mask: torch.Tensor, size: int, fill_value: int):
     """First ``size`` set indices of each row of a bool ``[B, M]`` mask,
     ascending, padded with ``fill_value`` -- the counterpart of

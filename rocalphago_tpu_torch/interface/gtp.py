@@ -219,7 +219,7 @@ class GTPEngine:
 
     # ------------------------------------------------------------ setup
 
-    def _new_game(self):
+    def _new_game(self, reason: str = "clear_board"):
         from rocalphago_tpu_torch.search.players import reset_player
 
         self.state = pygo.GameState(size=self.size, komi=self.komi)
@@ -227,7 +227,9 @@ class GTPEngine:
         self._time_left = {}          # a fresh game, fresh clocks
         self._time_spent = {}
         self._genmoves = {}
-        reset_player(self.player)
+        # the reason labels the player's encode-cache reset
+        # (encode_cache_resets_total{reason=})
+        reset_player(self.player, reason=reason)
 
     def _player_board(self):
         """The board the player's nets were built for (None when the
@@ -248,7 +250,7 @@ class GTPEngine:
                 and not self._reroute_board(size):
             raise ValueError("unacceptable size")
         self.size = size
-        self._new_game()
+        self._new_game(reason="boardsize")
         return ""
 
     def _reroute_board(self, size: int) -> bool:

@@ -53,8 +53,21 @@ computed only when asked for (``keys=True``): the reference's compiler
 drops them from its fused path, and the port's eager path would
 otherwise pay their launches on every simulation.
 
-Not ported yet: the incremental root encode (a later slice,
-``ROADMAP.md``).
+The incremental root encode (:meth:`DeviceMCTS.init_cached`,
+:meth:`GumbelMCTS.init_cached`, ``run_chunked(caches=)``): the root
+planes through :func:`~..features.incremental.encode_step` and a cache
+the caller carries from one root to the next (the player carries one
+across moves and komi changes), bit-identical priors.
+
+Telemetry, the reference's names: ``device_mcts_chunk_seconds``,
+``device_mcts_sims_per_s``, ``device_mcts_deadline_margin_s`` and
+``device_mcts_sims_total`` from the chunk loops, the fault barrier
+``search.chunk`` before every chunk, the player's
+``device_mcts_get_move_seconds``, and search self-play's
+``selfplay_ply_seconds``, ``selfplay_sims_per_move``,
+``selfplay_fullsearch_frac`` and ``policy_targets_pruned_total``.
+Rates and margins are read only where the loop already waits for the
+card (a deadline drains the pipeline; a get_move reads the visits).
 """
 
 from __future__ import annotations
@@ -77,9 +90,19 @@ from rocalphago_tpu_torch.engine.torchgo import (
     step,
     winner,
 )
+from rocalphago_tpu_torch.features.api import (
+    count_cache_reset,
+    observe_incremental,
+)
+from rocalphago_tpu_torch.features.incremental import (
+    encode_step,
+    init_cache,
+)
 from rocalphago_tpu_torch.features.planes import encode
 from rocalphago_tpu_torch.features.pyfeatures import output_planes
+from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.ops import tree as tree_ops
+from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.deadline import Deadline
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.clock import MoveClock
@@ -88,6 +111,11 @@ from rocalphago_tpu_torch.search.selfplay import (
     gumbel_noise,
     sensible_mask,
 )
+
+
+#: whether :class:`DeviceMCTSPlayer` encodes its roots incrementally by
+#: default: the mode the card measured faster (PERF.md §6)
+INCREMENTAL_DEFAULT = True
 
 
 class SimStep(NamedTuple):
@@ -150,6 +178,34 @@ def copy_tree(tree: DeviceTree) -> DeviceTree:
                       *(x.clone() for x in tree[1:]))
 
 
+def _search_metrics():
+    """The chunk loops' metrics, hoisted per searcher (both searchers
+    share the names): ``(sims/s histogram, deadline margin gauge, sims
+    counter)``. The reference observes ``device_mcts_chunk_seconds``
+    only at pipeline depth 0; the port's pipeline keeps one chunk in
+    flight, so it is registered and stays empty, as the reference's
+    does at its default depth."""
+    obs_registry.histogram("device_mcts_chunk_seconds")
+    return (obs_registry.histogram("device_mcts_sims_per_s",
+                                   edges=obs_registry.RATE_EDGES),
+            obs_registry.gauge("device_mcts_deadline_margin_s"),
+            obs_registry.counter("device_mcts_sims_total"))
+
+
+def _note_search(metrics, ran: int, t_start: float, deadline, enforce: bool):
+    """Record a drained chunk loop: the simulations, and under a
+    deadline the rate and the margin left."""
+    rate_h, margin_g, sims_c = metrics
+    sims_c.inc(ran)
+    if enforce:
+        elapsed = time.monotonic() - t_start
+        if elapsed > 0:
+            rate_h.observe(ran / elapsed)
+        rem = deadline.remaining()
+        if rem is not None:
+            margin_g.set(rem)
+
+
 class DeviceMCTS:
     """The searcher of one configuration (see :func:`make_device_mcts`).
 
@@ -172,6 +228,7 @@ class DeviceMCTS:
         self.forced_k = float(forced_k)
         self.n_policy_planes = output_planes(policy_features)
         self.last_ran = None           # sims the last chunked run ran
+        self._metrics = _search_metrics()
 
     # ------------------------------------------------------ evaluation
 
@@ -257,6 +314,21 @@ class DeviceMCTS:
     def init(self, roots: GoState) -> DeviceTree:
         root_priors, _ = self.eval_batch(roots)
         return self.assemble_tree(roots, root_priors)
+
+    @torch.no_grad()
+    def init_cached(self, roots: GoState, caches):
+        """:meth:`init` with the root planes through the incremental
+        encoder: ``(tree, caches')``, the same tree. The caller carries
+        ``caches`` (:func:`~..features.incremental.init_caches`, one a
+        root) from one root to the next."""
+        gd = group_data(self.cfg, roots.board,
+                        with_zxor=self.cfg.enforce_superko,
+                        labels=roots.labels)
+        planes, caches = encode_step(self.cfg, roots, caches,
+                                     self.value_features, gd=gd)
+        priors, _ = self._eval_from(roots, gd, planes, self.policy_fn,
+                                    self.value_fn)
+        return self.assemble_tree(roots, priors), caches
 
     # ------------------------------------------------ one simulation
 
@@ -385,9 +457,11 @@ class DeviceMCTS:
             tree = copy_tree(tree)
         free = self._free(tree)
         ran = 0
+        t_start = time.monotonic()
         for done in range(0, n, chunk):
             if ran and enforce and deadline.expired():
                 break
+            faults.barrier("search.chunk", done // chunk)
             k = min(chunk, n - done)
             for i in range(k):
                 self.simulate(tree, free, None if budget is None
@@ -395,6 +469,7 @@ class DeviceMCTS:
             pipe.push()
             ran += k
         pipe.drain()
+        _note_search(self._metrics, ran, t_start, deadline, enforce)
         return tree, ran
 
     @torch.no_grad()
@@ -551,6 +626,8 @@ class GumbelMCTS:
         self.c_scale = float(c_scale)
         self.root_stats = base.root_stats
         self.last_ran = None           # sims the last chunked run ran
+        self.last_caches = None        # the last run_chunked's caches
+        self._metrics = _search_metrics()
 
     def draw_noise(self, batch: int,
                    generator: torch.Generator) -> torch.Tensor:
@@ -580,6 +657,19 @@ class GumbelMCTS:
         if noise is None:
             noise = self.draw_noise(roots.board.shape[0], generator)
         return (tree,) + self.root_draw(tree, noise)
+
+    @torch.no_grad()
+    def init_cached(self, roots: GoState, caches,
+                    noise: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None):
+        """:meth:`init` with the root encode through the incremental
+        encoder (:meth:`DeviceMCTS.init_cached`): ``(tree, g, cand,
+        logits, caches')``. Gumbel rebuilds its tree every move, so its
+        root encode is a successive position each move."""
+        tree, caches = self.base.init_cached(roots, caches)
+        if noise is None:
+            noise = self.draw_noise(roots.board.shape[0], generator)
+        return (tree,) + self.root_draw(tree, noise) + (caches,)
 
     def sigma(self, tree: DeviceTree):
         """``(visits, σ)``: the completed q̂ (unvisited actions take the
@@ -664,7 +754,7 @@ class GumbelMCTS:
                     generator: torch.Generator | None = None,
                     noise: torch.Tensor | None = None,
                     deadline: Deadline | None = None, n: int | None = None,
-                    budget: torch.Tensor | None = None):
+                    budget: torch.Tensor | None = None, caches=None):
         """The plan phase by phase, in chunks of ``chunk`` simulations
         queued one chunk ahead of the host (:class:`ChunkPipeline`); the
         same result as :meth:`__call__` unless cut. ``deadline`` is
@@ -672,14 +762,23 @@ class GumbelMCTS:
         the plan; a cut phase is still re-ranked, so ``best`` is the
         anytime answer. ``budget`` (i32 ``[B]``, the playout caps)
         freezes each row past its budget of the plan's simulations
-        (see :meth:`run_phase`). ``last_ran`` holds the simulations
-        run. Nothing in the loop reads the card from the host."""
+        (see :meth:`run_phase`). ``caches`` sends the root encode
+        through the incremental encoder (:meth:`init_cached`); the
+        carried caches come back on ``last_caches``, the simulations
+        run on ``last_ran``. Nothing in the loop reads the card from
+        the host."""
         if budget is not None:
             budget = budget.to(torch.int32)
-        tree, g, cand, logits = self.init(roots, noise, generator)
+        if caches is None:
+            tree, g, cand, logits = self.init(roots, noise, generator)
+        else:
+            tree, g, cand, logits, caches = self.init_cached(
+                roots, caches, noise, generator)
+        self.last_caches = caches
         enforce = deadline is not None and not deadline.unlimited
         pipe = ChunkPipeline(tree.n_nodes.device)
-        ran, cut = 0, False
+        ran, cut, chunk_i = 0, False, 0
+        t_start = time.monotonic()
         for k, v in self.schedule:
             total = k * v
             for j0 in range(0, total, chunk):
@@ -687,6 +786,8 @@ class GumbelMCTS:
                         or (n is not None and ran >= n)):
                     cut = True
                     break
+                faults.barrier("search.chunk", chunk_i)
+                chunk_i += 1
                 count = min(chunk, total - j0)
                 if n is not None:
                     count = min(count, n - ran)
@@ -697,6 +798,7 @@ class GumbelMCTS:
             if cut:
                 break
         pipe.drain()
+        _note_search(self._metrics, ran, t_start, deadline, enforce)
         self.last_ran = ran
         visits, q = self.root_stats(tree)
         return visits, q, cand[:, 0], self.improved_policy(tree, logits)
@@ -727,10 +829,19 @@ class DeviceMCTSPlayer:
     the Gumbel root search.
 
     ``get_move(pygo.GameState) -> move | None`` (None = pass): the host
-    state is bridged once (``from_pygo`` and one labels launch; the
-    root is encoded from scratch), the search runs on the card in
-    chunks of ``sim_chunk`` simulations, and the most-visited move
-    comes back (under Gumbel, the halving winner ``best``).
+    state is bridged once (``from_pygo`` and one labels launch), the
+    search runs on the card in chunks of ``sim_chunk`` simulations, and
+    the most-visited move comes back (under Gumbel, the halving winner
+    ``best``).
+
+    Incremental root encode (``incremental``, default
+    :data:`INCREMENTAL_DEFAULT`): a fresh root's planes go through an
+    encode cache the player carries across moves (and komi changes:
+    the planes do not read komi), so only ladder lanes whose footprint
+    the moves since touched are read again; the priors are the same
+    bit for bit. ``reset(reason)`` drops it and counts
+    ``encode_cache_resets_total{reason=}``; the cache's statistics are
+    folded into the registry after each move's visits are read.
 
     Subtree reuse (PUCT only): the tree is carried across ``get_move``
     calls and its root walked down the moves actually played, so a
@@ -756,7 +867,8 @@ class DeviceMCTSPlayer:
     def __init__(self, value_net, policy_net, n_sim: int = 100,
                  max_nodes: int | None = None, c_puct: float = 5.0,
                  sim_chunk: int = 8, gumbel: bool = False,
-                 m_root: int = 16, seed: int = 0):
+                 m_root: int = 16, seed: int = 0,
+                 incremental: bool | None = None):
         self.policy = policy_net
         self.value = value_net
         self.board = policy_net.board
@@ -772,11 +884,19 @@ class DeviceMCTSPlayer:
         self._generator.manual_seed(seed)
         self._carry = None
         self.reuses = 0
+        self._incremental = (INCREMENTAL_DEFAULT if incremental is None
+                             else incremental)
+        self._enc_cache = None
+        self._enc_stats = None
         self._clock = MoveClock()
         self.last_n_sim = None
         self.last_deadline_hit = False
         self.deadline_hits = 0
         self.sim_limit: int | None = None
+        self._move_h = obs_registry.histogram(
+            "device_mcts_get_move_seconds")
+        self._rate_h = obs_registry.histogram(
+            "device_mcts_sims_per_s", edges=obs_registry.RATE_EDGES)
         # one searcher per komi (terminal leaves score with its komi)
         # and, under Gumbel, per tier
         self._searchers: dict = {}
@@ -790,9 +910,14 @@ class DeviceMCTSPlayer:
         """Nominal per-move simulation budget (uncapped)."""
         return self._n_sim
 
-    def reset(self) -> None:
-        """Forget the carried subtree (a new game)."""
+    def reset(self, reason: str = "new_game") -> None:
+        """Forget the carried subtree and the encode cache (a new game),
+        counting the cache's reset per ``reason``."""
         self._carry = None
+        if self._enc_cache is not None:
+            count_cache_reset(reason)
+        self._enc_cache = None
+        self._enc_stats = None
 
     def set_move_time(self, seconds) -> None:
         """Per-move wall budget in seconds (None = no clock)."""
@@ -884,11 +1009,16 @@ class DeviceMCTSPlayer:
             self._clock.move_time if self._clock.rate is not None
             else None)
         t0 = time.monotonic()
+        if self._incremental and self._enc_cache is None:
+            self._enc_cache = init_cache(self._cfg, device=self.device)
         if self._gumbel:
             visits, _, best, _ = search.run_chunked(
                 root, self._chunk,
                 noise=search.draw_noise(1, self._generator),
-                deadline=deadline)
+                deadline=deadline,
+                caches=self._enc_cache if self._incremental else None)
+            if self._incremental:
+                self._enc_cache = search.last_caches
             action = int(best[0])
             counts = visits[0].cpu().numpy()
             planned = search.plan_sims        # not eff: the plan's total
@@ -897,6 +1027,9 @@ class DeviceMCTSPlayer:
             tree = self._reused_tree(search, state, komi, root)
             if tree is not None:
                 self.reuses += 1
+            elif self._incremental:
+                tree, self._enc_cache = search.init_cached(root,
+                                                           self._enc_cache)
             else:
                 tree = search.init(root)
             # the search updates the tree in place: drop the carry
@@ -910,9 +1043,17 @@ class DeviceMCTSPlayer:
             counts = visits[0].cpu().numpy()
             action = int(np.argmax(counts))
             self._carry = (komi, state.size, state.turns_played, tree)
+        if self._incremental:
+            # after the visits read: the stats cost one small copy
+            self._enc_stats = observe_incremental(self._enc_stats,
+                                                  self._enc_cache.stats)
         self.last_deadline_hit = ran < planned
         self.deadline_hits += int(self.last_deadline_hit)
-        self._clock.note(skey, ran, time.monotonic() - t0)
+        dt = time.monotonic() - t0
+        self._clock.note(skey, ran, dt)
+        self._move_h.observe(dt)
+        if dt > 0:
+            self._rate_h.observe(ran / dt)
         self.last_n_sim = ran
         if action >= cfg.num_points or counts[action] == 0:
             return None                                  # pass
@@ -958,6 +1099,14 @@ class MCTSSelfplay:
         self.device = device
         self.last_full_frac = None     # full-search share of the last run
         self.last_sims = None          # lockstep simulations it ran
+        self.last_pruned = None        # i32 [B] the last ply's pruned
+        #   visits (forced playouts), None otherwise
+        # per-ply telemetry, registered with the runner
+        self._ply_h = obs_registry.histogram("selfplay_ply_seconds")
+        self._sims_h = obs_registry.histogram(
+            "selfplay_sims_per_move", edges=obs_registry.COUNT_EDGES)
+        self._full_g = obs_registry.gauge("selfplay_fullsearch_frac")
+        self._pruned_c = obs_registry.counter("policy_targets_pruned_total")
 
     # ---------------------------------------------------------- draws
 
@@ -1050,7 +1199,8 @@ class MCTSSelfplay:
         tree, search.last_ran = search.run_sims_chunked(
             tree, self.sim_chunk, n=n, owned=True, budget=budget)
         visits, _ = search.root_stats(tree)
-        target = search.pruned_targets(tree)[0] if self.forced_k else visits
+        target, self.last_pruned = (search.pruned_targets(tree)
+                                    if self.forced_k else (visits, None))
         return visits, target
 
     # ---------------------------------------------------------- a run
@@ -1061,9 +1211,10 @@ class MCTSSelfplay:
             raise ValueError("root noise needs a numpy noise_rng")
         batch, dev = self.batch, self.device
         states = new_states(self.cfg, batch, device=dev)
-        actions, lives, targets, fulls = [], [], [], []
+        actions, lives, targets, fulls, pruned = [], [], [], [], []
         full_sum, sims = 0.0, 0
         for _ in range(self.max_moves):
+            t_ply = time.monotonic()
             n_ply = budget = None
             if self.econ:
                 # the budget is drawn first; the ply's simulation count
@@ -1093,14 +1244,24 @@ class MCTSSelfplay:
                 # only the recorded target
                 states, action, live = self.pick_and_step(states, visits,
                                                           generator)
+                if self.last_pruned is not None:
+                    pruned.append(self.last_pruned.sum())
             sims += self.search.last_ran
+            if self.econ:
+                self._sims_h.observe(self.search.last_ran)
             actions.append(action)
             lives.append(live)
             if self.record_visits:
                 targets.append(target)
-            if bool(states.done.all()):
+            done = bool(states.done.all())
+            self._ply_h.observe(time.monotonic() - t_ply)
+            if done:
                 break
         self.last_full_frac = (full_sum / len(fulls)) if fulls else None
+        if self.last_full_frac is not None:
+            self._full_g.set(self.last_full_frac)
+        if pruned:
+            self._pruned_c.inc(int(torch.stack(pruned).sum()))
         self.last_sims = sims
         out = (states, self._stack(actions, torch.int32),
                self._stack(lives, torch.bool))

@@ -6,6 +6,8 @@ Gumbel (:class:`~.device_mcts.DeviceMCTSPlayer`)."""
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 
 from rocalphago_tpu_torch.models.policy import CNNPolicy
@@ -205,14 +207,24 @@ def player_board(player) -> int | None:
     return board
 
 
-def reset_player(player) -> None:
+def reset_player(player, reason: str = "new_game") -> None:
     """Clear any per-game search state (a new game starts): the host
-    MCTS tree and its history, and a device player's carried tree."""
+    MCTS tree and its history, and a device player's carried tree and
+    encode cache. ``reason`` labels the reset for players whose
+    ``reset`` takes one (``encode_cache_resets_total{reason=}``); a
+    plain ``reset()`` is called without it."""
+    def call(fn):
+        try:
+            takes = "reason" in inspect.signature(fn).parameters
+        except (TypeError, ValueError):
+            takes = False
+        return fn(reason=reason) if takes else fn()
+
     mcts = getattr(player, "mcts", None)
     if mcts is not None and hasattr(mcts, "reset"):
-        mcts.reset()
+        call(mcts.reset)
     reset = getattr(player, "reset", None)
     if callable(reset):
-        reset()
+        call(reset)
     if hasattr(player, "_tree_history"):
         player._tree_history = None

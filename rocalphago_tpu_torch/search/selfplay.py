@@ -22,6 +22,18 @@ unfinished games are scored as they stand (area scoring).
 mix on the card: one rollout net plays a wave of leaves to the end,
 reading the done flag once every :data:`ROLLOUT_CHECK_PLIES` plies.
 
+Incremental encode (``incremental=``, default
+:data:`INCREMENTAL_DEFAULT`): each game's ply encodes through an
+:class:`~..features.incremental.EncodeCache` carried from ply to ply
+(cold at the start of every run, carried across segments), which
+re-reads only the ladder lanes the last move could change. The planes,
+and so the games, are the same bit for bit, and a ply still makes no
+host sync.
+
+Telemetry, the reference's names: ``selfplay_segment_seconds`` and
+``selfplay_plies_total`` per segment of the chunked runner, and the
+fault barrier ``selfplay.chunk`` before each segment.
+
 The sampler is Gumbel-max -- ``argmax(masked + G)`` with ``G =
 -log(-log(U))`` drawn from the caller's ``torch.Generator`` -- in place
 of ``torch.multinomial``, which raises a device-side assert on a row
@@ -50,13 +62,23 @@ from rocalphago_tpu_torch.engine.torchgo import (
     step,
     winner,
 )
+from rocalphago_tpu_torch.features.incremental import (
+    encode_step,
+    init_caches,
+)
 from rocalphago_tpu_torch.features.planes import encode, true_eyes
+from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 
 # plies a device rollout plays between two reads of its done flag: the
 # reference's while_loop tests the flag on the device every ply, which
 # in eager PyTorch would be a device→host sync a ply
 ROLLOUT_CHECK_PLIES = 16
+
+#: whether the self-play runners encode incrementally by default: the
+#: mode the card measured faster (PERF.md §6)
+INCREMENTAL_DEFAULT = False
 
 
 def sensible_mask(cfg: GoConfig, state: GoState, gd=None) -> torch.Tensor:
@@ -99,10 +121,16 @@ class Ply:
     :meth:`advance`; calling the ply composes them. ``policy_a`` and
     ``policy_b`` map NHWC float32 planes ``[B/2, s, s, F]`` to float32
     logits ``[B/2, N]``. Owns the even-batch rule: the colour split
-    slices at ``batch // 2``."""
+    slices at ``batch // 2``.
+
+    ``incremental``: encode through ``caches``, the games' encode
+    caches, carried from each :meth:`logits` call to the next (made cold
+    on the states' device when None; a runner sets it to None at the
+    start of every run)."""
 
     def __init__(self, cfg: GoConfig, features: tuple, policy_a: Callable,
-                 policy_b: Callable, batch: int, temperature: float):
+                 policy_b: Callable, batch: int, temperature: float,
+                 incremental: bool = False):
         if batch % 2:
             raise ValueError(
                 f"batch must be even (half-and-half colour split), got "
@@ -113,6 +141,8 @@ class Ply:
         self.policy_b = policy_b
         self.batch = batch
         self.temperature = temperature
+        self.incremental = incremental
+        self.caches = None
 
     @torch.no_grad()
     def logits(self, states: GoState, t: int):
@@ -124,7 +154,14 @@ class Ply:
         cfg = self.cfg
         gd = group_data(cfg, states.board, with_zxor=cfg.enforce_superko,
                         labels=states.labels)
-        planes = encode(cfg, states, self.features, gd=gd)
+        if self.incremental:
+            if self.caches is None:
+                self.caches = init_caches(cfg, self.batch,
+                                          device=states.board.device)
+            planes, self.caches = encode_step(cfg, states, self.caches,
+                                              self.features, gd=gd)
+        else:
+            planes = encode(cfg, states, self.features, gd=gd)
         swap = t % 2 == 1
         rolled = _half_swap(planes, swap)
         half = self.batch // 2
@@ -186,16 +223,23 @@ def _stack(rows: list, batch: int, dtype, device) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def _incremental(incremental: bool | None) -> bool:
+    return INCREMENTAL_DEFAULT if incremental is None else incremental
+
+
 def play_games(cfg: GoConfig, features: tuple, policy_a: Callable,
                policy_b: Callable, generator: torch.Generator, batch: int,
                max_moves: int = 500, temperature: float = 1.0,
-               device=None) -> SelfplayResult:
+               device=None, incremental: bool | None = None
+               ) -> SelfplayResult:
     """Play ``batch`` lockstep games of net A against net B for
     ``max_moves`` plies. First half of the batch: A is Black; second
     half: B is Black. ``generator`` (on ``device``) drives the draws;
-    ``device`` defaults to the card."""
+    ``device`` defaults to the card; ``incremental`` (default
+    :data:`INCREMENTAL_DEFAULT`) carries an encode cache per game."""
     dev = resolve_device(device)
-    ply = Ply(cfg, features, policy_a, policy_b, batch, temperature)
+    ply = Ply(cfg, features, policy_a, policy_b, batch, temperature,
+              _incremental(incremental))
     final, acts, lives = _run_plies(
         ply, new_states(cfg, batch, device=dev), generator,
         range(max_moves))
@@ -205,14 +249,16 @@ def play_games(cfg: GoConfig, features: tuple, policy_a: Callable,
 
 def make_selfplay(cfg: GoConfig, features: tuple, policy_a: Callable,
                   policy_b: Callable, batch: int, max_moves: int = 500,
-                  temperature: float = 1.0, device=None):
+                  temperature: float = 1.0, device=None,
+                  incremental: bool | None = None):
     """``run(generator) -> SelfplayResult``: :func:`play_games` with
     its configuration bound."""
     dev = resolve_device(device)
 
     def run(generator: torch.Generator) -> SelfplayResult:
         return play_games(cfg, features, policy_a, policy_b, generator,
-                          batch, max_moves, temperature, device=dev)
+                          batch, max_moves, temperature, device=dev,
+                          incremental=incremental)
 
     return run
 
@@ -221,7 +267,7 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
                           policy_a: Callable, policy_b: Callable,
                           batch: int, max_moves: int = 500,
                           chunk: int = 100, temperature: float = 1.0,
-                          device=None):
+                          device=None, incremental: bool | None = None):
     """:func:`make_selfplay` in segments of ``chunk`` plies, driven
     through a :class:`ChunkPipeline` (one segment in flight while the
     host queues the next). The same generator gives the same games as
@@ -247,17 +293,23 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
     * ``pipeline``: share one pipeline across calls (its
       ``host_gap_frac``).
 
-    ``run.ply`` is the :class:`Ply` the segments play."""
+    ``incremental`` (default :data:`INCREMENTAL_DEFAULT`): the games'
+    encode caches start cold with each run and ride across its
+    segments. ``run.ply`` is the :class:`Ply` the segments play."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
-    ply = Ply(cfg, features, policy_a, policy_b, batch, temperature)
+    ply = Ply(cfg, features, policy_a, policy_b, batch, temperature,
+              _incremental(incremental))
+    seg_h = obs_registry.histogram("selfplay_segment_seconds")
+    plies_c = obs_registry.counter("selfplay_plies_total")
 
     def run(generator: torch.Generator, initial_states: GoState | None = None,
             deadline: float | None = None, stop_when_done: bool = False,
             pipeline: ChunkPipeline | None = None) -> SelfplayResult:
         states = (new_states(cfg, batch, device=dev)
                   if initial_states is None else initial_states)
+        ply.caches = None            # cold per run
         pipe = pipeline if pipeline is not None else ChunkPipeline(dev)
         acts, lives = [], []
         done_plies = None
@@ -272,13 +324,17 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
         for offset in range(0, max_moves, chunk):
             if deadline is not None and time.time() > deadline:
                 break
+            faults.barrier("selfplay.chunk", offset)
             length = min(chunk, max_moves - offset)
+            t0 = time.monotonic()
             states, a, lv = _run_plies(ply, states, generator,
                                        range(offset, offset + length))
             acts += a
             lives += lv
+            plies_c.inc(length)
             handle = states.done.all() if stop_when_done else None
             retired = pipe.push(handle, payload=offset + length)
+            seg_h.observe(time.monotonic() - t0)
             if stop_when_done:
                 done_plies = first_done(retired)
                 if done_plies is not None:

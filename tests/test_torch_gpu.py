@@ -1005,3 +1005,109 @@ def test_cuda_errors_are_classified_as_the_card_raises_them(cuda_device):
     sticky = json.loads(rows[-1])
     assert sticky["message"].startswith("CUDA error:")
     assert sticky["transient"] is False
+
+
+def incremental_trajectory(size, plies, seed):
+    """A seeded game with passes and captures on the rules oracle: the
+    host states of its plies."""
+    rng = np.random.default_rng(seed)
+    st = pygo.GameState(size=size)
+    out = []
+    for i in range(plies):
+        if st.is_end_of_game:
+            break
+        moves = st.get_legal_moves(include_eyes=False)
+        st.do_move(None if (i % 23 == 22 or not moves)
+                   else moves[rng.integers(len(moves))])
+        out.append(st.copy())
+    return out
+
+
+@pytest.mark.parametrize("size,plies", [(9, 60), (19, 90)])
+def test_incremental_encode_on_the_card_equals_the_cpu(cuda_device, size,
+                                                       plies):
+    """A trajectory encoded through the incremental cache on the card
+    and on the CPU: at every ply the card's planes equal its scratch
+    encode and the CPU's planes, and every cache field equals the
+    CPU's carry; the chase kernel runs once an encode."""
+    from rocalphago_tpu_torch.features import incremental as incr
+    from rocalphago_tpu_torch.features.planes import encode
+
+    cfg = torchgo.GoConfig(size=size)
+    card = incr.init_cache(cfg, device=cuda_device)
+    cpu = incr.init_cache(cfg)
+    before = chase.launches
+    sts = incremental_trajectory(size, plies, size)
+    for i, st in enumerate(sts):
+        ts = torchgo.from_pygo(cfg, [st], device="cpu")
+        tg = torchgo.from_pygo(cfg, [st], device=cuda_device)
+        got, card = incr.encode_step(cfg, tg, card)
+        want, cpu = incr.encode_step(cfg, ts, cpu)
+        assert torch.equal(got, encode(cfg, tg)), i
+        assert torch.equal(got.cpu(), want), i
+        for name, a, b in zip(incr.EncodeCache._fields, card, cpu):
+            assert torch.equal(a.cpu(), b), (i, name)
+    assert chase.launches - before >= len(sts)
+    assert int(cpu.stats[0, incr.STAT_REUSED]) > 0
+
+
+def test_chase_kernel_cores_on_incremental_lanes_match_plain(cuda_device):
+    """Every lane the incremental encode sends to the chase on a 19×19
+    trajectory, disabled lanes included: the kernel's verdicts and read
+    cores equal the plain version's."""
+    from rocalphago_tpu_torch.features import incremental as incr
+
+    cfg = torchgo.GoConfig(size=19)
+    lanes, inner = [], chase.chase
+
+    def record(boards, labels_, prey, size, depth=40, collect_core=False):
+        lanes.append((boards.clone(), labels_.clone(), prey.clone()))
+        return inner(boards, labels_, prey, size, depth, collect_core)
+
+    cache = incr.init_cache(cfg, device=cuda_device)
+    chase.chase = record
+    try:
+        for st in incremental_trajectory(19, 90, 19):
+            _, cache = incr.encode_step(cfg, torchgo.from_pygo(
+                cfg, [st], device=cuda_device), cache)
+    finally:
+        chase.chase = inner
+    boards = torch.cat([b for b, _, _ in lanes])
+    labs = torch.cat([lab for _, lab, _ in lanes])
+    prey = torch.cat([p for _, _, p in lanes])
+    assert bool((prey < 0).any()) and bool((prey >= 0).any())
+    got = chase.chase(boards, labs, prey, 19, collect_core=True)
+    want = chase.chase_plain(boards, labs, prey, 19, collect_core=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_incremental_selfplay_segment_makes_no_host_sync(cuda_device):
+    """Policy self-play with the encode cache: after a warm segment,
+    a segment's plies queue without a device->host sync, and the games
+    equal those played without the cache."""
+    from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.search import selfplay
+
+    cfg = torchgo.GoConfig(size=9)
+    net = CNNPolicy(board=9, layers=2, filters_per_layer=8, seed=1,
+                    device=cuda_device, dtype=torch.float32)
+    ply = selfplay.Ply(cfg, DEFAULT_FEATURES, net.module, net.module, 8, 1.0,
+                       incremental=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    st = torchgo.new_states(cfg, 8, device=cuda_device)
+    for t in range(4):                              # warm
+        st, _, _ = ply(st, gen, t)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(4, 12):
+            st, _, _ = ply(st, gen, t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    runs = [selfplay.make_selfplay_chunked(
+        cfg, DEFAULT_FEATURES, net.module, net.module, 8, 16, chunk=8,
+        device=cuda_device, incremental=inc)(
+            torch.Generator(device=cuda_device).manual_seed(1))
+        for inc in (True, False)]
+    assert torch.equal(runs[0].actions, runs[1].actions)
