@@ -3,6 +3,8 @@
 and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --host-reads DIR   # the port found in DIR:
+    #   one zero iteration's host reads (phase 18's count), as JSON
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -86,8 +88,10 @@ Phases, in order; any failure exits non-zero before the result line:
     after; positions/s), its first 2 games converted again by the CPU
     port, bit for bit; the SL trainer's CLI entry on a fresh seeded
     12 × 128 bf16 policy saved as a spec (minibatch 16, symmetries on,
-    2 epochs of 50 steps: finite losses, every artifact, the exported
-    ``model.json`` answering GTP genmoves legally); exact resume (killed
+    2 epochs of 50 steps: finite losses, every artifact, the ``sl.*``
+    span paths and the data-wait histogram in its ``metrics.jsonl``,
+    the exported ``model.json`` answering GTP genmoves legally); exact
+    resume (killed
     after epoch 0, and after step 25 with a checkpoint every 10, both
     resumed through the CLI to the straight run's params bit for bit);
     the evaluator's ``top1`` equal to the trainer's ``test_accuracy``;
@@ -98,9 +102,10 @@ Phases, in order; any failure exits non-zero before the result line:
     cuDNN at 256;
 15. the reinforcement stage at full width, in ``build/smoke_rl``, from
     phase 14's SL export: the RL trainer's CLI (``rocalphago_tpu_torch.
-    training.rl``) at game batch 8 and move limit 60, 3 iterations, and
-    a run killed after 2 and resumed through the CLI to the straight
-    run's params and generator bit for bit; a replay segment (10 plies
+    training.rl``) at game batch 8 and move limit 60, 3 iterations (its
+    ``rl.*`` span paths in ``metrics.jsonl``), and a run killed after 2
+    and resumed through the CLI to the straight run's params and
+    generator bit for bit; a replay segment (10 plies
     of the learner's half-batch encode, forward and backward) under
     ``set_sync_debug_mode("error")``; one iteration at the reference's
     shape (game batch 256, move limit 500, 12 × 128 bf16), its play,
@@ -113,7 +118,7 @@ Phases, in order; any failure exits non-zero before the result line:
     timed, a profile of 10 mid-game replay plies; the value-corpus
     generator's CLI (``....training.selfplay_data``) with the SL export
     before the
-    random ply and the RL export after, batch 256, at least 512
+    random ply and the RL export after, batch 256, at least 256
     positions (49 planes, z ±1; both kernels launched; valid
     positions/s and yield); the value trainer on that corpus; and two
     device-search GTP genmoves at 100 simulations over the RL export
@@ -135,8 +140,9 @@ Phases, in order; any failure exits non-zero before the result line:
     halving winner, then 4 sampling π′; every π′ row finite and summing
     to 1; simulations/s; the three kernels launched); the self-play CLI
     with ``--gumbel --m-root 4``; the tournament CLI, ``gumbel-mcts``
-    against ``device-mcts`` on the committed 9×9 gumbel nets (4 games,
-    8 playouts, move limit 60, no forfeit, a log line a game) and the
+    against ``device-mcts`` on the committed 9×9 gumbel nets
+    (``TOURNEY_GAMES`` 2, 8 playouts, move limit ``TOURNEY_MOVES`` 40,
+    no forfeit, a log line a game) and the
     Elo CLI over its log (finite ratings);
 17. the reference's own AlphaGo player, host APV-MCTS, in
     ``build/smoke_mcts``: fresh seeded specs written by the port's spec
@@ -160,24 +166,39 @@ Phases, in order; any failure exits non-zero before the result line:
     move with a top-16 policy pre-filter; and the tournament CLI,
     ``mcts`` with a rollout spec and ``--device-rollout`` against
     ``greedy`` on the committed 9×9 nets (2 games, 8 playouts, move
-    limit 60, no forfeit);
+    limit ``TOURNEY_MOVES`` 40, no forfeit);
 18. the AlphaZero loop, in ``build/smoke_zero``: fresh seeded 19×19
     specs from the spec CLI (the 12 × 128 policy, 48 planes, and the
     12 × 128 FCN value net, 49 planes, with the auxiliary heads grafted
     on); the zero CLI (``rocalphago_tpu_torch.training.zero``) at game
-    batch 8, 16 simulations, move limit ``ZERO_MOVES``, 3 iterations, a
-    checkpoint every iteration, the gate every 2 (8 games), Dir(0.03):
-    straight, killed after iteration 2 and resumed with the same
-    command, and with ``--actor-learner --actors 1`` -- the last two
+    batch 8, 16 simulations, move limit ``ZERO_MOVES``,
+    ``ZERO_ITERATIONS`` 2 iterations, a checkpoint every iteration, the
+    gate every 2 and after the last (8 games), Dir(0.03): straight,
+    killed after iteration 1 and resumed with the same command, and with ``--actor-learner --actors 1`` -- the last two
     end on the straight run's checkpoint, exports, pool and metric rows
-    (wall times aside) bit for bit; one iteration in process with the
+    (wall times aside) bit for bit; the straight run's ``metrics.jsonl``
+    holds every ``zero.*`` span path of the reference with ``ok`` true
+    and a registry record with the search's simulations and
+    ``device_occupancy{runner="zero.replay"}``, the actor/learner run's
+    the ``learner_*``, ``replay_*`` and ``actor_*`` metrics; a cut run
+    (1 iteration, 2 simulations, move limit 4, a 2-game gate) with
+    ``--profile-dir``, whose Chrome trace holds chase, labels and tree
+    launches by name; one iteration in process with the
     playout caps (p 0.25, cheap 4) and the auxiliary heads (weight 1),
     timed by phase (play, replay, update, a gate match; a sync after
     each) with games/min, simulations/s, the full-search fraction, ms a
     replay ply and the replay's MFU share, the labels, chase and tree
     launches of the iteration (counts reset just before, read just
-    after); a replay segment under ``set_sync_debug_mode("error")``; a
-    profile of 10 replay plies (kernels a ply, idle share); its first 2
+    after); a replay segment under ``set_sync_debug_mode("error")``, in
+    its span and pushed to the replay's pipeline with the runner
+    metrics on; a profile of 10 replay plies (kernels a ply, idle
+    share); one more iteration's host reads under
+    ``set_sync_debug_mode("warn")``, equal to the count of the commit
+    before the instrumentation (``ZERO_PARENT_HOST_READS``, counted by
+    ``python3 chip_smoke.py --host-reads DIR`` on a checkout of it),
+    and the instrumentation's cost (span records and registry writes
+    of that iteration, each at its cost on this host) under 2% of the
+    timed iteration's wall; its first 2
     games learned in float32 (TF32 off) on the card and on the CPU,
     both nets' updates within ``FORWARD_ATOL``/``FORWARD_RTOL``; and the
     committed 9×9 pool of ``results/zero_r5/run`` loaded through
@@ -279,7 +300,9 @@ GUMBEL_DIR = os.path.join("results", "zero_r5", "target_compare", "gumbel")
 M_ROOT = 16              # Gumbel root candidates (the player's default)
 GS_PLIES, GS_SAMPLE_PLIES = 8, 4   # Gumbel self-play (batch 8, 32 sims)
 PI_ATOL = 1e-5           # π′ batched vs alone; a π′ row's sum vs 1
-TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 4, 8, 60
+# both tournaments' depth, cut from 4 games at move limit 60 to keep the
+# smoke inside its clock on a slower host
+TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 2, 8, 40
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -317,19 +340,20 @@ RL_MID = 250             # the replay ply whose lanes and followers are
 #                          checked and profiled (mid-game)
 RL_SMALL_BATCH = 8       # the RL CLI's kill/resume runs
 RL_SMALL_MOVES = 60
-GEN_POSITIONS = 512      # the generator's corpus, at least
+GEN_POSITIONS = 256      # the generator's corpus, at least (cut from 512)
 MCTS_DIR = os.path.join("build", "smoke_mcts")
 MCTS_GENMOVES = 2        # host APV-MCTS genmoves at 100 playouts
 MCTS_TIMED_GENMOVES = 2  # then under time_settings 0 1 1
 MCTS_PLAYOUTS, MCTS_LEAF_BATCH = 100, 8   # the reference's defaults
 MCTS_HOST_PLAYOUTS = 8   # one wave with host rollouts
 VALUE_TOP_K = 16         # the value player's policy pre-filter
-MCTS_TOURNEY_GAMES = 2   # mcts vs greedy, 8 playouts, move limit 60
+MCTS_TOURNEY_GAMES = 2   # mcts vs greedy, 8 playouts, TOURNEY_MOVES
 ROLLOUT_PROFILE_PLIES = 10
 ZERO_DIR = os.path.join("build", "smoke_zero")
 ZERO_BATCH, ZERO_SIMS = 8, 16     # the zero CLI's game batch and search
 ZERO_MOVES = 24          # the cut game length (depth, not width)
 ZERO_GATE_GAMES = 8
+ZERO_ITERATIONS = 2      # the zero CLI runs (cut from 3 for the clock)
 ZERO_ALPHA = 0.03
 ZERO_CAP_P, ZERO_CAP_CHEAP, ZERO_AUX = 0.25, 4, 1.0   # the timed iteration
 ZERO_CPU_GAMES = 2       # games of the timed iteration learned on the CPU
@@ -343,6 +367,24 @@ ZERO_GRAD_L2, ZERO_GRAD_MAX = 5e-3, 1e-2
 ZERO_PROFILE_PLIES = 10
 ZERO_POOL = os.path.join("results", "zero_r5", "run")
 ZERO_POOL_GAMES, ZERO_POOL_MOVES = 8, 60
+# the --profile-dir run: one iteration, its game and search cut (depth)
+# so the Chrome trace of every launch stays tens of MB
+ZERO_PROFILE_ARGS = ("--iterations", "1", "--sims", "2", "--move-limit",
+                     "4", "--gate-games", "2")
+#: the reference's span paths of a zero iteration (tests/test_obs.py)
+ZERO_SPAN_PATHS = ("zero.iteration", "zero.iteration/zero.selfplay",
+                   "zero.iteration/zero.replay", "zero.iteration/zero.update",
+                   "zero.iteration/zero.gate", "zero.iteration/zero.export",
+                   "zero.iteration/zero.save")
+#: host reads of one zero iteration (caps and aux, as zero_timed) under
+#: set_sync_debug_mode("warn"), counted by ``--host-reads`` in a fresh
+#: process on a git archive of the commit before the instrumentation
+#: (37df546), "NVIDIA H100 80GB HBM3, 700.00 W"
+ZERO_PARENT_HOST_READS = 74
+OVERHEAD_LIMIT = 0.02    # the instrumentation's share of an iteration
+#: the kernels' names in a profiler trace
+KERNEL_SYMBOLS = {"chase": ("chase_kernel",), "labels": ("labels_kernel",),
+                  "tree": ("descend_kernel", "backup_kernel")}
 SERVE_DIR = os.path.join("build", "smoke_serve")
 SERVE_SIMS = 100         # simulations a genmove (the GTP default)
 SERVE_FLEETS = (1, 8, 64)  # sessions driven in lockstep
@@ -362,7 +404,7 @@ INCR_PASS_EVERY = 23     # a pass every this many plies
 INCR_TIMED_PLIES = 60    # warm plies of game 2 timed in turns
 INCR_GENMOVES = 4        # per GTP session before its resets, both
 #                          colours (6 in all with the two after them)
-INCR_SP_RUNS = 3         # timed self-play runs per mode
+INCR_SP_RUNS = 2         # timed self-play runs per mode (cut from 3)
 
 
 class SmokeFailure(RuntimeError):
@@ -1893,6 +1935,15 @@ def sl_train(dev, work: str, corpus: str):
         events = [json.loads(line) for line in f]
     epochs = [e for e in events if e["event"] == "epoch"]
     check(len(epochs) == 2, f"{len(epochs)} epoch records")
+    spans = check_span_paths(events, ("sl.epoch", "sl.epoch/sl.train",
+                                      "sl.epoch/sl.eval", "sl.epoch/sl.export",
+                                      "sl.epoch/sl.save"), "sl straight run")
+    waits = last_registry(events, "sl straight run")["histograms"][
+        'train_data_wait_seconds{trainer="sl"}']
+    check(len(spans["sl.epoch"]) == 2
+          and waits["count"] >= 2 * SL_EPOCH_LENGTH,
+          f"sl: {len(spans['sl.epoch'])} epoch spans, {waits['count']} "
+          "data waits")
     for e in epochs:
         for k in ("train_loss", "val_loss", "train_accuracy"):
             check(e.get(k) is not None and np.isfinite(e[k]),
@@ -2198,6 +2249,13 @@ def rl_cli(work: str, sl_export: str):
           "the RL trainer left cuDNN non-deterministic")
     check(np.isfinite(final["win_rate"]) and final["iteration"] == 2,
           f"rl final {final}")
+    spans = check_span_paths(run_events(straight), (
+        "rl.iteration", "rl.iteration/rl.data", "rl.iteration/rl.play",
+        "rl.iteration/rl.replay", "rl.iteration/rl.update",
+        "rl.iteration/rl.save"), "rl straight run")
+    check(len(spans["rl.iteration"]) == 3 and all(
+        r["plies"] == RL_SMALL_MOVES for r in spans["rl.iteration/rl.replay"]),
+          "rl: not 3 iteration spans, or a replay span's plies tag off")
     for name in ("model.json", "weights.00002.flax.msgpack",
                  "weights.00003.flax.msgpack", "metadata.json",
                  "opponents/opponent.00002.flax.msgpack"):
@@ -2232,9 +2290,12 @@ def rl_iteration(torchgo, dev, card, counters, sl_export):
     import copy
 
     from rocalphago_tpu_torch.features import DEFAULT_FEATURES
+    from rocalphago_tpu_torch.io.metrics import MetricsLogger
     from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.obs import trace
     from rocalphago_tpu_torch.ops import chase as C
     from rocalphago_tpu_torch.ops import labels as L
+    from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
     from rocalphago_tpu_torch.search import selfplay as S
     from rocalphago_tpu_torch.training import rl
 
@@ -2263,18 +2324,31 @@ def rl_iteration(torchgo, dev, card, counters, sl_export):
     opt.zero_grad(set_to_none=True)
     it.replay_ply(states, z, warm.actions[0], live[0], 0)
     torch.cuda.synchronize()
+    # as the chunked replay runs it: in its span, pushed to the replay's
+    # pipeline (the runner metrics on), a sink configured
+    sink = MetricsLogger(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), RL_DIR, "segment.jsonl"), echo=False)
+    trace.configure(sink)
+    pipe = ChunkPipeline(dev, runner="rl.replay")
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for t in range(SP_CHUNK):
-            states = it.replay_ply(states, z, warm.actions[t], live[t], t)
+        with trace.span("rl.replay", plies=SP_CHUNK):
+            for t in range(SP_CHUNK):
+                states = it.replay_ply(states, z, warm.actions[t], live[t],
+                                       t)
+            pipe.push()
+            pipe.finish()
     except RuntimeError as e:
         raise SmokeFailure(f"a host sync inside a replay segment: {e}") from e
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        trace.configure(None)
+        sink.close()
     torch.cuda.synchronize()
     log(f"rl: a replay segment of {SP_CHUNK} plies at game batch "
-        f"{RL_BATCH} (learner half {RL_BATCH // 2}, forward + backward) ran "
-        "with no device->host sync")
+        f"{RL_BATCH} (learner half {RL_BATCH // 2}, forward + backward), in "
+        "its span and pushed to the replay's pipeline with the runner "
+        "metrics on, ran with no device->host sync")
 
     # the timed iteration, its phases split by a sync after each
     laps, held = {}, {}
@@ -3163,7 +3237,8 @@ def zero_specs(work: str) -> tuple:
     return tuple(paths)
 
 
-def zero_argv(paths, out: str, iterations: int = 3, *extra) -> list:
+def zero_argv(paths, out: str, iterations: int = ZERO_ITERATIONS,
+              *extra) -> list:
     """The zero CLI's command line: full width, depth cut."""
     return [*paths, out, "--game-batch", str(ZERO_BATCH), "--sims",
             str(ZERO_SIMS), "--move-limit", str(ZERO_MOVES), "--iterations",
@@ -3172,7 +3247,7 @@ def zero_argv(paths, out: str, iterations: int = 3, *extra) -> list:
             str(ZERO_ALPHA), "--seed", str(SEED), *extra]
 
 
-def zero_artifacts(out: str, step: int = 3):
+def zero_artifacts(out: str, step: int = ZERO_ITERATIONS):
     """A run's final checkpoint, its metric rows without wall times, and
     the bytes of its exports, specs and pool."""
     state = torch.load(os.path.join(out, "checkpoints", str(step),
@@ -3196,6 +3271,43 @@ def zero_artifacts(out: str, step: int = 3):
     return state, rows, files
 
 
+def run_events(out: str) -> list:
+    """The records of a run's ``metrics.jsonl``."""
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_span_paths(events, paths, what: str) -> dict:
+    """Every path in ``paths`` among the run's span records, each record
+    of it ``ok``; returns the records by path."""
+    spans: dict = {}
+    for e in events:
+        if e["event"] == "span":
+            spans.setdefault(e["path"], []).append(e)
+    for path in paths:
+        check(path in spans and all(r["ok"] for r in spans[path]),
+              f"{what}: no span {path} with ok true (spans {sorted(spans)})")
+    return spans
+
+
+def last_registry(events, what: str) -> dict:
+    """The snapshot of the run's last ``registry`` record."""
+    snaps = [e["snapshot"] for e in events if e["event"] == "registry"]
+    check(bool(snaps), f"{what}: no registry record in metrics.jsonl")
+    return snaps[-1]
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Kernel records per kernel of the port in a Chrome trace that
+    ``torch.profiler`` exported, by the kernels' symbols."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(1 for n in names if any(
+        re.search(rf"\b{sym}\b", n) for sym in syms))
+        for k, syms in KERNEL_SYMBOLS.items()}
+
+
 def same_tree(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
@@ -3208,16 +3320,19 @@ def same_tree(a, b) -> bool:
 
 
 def zero_cli(work: str, paths, card: str):
-    """The zero CLI three ways: straight, killed after iteration 2 and
-    resumed with the same command, and with one lockstep actor; the
-    last two end on the straight run's checkpoint, exports, pool and
-    metric rows bit for bit."""
+    """The zero CLI three ways: straight, killed after its next-to-last
+    iteration and resumed with the same command, and with one lockstep
+    actor; the last two end on the straight run's checkpoint, exports,
+    pool and metric rows bit for bit."""
     from rocalphago_tpu_torch.io.checkpoint import TrainCheckpointer
+    from rocalphago_tpu_torch.obs import registry
     from rocalphago_tpu_torch.training import zero
 
     walls = {}
+    sims_before = registry.snapshot()["counters"].get(
+        "device_mcts_sims_total", 0)
 
-    def run(name, iterations=3, *extra):
+    def run(name, iterations=ZERO_ITERATIONS, *extra):
         out = os.path.join(work, name)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -3230,23 +3345,43 @@ def zero_cli(work: str, paths, card: str):
     check(torch.backends.cudnn.deterministic
           and not torch.backends.cudnn.benchmark,
           "the zero trainer left cuDNN non-deterministic")
-    check(final["iteration"] == 2 and all(
+    last = ZERO_ITERATIONS - 1
+    check(final["iteration"] == last and all(
         np.isfinite(final[k]) for k in zero.METRICS),
         f"zero final row {final}")
     want = zero_artifacts(straight)
-    for name in ("policy.json", "value.json", "policy.00003.flax.msgpack",
-                 "value.00003.flax.msgpack", "pool/best.00000.policy.msgpack",
-                 "pool/rollout.json"):
+    for name in ("policy.json", "value.json",
+                 f"policy.{ZERO_ITERATIONS:05d}.flax.msgpack",
+                 f"value.{ZERO_ITERATIONS:05d}.flax.msgpack",
+                 "pool/best.00000.policy.msgpack", "pool/rollout.json"):
         check(name in want[2], f"zero: no {name}")
+    # a gate every 2 iterations and after the last
+    n_gates = sum((it + 1) % 2 == 0 or it == last
+                  for it in range(ZERO_ITERATIONS))
     gates = [r for r in want[1] if r["event"] == "gate"]
-    check(len(gates) == 2, f"zero: {len(gates)} gate matches, not 2")
+    check(len(gates) == n_gates,
+          f"zero: {len(gates)} gate matches, not {n_gates}")
+    # the reference's instrumentation in the run's metrics.jsonl
+    events = run_events(straight)
+    spans = check_span_paths(events, ZERO_SPAN_PATHS, "zero straight run")
+    check(len(spans["zero.iteration"]) == ZERO_ITERATIONS
+          and all(r["plies"] == ZERO_MOVES
+                  for r in spans["zero.iteration/zero.selfplay"]),
+          "zero: an iteration span missing, or a selfplay span's plies tag "
+          "off")
+    snap = last_registry(events, "zero straight run")
+    occupancy = snap["gauges"].get('device_occupancy{runner="zero.replay"}')
+    check(snap["counters"].get("device_mcts_sims_total", 0) > sims_before
+          and occupancy is not None and 0.0 < occupancy <= 1.0,
+          "zero straight run: the registry record lacks the search's "
+          "simulations or the replay's occupancy")
 
     real = TrainCheckpointer.save
 
     def killing_save(self, step, state):
         real(self, step, state)
-        if step == 2:
-            raise KeyboardInterrupt("killed after iteration 2")
+        if step == last:
+            raise KeyboardInterrupt(f"killed after iteration {last}")
 
     TrainCheckpointer.save = killing_save
     try:
@@ -3260,15 +3395,52 @@ def zero_cli(work: str, paths, card: str):
     got = zero_artifacts(killed)
     check(same_tree(got[0], want[0]) and got[1] == want[1]
           and got[2] == want[2],
-          "zero killed after iteration 2 and resumed: the checkpoint, "
-          "exports, pool or metric rows differ from the straight run's")
-    al, _ = run("actor_learner", 3, "--actor-learner", "--actors", "1")
+          f"zero killed after iteration {last} and resumed: the "
+          "checkpoint, exports, pool or metric rows differ from the "
+          "straight run's")
+    al, _ = run("actor_learner", ZERO_ITERATIONS, "--actor-learner",
+                "--actors", "1")
     got = zero_artifacts(al)
     check(same_tree(got[0], want[0]) and got[1] == want[1]
           and got[2] == want[2],
           "zero --actor-learner --actors 1: the checkpoint, exports, pool "
           "or metric rows differ from the synchronous run's")
-    log(f"zero cli [{card}]: 3 iterations at game batch {ZERO_BATCH}, "
+    events = run_events(al)
+    check_span_paths(events, ("zero.iteration/learner.step",
+                              "zero.iteration/learner.step/zero.replay",
+                              "actor.play", "actor.play/zero.selfplay"),
+                     "zero --actor-learner")
+    snap = last_registry(events, "zero --actor-learner")
+    flat = {**snap["counters"], **snap["gauges"], **snap["histograms"]}
+    split = ("learner_steps_total", "learner_wait_seconds",
+             "learner_idle_frac", "replay_fill_games",
+             "replay_ingest_games_total", "replay_ingest_per_min",
+             "replay_spilled_total", "replay_sample_staleness_seconds",
+             'actor_games_total{actor="a0"}', "actor_params_version")
+    check(all(k in flat for k in split)
+          and snap["counters"]["learner_steps_total"] >= ZERO_ITERATIONS,
+          "zero --actor-learner: the registry lacks "
+          f"{[k for k in split if k not in flat]}")
+
+    # --profile-dir: a torch.profiler capture of a cut run
+    prof_dir = os.path.join(work, "profile")
+    prof_run, _ = run("profiled", 1, *ZERO_PROFILE_ARGS, "--profile-dir",
+                      prof_dir)
+    trace_path = os.path.join(prof_dir, zero.PROFILE_TRACE)
+    traced = trace_kernel_counts(trace_path)
+    events = run_events(prof_run)
+    check([e["action"] for e in events if e["event"] == "profiler"]
+          == ["start", "stop"], "zero --profile-dir: no profiler events")
+    check(all(traced.values()), f"zero --profile-dir: the trace misses a "
+          f"kernel: {traced}")
+    log(f"zero --profile-dir [{card}]: 1 iteration "
+        f"({' '.join(ZERO_PROFILE_ARGS)}) in {walls['profiled']:.1f} s "
+        "with the capture and its export; "
+        f"{os.path.getsize(trace_path) / 2**20:.1f} MiB Chrome trace, kernel "
+        f"records: chase {traced['chase']}, labels {traced['labels']}, tree "
+        f"{traced['tree']}")
+    log(f"zero cli [{card}]: {ZERO_ITERATIONS} iterations at game batch "
+        f"{ZERO_BATCH}, "
         f"{ZERO_SIMS} simulations, move limit {ZERO_MOVES}, Dir("
         f"{ZERO_ALPHA}), gate every 2 ({ZERO_GATE_GAMES} games), 19x19 "
         f"12x128 bf16: straight {walls['straight']:.1f} s (last row: policy "
@@ -3276,7 +3448,8 @@ def zero_cli(work: str, paths, card: str):
         f"games/min; gates "
         + ", ".join(f"{g['wins_a']}-{g['wins_b']}-{g['draws']} "
                     f"promoted={g['promoted']}" for g in gates)
-        + f"); killed after iteration 2 and resumed ({walls['killed']:.1f} "
+        + f"); killed after iteration {last} and resumed "
+        f"({walls['killed']:.1f} "
         f"s) and --actor-learner --actors 1 ({walls['actor_learner']:.1f} "
         "s): checkpoint, exports, pool and rows bit-identical")
     return walls
@@ -3288,7 +3461,10 @@ def zero_timed(torchgo, dev, card, counters, paths):
     update and a gate match (a sync after each), with the launches of
     the iteration counted from zero; a replay segment under
     ``set_sync_debug_mode("error")``; a profile of replay plies."""
+    from rocalphago_tpu_torch.io.metrics import MetricsLogger
     from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.obs import trace
+    from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
     from rocalphago_tpu_torch.training import zero
 
     torch.backends.cudnn.deterministic = True
@@ -3385,19 +3561,32 @@ def zero_timed(torchgo, dev, card, counters, paths):
 
     one_ply()
     torch.cuda.synchronize()
+    # the segment as learn() runs it: in the zero.replay span, pushed to
+    # the replay's pipeline (its runner metrics on), a sink configured
+    sink = MetricsLogger(os.path.join(os.path.dirname(paths[0]),
+                                      "segment.jsonl"), echo=False)
+    trace.configure(sink)
+    pipe = ChunkPipeline(dev, runner="zero.replay")
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for _ in range(ZERO_PROFILE_PLIES):
-            one_ply()
+        with trace.span("zero.replay", plies=ZERO_PROFILE_PLIES):
+            for _ in range(ZERO_PROFILE_PLIES):
+                one_ply()
+            pipe.push()
+            pipe.finish()
     except RuntimeError as e:
         raise SmokeFailure(f"a host sync inside a zero replay segment: "
                            f"{e}") from e
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        trace.configure(None)
+        sink.close()
     torch.cuda.synchronize()
     log(f"zero: a replay segment of {ZERO_PROFILE_PLIES} plies at game "
         f"batch {ZERO_BATCH} (one 49-plane encode, both nets forward and "
-        "backward, aux heads) ran with no device->host sync")
+        "backward, aux heads), in its span and pushed to the replay's "
+        "pipeline with the runner metrics on, ran with no device->host "
+        "sync")
     holder[:] = [torchgo.new_states(cfg, ZERO_BATCH, device=dev), 0]
     for _ in range(ZERO_MOVES - ZERO_PROFILE_PLIES):
         one_ply()
@@ -3411,6 +3600,155 @@ def zero_timed(torchgo, dev, card, counters, paths):
                 games_per_min=games_per_min, sims_per_s=sims_per_s,
                 replay_ply_ms=replay_ply_ms, profile=prof, games=games,
                 full_frac=run.last_full_frac)
+
+
+def count_host_reads(fn):
+    """``(fn(), host reads)``: ``fn`` under ``set_sync_debug_mode
+    ("warn")``, each synchronizing call's warning counted."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def zero_host_reads(torchgo, dev, paths) -> dict:
+    """One zero iteration in process (``iteration(state)`` and the
+    metrics read, the timed iteration's caps and aux heads) from fresh
+    nets, after one that warms: its host reads, and the span records
+    and registry writes it made (a sink configured, the registry's
+    writes counted). Runs on the commit before the instrumentation as
+    well (``--host-reads``)."""
+    from rocalphago_tpu_torch.io.metrics import MetricsLogger
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.obs import registry, trace
+    from rocalphago_tpu_torch.training import zero
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    pol, val = (NeuralNetBase.load_model(x) for x in paths)
+    cfg = torchgo.GoConfig(size=SIZE, komi=torchgo.default_komi(SIZE))
+    it = zero.ZeroIteration(
+        cfg, pol.feature_list, val.feature_list, ZERO_BATCH, ZERO_MOVES,
+        ZERO_SIMS, dirichlet_alpha=ZERO_ALPHA, cap_p=ZERO_CAP_P,
+        cap_cheap=ZERO_CAP_CHEAP, aux_weight=ZERO_AUX, device=dev)
+    holder = [zero.init_zero_state(pol.module, val.module, seed=SEED + 44)]
+
+    def iteration():
+        holder[0], m = it(holder[0])
+        return zero.metrics_to_host(m)
+
+    iteration()
+    logger = MetricsLogger(os.path.join(os.path.dirname(paths[0]),
+                                        "host_reads.jsonl"), echo=False)
+    counts = {"spans": 0, "writes": 0}
+
+    class Sink:
+        def write(self, event, **fields):
+            counts["spans"] += event == "span"
+            logger.write(event, **fields)
+
+    def counting(fn):
+        def wrapped(self, *a, **kw):
+            counts["writes"] += 1
+            return fn(self, *a, **kw)
+        return wrapped
+
+    methods = ((registry.Counter, "inc"), (registry.Gauge, "set"),
+               (registry.Histogram, "observe"))
+    real = [getattr(cls, name) for cls, name in methods]
+    for (cls, name), fn in zip(methods, real):
+        setattr(cls, name, counting(fn))
+    trace.configure(Sink())
+    try:
+        t0 = time.perf_counter()
+        metrics, reads = count_host_reads(iteration)
+        wall = time.perf_counter() - t0
+    finally:
+        trace.configure(None)
+        logger.close()
+        for (cls, name), fn in zip(methods, real):
+            setattr(cls, name, fn)
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"host-reads iteration metrics {metrics}")
+    return dict(reads=reads, wall=wall, **counts)
+
+
+def instrumentation_cost(work: str) -> tuple:
+    """Seconds per span record through a ``MetricsLogger`` sink, and
+    per registry write (a get-or-create and an update, the three kinds
+    in turn), on this machine's host: the reference's method."""
+    from rocalphago_tpu_torch.io.metrics import MetricsLogger
+    from rocalphago_tpu_torch.obs import registry, trace
+
+    reps = 500
+    probe = MetricsLogger(os.path.join(work, "probe.jsonl"), echo=False)
+    trace.configure(probe)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with trace.span("probe"):
+                pass
+        per_span = (time.perf_counter() - t0) / reps
+    finally:
+        trace.configure(None)
+        probe.close()
+    reg = registry.Registry()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        reg.counter("probe_total", runner="probe").inc()
+        reg.gauge("probe_gauge", runner="probe").set(i)
+        reg.histogram("probe_seconds", runner="probe").observe(1e-3)
+    per_write = (time.perf_counter() - t0) / (3 * reps)
+    return per_span, per_write
+
+
+def zero_instrumentation(card, paths, timed, straight):
+    """The instrumentation's gate: one iteration's host reads, counted
+    as the parent commit's were (``--host-reads``, a fresh process),
+    equal to the parent's; and its spans and registry writes, at their
+    cost on this host, under ``OVERHEAD_LIMIT`` of the timed
+    iteration's wall. (Counted inside this process, after phase 18's
+    other runs, the same iteration once read one time fewer; the cause
+    was not traced, so both counts come from fresh processes.)"""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--host-reads", root],
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    check(proc.returncode == 0, f"--host-reads: rc {proc.returncode}\n"
+          f"{proc.stderr[-2000:]}")
+    hr = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(hr["spans"] >= 3 and hr["writes"] > 0,
+          f"the zero iteration emitted {hr['spans']} spans and "
+          f"{hr['writes']} registry writes")
+    check(hr["reads"] == ZERO_PARENT_HOST_READS,
+          f"a zero iteration makes {hr['reads']} host reads, the commit "
+          f"before the instrumentation {ZERO_PARENT_HOST_READS}")
+    cli_spans = (sum(e["event"] == "span" for e in run_events(straight))
+                 / ZERO_ITERATIONS)
+    spans = max(hr["spans"], cli_spans)
+    per_span, per_write = instrumentation_cost(os.path.dirname(paths[0]))
+    cost = spans * per_span + hr["writes"] * per_write
+    share = cost / timed["wall"]
+    check(share < OVERHEAD_LIMIT,
+          f"instrumentation {share:.4%} of a zero iteration's wall")
+    log(f"zero instrumentation [{card}]: host reads of one iteration "
+        f"{hr['reads']} under set_sync_debug_mode('warn') (the commit "
+        f"before it: {ZERO_PARENT_HOST_READS}); {hr['spans']} span records "
+        f"in process ({cli_spans:.1f} an iteration of the CLI run) and "
+        f"{hr['writes']} registry writes; {per_span * 1e6:.2f} us a span, "
+        f"{per_write * 1e6:.2f} us a write: {cost * 1e3:.3f} ms, "
+        f"{share:.5%} of the timed iteration's {timed['wall']:.2f} s "
+        f"(limit {OVERHEAD_LIMIT:.0%}); the counted iteration "
+        f"{hr['wall']:.2f} s under the sync warnings")
+    return dict(hr, per_span=per_span, per_write=per_write, share=share)
 
 
 def zero_card_vs_cpu(dev, paths, games):
@@ -3552,12 +3890,14 @@ def phase_zero(torchgo, dev, card, counters):
     walls = zero_cli(work, paths, card)
     t1 = time.perf_counter()
     out = zero_timed(torchgo, dev, card, counters, paths)
+    out["instrumentation"] = zero_instrumentation(
+        card, paths, out, os.path.join(work, "straight"))
     t2 = time.perf_counter()
     zero_card_vs_cpu(dev, paths, out["games"])
     zero_pool(dev, work, card)
     out["phase_s"] = time.perf_counter() - t0
     out["cli_walls"] = walls
-    log(f"zero phase: {out['phase_s']:.1f} s (specs and the three CLI runs "
+    log(f"zero phase: {out['phase_s']:.1f} s (specs and the four CLI runs "
         f"{t1 - t0:.1f} s, the timed iteration and its checks "
         f"{t2 - t1:.1f} s, card vs CPU and the pool "
         f"{time.perf_counter() - t2:.1f} s)")
@@ -4520,10 +4860,37 @@ def phase_incremental(pygo, torchgo, dev, card, counters, specs):
                 kernels=kernels, main=main_path, selfplay=sp)
 
 
+def host_reads_main(root: str) -> int:
+    """``--host-reads ROOT``: the port found in ROOT (a checkout, such as
+    a ``git archive`` of an earlier commit) builds its kernels and
+    counts one zero iteration's host reads (:func:`zero_host_reads`)
+    in ``ROOT/build/host_reads``; prints them as JSON."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    try:
+        from rocalphago_tpu_torch.engine import torchgo
+        from rocalphago_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: no port in {root}: {e}", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.KERNELS.build_all()
+    work = os.path.join(root, "build", "host_reads")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    hr = zero_host_reads(torchgo, dev, zero_specs(work))
+    print(json.dumps({"root": root, "port": os.path.dirname(
+        torchgo.__file__), **hr}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-reads":
+        return host_reads_main(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from rocalphago_tpu_torch.engine import pygo, torchgo

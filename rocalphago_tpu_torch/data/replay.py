@@ -27,7 +27,12 @@ either package reads the other's records and spills.
 
 Blocking waits are tagged :func:`~rocalphago_tpu_torch.runtime.
 watchdog.waiting_on` ``("replay_fill")``, so a starving learner's
-stall event is told apart from a hang. The module imports numpy only.
+stall event is told apart from a hang. The registry
+(:mod:`~rocalphago_tpu_torch.obs.registry`) carries the reference's
+``replay_fill_games``, ``replay_ingest_games_total``,
+``replay_ingest_per_min``, ``replay_evicted_games_total``,
+``replay_spilled_total`` and ``replay_sample_staleness_seconds``. The
+module imports numpy only.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from rocalphago_tpu_torch.obs import registry
 from rocalphago_tpu_torch.runtime import atomic, watchdog
 
 #: default capacity in entries (one entry = one self-play batch)
@@ -204,6 +210,7 @@ class ReplayBuffer:
         self._seq = 0                          # guarded-by: self._cond
         self._closed = False                   # guarded-by: self._cond
         self._ingested = 0                     # guarded-by: self._cond
+        self._t_first: float | None = None     # guarded-by: self._cond
         self._rng = np.random.default_rng(seed)  # guarded-by: self._cond
         # spill names carry an incarnation tag, so this buffer's files
         # never collide with a dead incarnation's leftovers: restore()
@@ -227,9 +234,11 @@ class ReplayBuffer:
         the oldest entry when full, or with ``evict=False`` refuses
         (returns False, the buffer untouched)."""
         games = _as_host(games)
+        n_games = int(games.winners.shape[0])
         deadline = (None if timeout is None
                     else time.monotonic() + timeout)
         evict_seqs: list[int] = []
+        evicted_games = 0
         with self._cond:
             while (block and not self._closed
                    and len(self._entries) >= self.capacity):
@@ -243,7 +252,9 @@ class ReplayBuffer:
             if not evict and len(self._entries) >= self.capacity:
                 return False
             while len(self._entries) >= self.capacity:
-                evict_seqs.append(self._entries.pop(0).seq)
+                old = self._entries.pop(0)
+                evict_seqs.append(old.seq)
+                evicted_games += int(old.games.winners.shape[0])
             entry = ReplayEntry(self._seq, int(version), games,
                                 time.monotonic())
             self._seq += 1
@@ -260,11 +271,28 @@ class ReplayBuffer:
                 for seq in evict_seqs:
                     self._unspill(seq)
             self._entries.append(entry)
-            self._ingested += int(games.winners.shape[0])
+            self._ingested += n_games
+            if self._t_first is None:
+                self._t_first = time.monotonic()
+            fill = self._fill_games()
+            total, t_first = self._ingested, self._t_first
             self._cond.notify_all()
+        if self.spill_dir:
+            registry.counter("replay_spilled_total").inc()
+        registry.gauge("replay_fill_games").set(fill)
+        registry.counter("replay_ingest_games_total").inc(n_games)
+        minutes = max(time.monotonic() - t_first, 1e-9) / 60.0
+        registry.gauge("replay_ingest_per_min").set(total / minutes)
+        if evicted_games:
+            registry.counter("replay_evicted_games_total").inc(
+                evicted_games)
         return True
 
     # ------------------------------------------------------- consumers
+
+    def _fill_games(self) -> int:
+        """Under the lock: the games in the ring."""
+        return sum(int(e.games.winners.shape[0]) for e in self._entries)
 
     def _wait_nonempty(self, deadline) -> bool:
         """Under the lock: wait for an entry; False on timeout or when
@@ -289,9 +317,11 @@ class ReplayBuffer:
                 if not self._wait_nonempty(deadline):
                     return None
                 entry = self._entries.pop(0)
+                fill = self._fill_games()
                 self._cond.notify_all()   # room for paced producers
         if self.spill_dir:
             self._unspill(entry.seq)      # consumed: not restored
+        self._observe_out(entry, fill)
         return entry
 
     def sample(self, timeout: float | None = None) \
@@ -308,7 +338,10 @@ class ReplayBuffer:
                 n = len(self._entries)
                 back = min(int(self._rng.geometric(self.sample_p)) - 1,
                            n - 1)
-                return self._entries[n - 1 - back]
+                entry = self._entries[n - 1 - back]
+                fill = self._fill_games()
+        self._observe_out(entry, fill)
+        return entry
 
     # ------------------------------------------------------- lifecycle
 
@@ -359,19 +392,25 @@ class ReplayBuffer:
                 continue
             recovered.append((_as_host(games), version))
         evict_seqs: list[int] = []
+        evicted_games = 0
         new_entries: list[ReplayEntry] = []
         with self._cond:
             if self._closed:
                 return 0
             for games, version in recovered:
                 while len(self._entries) >= self.capacity:
-                    evict_seqs.append(self._entries.pop(0).seq)
+                    old = self._entries.pop(0)
+                    evict_seqs.append(old.seq)
+                    evicted_games += int(old.games.winners.shape[0])
                 entry = ReplayEntry(self._seq, int(version), games,
                                     time.monotonic())
                 self._seq += 1
                 self._entries.append(entry)
                 self._ingested += int(games.winners.shape[0])
                 new_entries.append(entry)
+            if new_entries and self._t_first is None:
+                self._t_first = time.monotonic()
+            fill = self._fill_games()
             self._cond.notify_all()
         # file I/O outside the lock: drop the old files, then re-spill
         # only the entries still in the buffer
@@ -392,6 +431,12 @@ class ReplayBuffer:
         for seq in evict_seqs:
             if seq not in restored_seqs:
                 self._unspill(seq)
+        if new_entries:
+            registry.counter("replay_spilled_total").inc(len(new_entries))
+            registry.gauge("replay_fill_games").set(fill)
+        if evicted_games:
+            registry.counter("replay_evicted_games_total").inc(
+                evicted_games)
         return len(new_entries)
 
     def discard_spill(self) -> int:
@@ -420,6 +465,12 @@ class ReplayBuffer:
             os.unlink(self._spill_path(seq))
         except OSError:
             pass
+
+    def _observe_out(self, entry: ReplayEntry, fill: int) -> None:
+        """The registry's view of a take: the entry's age and the fill."""
+        registry.histogram("replay_sample_staleness_seconds").observe(
+            time.monotonic() - entry.t_ingest)
+        registry.gauge("replay_fill_games").set(fill)
 
 
 class JsonlIngester:

@@ -11,6 +11,12 @@ from a PUCT search on the card (``--gumbel``: the Gumbel root search,
 playing each ply's halving winner), then writes one SGF per game and a
 ``summary.json``. It runs on the card unless ``--device`` names another
 device, and raises when no card is there.
+
+The summary carries the registry's snapshot (this CLI writes no
+``metrics.jsonl``): ``selfplay_game_plies`` (one observation per game,
+from the game lengths the summary reads anyway), ``selfplay_games_total``
+and ``selfplay_games_per_min``, beside the runners' own metrics. Fault
+barriers: ``selfplay_cli.pre_play``, ``post_play`` and ``post_sgf``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 from rocalphago_tpu_torch.data import sgf
 from rocalphago_tpu_torch.engine import pygo, torchgo
 from rocalphago_tpu_torch.models import NeuralNetBase
+from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.atomic import atomic_write_json
 
 
@@ -180,13 +188,21 @@ def main(argv=None):
                             batch=a.games, max_moves=a.max_moves,
                             temperature=a.temperature, device=dev)
 
+    faults.barrier("selfplay_cli.pre_play")
     t0 = time.monotonic()
     result = run(torch.Generator(device=dev).manual_seed(a.seed))
     winners = result.winners.cpu().numpy()
     dt = max(time.monotonic() - t0, 1e-9)
+    faults.barrier("selfplay_cli.post_play")
 
     num_moves = result.num_moves.cpu().numpy()
+    ply_h = obs_registry.histogram("selfplay_game_plies",
+                                   edges=obs_registry.COUNT_EDGES)
+    for moves in num_moves:
+        ply_h.observe(float(moves))
+    obs_registry.counter("selfplay_games_total").inc(a.games)
     games_per_min = a.games * 60.0 / dt
+    obs_registry.gauge("selfplay_games_per_min").set(games_per_min)
     summary = {
         "games": a.games,
         "black_wins": int((winners > 0).sum()),
@@ -202,6 +218,8 @@ def main(argv=None):
             cfg, result, a.out, black_name=os.path.basename(a.policy),
             white_name=os.path.basename(a.opponent or a.policy))
         summary["sgf_files"] = len(paths)
+        faults.barrier("selfplay_cli.post_sgf")
+    summary["registry"] = obs_registry.snapshot()
     atomic_write_json(os.path.join(a.out, "summary.json"), summary)
     print(json.dumps(summary))
     return summary

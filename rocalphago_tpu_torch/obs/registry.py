@@ -18,12 +18,14 @@ end of a session (event ``registry``).
 * :func:`snapshot` is deterministic: the same recorded metrics give the
   same nested dict in the same sorted key order.
 * :func:`render_text` emits the Prometheus text exposition shape.
+* :func:`timed` is the trainers' data-starvation probe.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 
 #: default histogram edges (seconds): microbenchmark to slow-chunk
 #: scale, the range every latency in this stack falls into
@@ -265,3 +267,19 @@ snapshot = REGISTRY.snapshot
 render_text = REGISTRY.render_text
 log_to = REGISTRY.log_to
 reset = REGISTRY.reset
+
+
+def timed(iterable, hist: Histogram):
+    """Yield from ``iterable`` recording each ``next()`` wait into
+    ``hist``: the data-starvation probe the trainers wrap their
+    prefetch iterators with (host wait per batch; near zero while the
+    input pipeline keeps up)."""
+    it = iter(iterable)
+    while True:
+        t0 = time.monotonic()
+        try:
+            x = next(it)
+        except StopIteration:
+            return
+        hist.observe(time.monotonic() - t0)
+        yield x

@@ -16,8 +16,13 @@ Nesting is per thread (a thread-local stack), but the set of open spans
 is visible process-wide through :func:`open_spans` / :func:`where`, so
 the watchdog's ``stall`` events say where the process hung; the stack
 is kept even with no sink configured (a span without a sink emits
-nothing). One process, one sink: the GTP CLI calls :func:`configure`
-right after building its ``MetricsLogger``.
+nothing). One process, one sink: the GTP CLI and the trainers call
+:func:`configure` right after building their ``MetricsLogger``.
+
+Span durations are host wall time. CUDA work is queued, not waited
+for, so a span around a phase that only launches kernels closes when
+the host has queued them; a phase's device remainder lands in the
+first span that reads a result back (the trainers' metrics read).
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ def configure(metrics=None, enabled: bool = True) -> None:
     global _sink, _enabled
     _sink = metrics
     _enabled = enabled
+
+
+def sink():
+    """The configured sink (None when detached): a caller that runs a
+    nested trainer, which configures its own, puts this one back."""
+    return _sink
 
 
 def emit(event: str, **fields) -> None:

@@ -1,6 +1,6 @@
 """A supervised worker fleet: restarts, crash-loop parking, drain. A
 copy of the reference package's ``runtime/supervisor.py``, with its
-defaults (no environment knobs) and without the metrics registry.
+defaults (no environment knobs).
 
 * **Restart policy** (:class:`RestartPolicy`): a dead worker is
   classified with :func:`.retries.is_transient`'s line, restarted
@@ -27,7 +27,10 @@ loop body after an unexpected exception.
 
 Lifecycle events (``worker_restart``, ``worker_parked``,
 ``worker_recovered``, ``drain``) go to the run's ``metrics.jsonl``
-through the given logger.
+through the given logger; the registry counts
+``supervisor_restarts_total{worker=,reason=}`` and
+``supervisor_parked_total{worker=}`` and observes
+``supervisor_mttr_seconds``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import signal
 import threading
 import time
 
+from rocalphago_tpu_torch.obs import registry
 from rocalphago_tpu_torch.runtime import retries
 from rocalphago_tpu_torch.runtime import watchdog as watchdog_mod
 
@@ -111,6 +115,7 @@ class Handle:
             self._recover_t0 = None
             mttr = time.monotonic() - t0
             self.last_mttr_s = mttr
+            registry.histogram("supervisor_mttr_seconds").observe(mttr)
             self._sup._emit("worker_recovered", worker=self.name,
                             restarts=self.restarts,
                             mttr_s=round(mttr, 3))
@@ -232,6 +237,7 @@ class Supervisor:
 
     def _park(self, h: Handle, reason: str) -> None:
         h.parked = True
+        registry.counter("supervisor_parked_total", worker=h.name).inc()
         self._emit("worker_parked", worker=h.name, reason=reason,
                    deaths=len(h._deaths),
                    error=(f"{type(h.error).__name__}: {h.error}"
@@ -248,6 +254,8 @@ class Supervisor:
             return
         h.restarts += 1
         delay = self.policy.delay(h.restarts, key=h.name)
+        registry.counter("supervisor_restarts_total", worker=h.name,
+                         reason=reason).inc()
         self._emit("worker_restart", worker=h.name, reason=reason,
                    restarts=h.restarts, delay_s=round(delay, 3),
                    error=f"{type(err).__name__}: {err}")
@@ -354,6 +362,8 @@ class SupervisedThread:
                 reason = self.policy.classify(e)
                 if self.policy.crash_looping(self._deaths, now):
                     self.parked = True
+                    registry.counter("supervisor_parked_total",
+                                     worker=self.name).inc()
                     self._emit("worker_parked", worker=self.name,
                                reason="crash_loop",
                                deaths=len(self._deaths),
@@ -363,6 +373,8 @@ class SupervisedThread:
                     return
                 self.restarts += 1
                 delay = self.policy.delay(self.restarts, key=self.name)
+                registry.counter("supervisor_restarts_total",
+                                 worker=self.name, reason=reason).inc()
                 self._emit("worker_restart", worker=self.name,
                            reason=reason, restarts=self.restarts,
                            delay_s=round(delay, 3),

@@ -452,7 +452,7 @@ class DeviceMCTS:
         if budget is not None:
             budget = budget.to(torch.int32)
         enforce = deadline is not None and not deadline.unlimited
-        pipe = ChunkPipeline(tree.n_nodes.device)
+        pipe = ChunkPipeline(tree.n_nodes.device, runner="device_mcts")
         if not owned and n > 0:
             tree = copy_tree(tree)
         free = self._free(tree)
@@ -776,7 +776,7 @@ class GumbelMCTS:
                 roots, caches, noise, generator)
         self.last_caches = caches
         enforce = deadline is not None and not deadline.unlimited
-        pipe = ChunkPipeline(tree.n_nodes.device)
+        pipe = ChunkPipeline(tree.n_nodes.device, runner="gumbel")
         ran, cut, chunk_i = 0, False, 0
         t_start = time.monotonic()
         for k, v in self.schedule:

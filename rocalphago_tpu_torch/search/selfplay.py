@@ -310,7 +310,8 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
         states = (new_states(cfg, batch, device=dev)
                   if initial_states is None else initial_states)
         ply.caches = None            # cold per run
-        pipe = pipeline if pipeline is not None else ChunkPipeline(dev)
+        pipe = (pipeline if pipeline is not None
+                else ChunkPipeline(dev, runner="selfplay"))
         acts, lives = [], []
         done_plies = None
 

@@ -19,9 +19,13 @@ Two pacing modes:
 
 Each game is retried on transient failures (``play`` changes nothing
 the caller sees); any other failure parks the actor with ``error`` set,
-which a :class:`~..runtime.supervisor.Supervisor` treats as a death.
-Waits are tagged ``actor:<name>`` in the watchdog's ``waiting_on``
-registry.
+which a :class:`~..runtime.supervisor.Supervisor` treats as a death
+(:meth:`SelfplayActor.inject_fault` arms one at the next game; the
+``actor.game`` fault barrier is hit before each game). Waits are
+tagged ``actor:<name>`` in the watchdog's ``waiting_on`` registry. A
+game plays in the span ``actor.play``; the registry counts
+``actor_games_total{actor=}`` and the publisher sets
+``actor_params_version``.
 
 PyTorch specifics: grad mode is per thread, so ``play`` enters
 ``no_grad`` itself; the games draw only from the generators built from
@@ -39,7 +43,8 @@ import threading
 import time
 
 from rocalphago_tpu_torch.data.replay import ZeroGames
-from rocalphago_tpu_torch.runtime import retries, watchdog
+from rocalphago_tpu_torch.obs import registry, trace
+from rocalphago_tpu_torch.runtime import faults, retries, watchdog
 from rocalphago_tpu_torch.training.zero import next_keys
 
 #: wait slice for params and buffer waits (how fast a stop is seen)
@@ -120,6 +125,7 @@ class ParamsPublisher:
             self._value = value
             v = self._version
             self._cond.notify_all()
+        registry.gauge("actor_params_version").set(v)
         return v
 
     def get(self):
@@ -172,6 +178,7 @@ class SelfplayActor:
         self._poll_s = POLL_S if poll_s is None else poll_s
         self._metrics = metrics
         self._on_progress = on_progress   # the supervisor's heartbeat
+        self._inject: BaseException | None = None
         self.games_played = 0
         self.error: BaseException | None = None
         self._stop = threading.Event()
@@ -189,6 +196,14 @@ class SelfplayActor:
 
     def alive(self) -> bool:
         return self._thread.is_alive()
+
+    def inject_fault(self, exc: BaseException | None = None) -> None:
+        """Arm a one-shot fault raised at this actor's next game
+        boundary (default :class:`~..runtime.faults.InjectedKill`): the
+        deterministic kill of one actor; schedules across a run go
+        through :func:`~..runtime.faults.install`."""
+        self._inject = exc if exc is not None else faults.InjectedKill(
+            f"injected kill of {self.name} (inject_fault)")
 
     def _run(self) -> None:
         rng = self._rng
@@ -217,8 +232,14 @@ class SelfplayActor:
                 return games_to_host(games)
 
             try:
-                host = (self._gang.run(_play_synced) if self._gang
-                        else _play_synced())
+                faults.barrier("actor.game", iteration=index)
+                if self._inject is not None:
+                    exc, self._inject = self._inject, None
+                    raise exc
+                with trace.span("actor.play", actor=self.name,
+                                game=index):
+                    host = (self._gang.run(_play_synced) if self._gang
+                            else _play_synced())
             except BaseException as e:  # noqa: BLE001 — park and report
                 self.error = e
                 if self._metrics is not None:
@@ -231,6 +252,8 @@ class SelfplayActor:
                         host, version=version, block=self._pace,
                         timeout=self._poll_s)
                 if accepted:
+                    registry.counter("actor_games_total",
+                                     actor=self.name).inc()
                     self.games_played += 1
                     index += 1
                     if self._on_progress is not None:

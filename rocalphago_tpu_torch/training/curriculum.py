@@ -12,9 +12,12 @@ cross stages; each stage starts a fresh optimizer.
 Layout: ``out_dir/stageNN_bSS/`` is a complete zero ``out_dir``
 (resumable, gated, exported); the curriculum's own stream is
 ``out_dir/metrics.jsonl`` (``curriculum_stage`` and
-``curriculum_transfer`` events) and ``out_dir/curriculum.json`` holds
-the summary. Flags this parser does not own go to every stage's
-``run_training`` as they are; ``--device`` goes to both.
+``curriculum_transfer`` events, the spans ``curriculum.stage`` and
+``curriculum.transfer``) and ``out_dir/curriculum.json`` holds the
+summary. Each stage's run points the process's trace sink at its own
+stream; the curriculum points it back before the stage's span closes.
+Flags this parser does not own go to every stage's ``run_training`` as
+they are; ``--device`` goes to both.
 
 ``--transfer-games N`` plays the final policy against a fresh net of
 the same architecture at the final board size, raw policy, and claims
@@ -40,6 +43,7 @@ import time
 
 from rocalphago_tpu_torch.device import resolve_device
 from rocalphago_tpu_torch.engine.torchgo import default_komi
+from rocalphago_tpu_torch.obs import trace
 
 
 def parse_stages(spec: str) -> list:
@@ -146,6 +150,7 @@ def run_curriculum(argv=None) -> dict:
     metrics = MetricsLogger(os.path.join(a.out_dir, "metrics.jsonl"))
     metrics.log("curriculum_start", stages=[list(s) for s in stages],
                 cmd=" ".join(sys.argv))
+    trace.configure(metrics)
     prev_policy, prev_value = a.policy_json, a.value_json
     stage_rows = []
     summary: dict = {}
@@ -156,9 +161,14 @@ def run_curriculum(argv=None) -> dict:
                                       os.path.join(stage_dir, "init"),
                                       device=a.device)
             t0 = time.time()
-            final = run_training([p_in, v_in, stage_dir, *passthrough,
-                                  "--iterations", str(iters),
-                                  "--seed", str(a.seed + i)])
+            with trace.span("curriculum.stage", stage=i, board=board,
+                            iterations=iters):
+                final = run_training([p_in, v_in, stage_dir, *passthrough,
+                                      "--iterations", str(iters),
+                                      "--seed", str(a.seed + i)])
+                # the stage's run pointed the sink at its own stream:
+                # point it back before this span closes
+                trace.configure(metrics)
             row = {"stage": i, "board": board, "iterations": iters,
                    "duration_s": round(time.time() - t0, 3),
                    "out_dir": stage_dir, **final}
@@ -169,10 +179,13 @@ def run_curriculum(argv=None) -> dict:
         summary = {"stages": stage_rows, "final_policy": prev_policy,
                    "final_value": prev_value}
         if a.transfer_games > 0:
-            tr = transfer_match(prev_policy, stages[-1][0],
-                                a.transfer_games, a.transfer_temperature,
-                                a.transfer_move_limit,
-                                a.seed + len(stages), device=a.device)
+            board = stages[-1][0]
+            with trace.span("curriculum.transfer", board=board,
+                            games=a.transfer_games):
+                tr = transfer_match(prev_policy, board, a.transfer_games,
+                                    a.transfer_temperature,
+                                    a.transfer_move_limit,
+                                    a.seed + len(stages), device=a.device)
             metrics.log("curriculum_transfer", **tr)
             summary["transfer"] = tr
         with open(os.path.join(a.out_dir, "curriculum.json"), "w") as f:

@@ -10,14 +10,19 @@ transient failures: ``learn`` zeroes the gradients at its start and
 changes the state only at its end.
 
 ``idle_frac`` -- the learner's wait for games over its wall time -- is
-the number the actor/learner split exists to push down.
+the number the actor/learner split exists to push down; the registry
+carries it as ``learner_idle_frac``, beside ``learner_steps_total`` and
+``learner_wait_seconds``. A step runs in the span ``learner.step``
+(tagged with the batch's params version), after the fault barrier of
+the same name, where the batch is already taken.
 """
 
 from __future__ import annotations
 
 import time
 
-from rocalphago_tpu_torch.runtime import retries
+from rocalphago_tpu_torch.obs import registry, trace
+from rocalphago_tpu_torch.runtime import faults, retries
 
 
 class ZeroLearner:
@@ -59,7 +64,11 @@ class ZeroLearner:
         t1 = time.monotonic()
         if entry is None:
             self._wait_s += t1 - t0
+            registry.gauge("learner_idle_frac").set(self.idle_frac)
             return None
+        # a kill here finds the batch taken: the consumed but unlearned
+        # entry the failover path must ride out
+        faults.barrier("learner.step", iteration=self.steps)
 
         def _learn_synced():
             new_state, m = retries.retry_call(
@@ -68,12 +77,16 @@ class ZeroLearner:
                                    logger=self._metrics))
             return new_state, metrics_to_host(m)
 
-        new_state, m = (self._gang.run(_learn_synced) if self._gang
-                        else _learn_synced())
+        with trace.span("learner.step", version=entry.version):
+            new_state, m = (self._gang.run(_learn_synced) if self._gang
+                            else _learn_synced())
         t2 = time.monotonic()
         self._wait_s += t1 - t0
         self._busy_s += t2 - t1
         self.steps += 1
         m["replay_version"] = entry.version
         m["replay_staleness_s"] = round(t1 - entry.t_ingest, 3)
+        registry.counter("learner_steps_total").inc()
+        registry.histogram("learner_wait_seconds").observe(t1 - t0)
+        registry.gauge("learner_idle_frac").set(self.idle_frac)
         return new_state, m, entry

@@ -27,7 +27,14 @@ An iteration:
 * **updates** with one ``torch.optim.SGD`` step (``optax.sgd``).
 
 The replay makes no device→host sync; the iteration's one sync is the
-caller's read of the metrics. Both phases always run ``move_limit``
+caller's read of the metrics. The phases run in the reference's spans
+``rl.play``, ``rl.replay`` (tagged with the host's ply count) and
+``rl.update``; they time the host's dispatch, and the card's remainder
+lands in the trainer's ``rl.iteration`` span, which the metrics read
+closes. The trainer adds ``rl.data`` (the opponent draw) and
+``rl.save``, the barriers ``rl.pre_iteration``, ``rl.post_iteration``,
+``rl.pre_save`` and ``rl.post_save``, and the chunked replay's
+pipeline records as runner ``rl.replay``. Both phases always run ``move_limit``
 plies, so the monolithic and chunked iterations take the same draws
 and end on the same bits. The game draws come from a
 ``torch.Generator`` carried in :class:`RLState` (checkpointed, so a
@@ -71,7 +78,9 @@ from rocalphago_tpu_torch.models.weights import (
     read_flax_msgpack,
     write_flax_msgpack,
 )
-from rocalphago_tpu_torch.runtime import retries
+from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.runtime import faults, retries
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.selfplay import (
     SelfplayResult,
@@ -227,12 +236,15 @@ class RLIteration:
         """The game batch, learner against ``opponent``, drawn from
         ``generator``."""
         args = (self.cfg, self.features, self.module, opponent)
-        if self.chunk:
-            return make_selfplay_chunked(
-                *args, self.batch, self.move_limit, chunk=self.chunk,
-                temperature=self.temperature, device=self.device)(generator)
-        return play_games(*args, generator, self.batch, self.move_limit,
-                          self.temperature, device=self.device)
+        with trace.span("rl.play"):
+            if self.chunk:
+                return make_selfplay_chunked(
+                    *args, self.batch, self.move_limit, chunk=self.chunk,
+                    temperature=self.temperature,
+                    device=self.device)(generator)
+            return play_games(*args, generator, self.batch,
+                              self.move_limit, self.temperature,
+                              device=self.device)
 
     def replay(self, result: SelfplayResult) -> torch.Tensor:
         """Accumulate the iteration's gradient in the module's
@@ -243,20 +255,23 @@ class RLIteration:
         self.optimizer.zero_grad(set_to_none=True)
         plies = result.actions.shape[0]
         span = self.chunk or max(plies, 1)
-        pipe = ChunkPipeline(self.device) if self.chunk else None
-        for offset in range(0, plies, span):
-            for t in range(offset, min(offset + span, plies)):
-                states = self.replay_ply(states, z, result.actions[t],
-                                         live[t], t)
+        pipe = (ChunkPipeline(self.device, runner="rl.replay") if self.chunk
+                else None)
+        with trace.span("rl.replay", plies=plies):
+            for offset in range(0, plies, span):
+                for t in range(offset, min(offset + span, plies)):
+                    states = self.replay_ply(states, z, result.actions[t],
+                                             live[t], t)
+                if pipe is not None:
+                    pipe.push()
             if pipe is not None:
-                pipe.push()
-        if pipe is not None:
-            pipe.finish()
+                pipe.finish()
         return z
 
     def update(self) -> None:
         """One SGD step on the accumulated gradient."""
-        self.optimizer.step()
+        with trace.span("rl.update"):
+            self.optimizer.step()
 
     def __call__(self, state: RLState, opponent: torch.nn.Module) -> dict:
         generator = torch.Generator(device=self.device)
@@ -395,6 +410,8 @@ class RLTrainer:
             os.path.join(cfg.out_dir, "checkpoints"))
         self.metrics = MetricsLogger(
             os.path.join(cfg.out_dir, "metrics.jsonl"))
+        # spans share the metrics stream (obs.trace)
+        trace.configure(self.metrics)
         self.start_iteration = 0
         self._maybe_resume()
 
@@ -419,32 +436,44 @@ class RLTrainer:
         if cfg.chunk:
             step_fn = retries.retry(max_attempts=3, base_delay=1.0)(step_fn)
         for it in range(self.start_iteration, cfg.iterations):
-            opp_params, opp_name = self.pool.sample(
-                cfg.seed, it, save_every=cfg.save_every)
-            self.opponent.load_state_dict(opp_params)
-            t0 = time.time()
-            m = step_fn(self.state, self.opponent)
-            # the win-rate fetch syncs the iteration's work, so the
-            # time below is the iteration's wall time
-            win = float(m["win_rate"])
-            entry = {
-                "iteration": it, "opponent": opp_name,
-                "win_rate": win,
-                "mean_moves": float(m["mean_moves"]),
-                "games_per_min": cfg.game_batch * 60.0
-                / max(time.time() - t0, 1e-9),
-            }
-            self.metrics.log("iteration", **entry)
-            meta.record_epoch(entry)
-            final = entry
-            if (it + 1) % cfg.save_every == 0 or it + 1 == cfg.iterations:
-                # pool snapshot and exports BEFORE the checkpoint save
-                # (the commit point): a crash anywhere in here is healed
-                # by resume re-running the iteration and rewriting
-                # identical artifacts atomically
-                self.pool.add(self.state.module.state_dict(), it + 1)
-                self._export_weights(it + 1)
-                self.ckpt.save(it + 1, self.state.state_dict())
+            with trace.span("rl.iteration", iteration=it):
+                faults.barrier("rl.pre_iteration", it)
+                with trace.span("rl.data"):    # the opponent draw (I/O)
+                    opp_params, opp_name = self.pool.sample(
+                        cfg.seed, it, save_every=cfg.save_every)
+                    self.opponent.load_state_dict(opp_params)
+                t0 = time.time()
+                m = step_fn(self.state, self.opponent)
+                # the win-rate read syncs the iteration's work, so the
+                # time below and rl.iteration are its wall time
+                win = float(m["win_rate"])
+                faults.barrier("rl.post_iteration", it)
+                entry = {
+                    "iteration": it, "opponent": opp_name,
+                    "win_rate": win,
+                    "mean_moves": float(m["mean_moves"]),
+                    "games_per_min": cfg.game_batch * 60.0
+                    / max(time.time() - t0, 1e-9),
+                }
+                self.metrics.log("iteration", **entry)
+                meta.record_epoch(entry)
+                final = entry
+                if ((it + 1) % cfg.save_every == 0
+                        or it + 1 == cfg.iterations):
+                    with trace.span("rl.save"):
+                        # pool snapshot and exports BEFORE the checkpoint
+                        # save (the commit point): a crash anywhere in
+                        # here is healed by resume re-running the
+                        # iteration and rewriting identical artifacts
+                        # atomically
+                        self.pool.add(self.state.module.state_dict(),
+                                      it + 1)
+                        self._export_weights(it + 1)
+                        faults.barrier("rl.pre_save", it)
+                        self.ckpt.save(it + 1, self.state.state_dict())
+                        faults.barrier("rl.post_save", it)
+        # the run's counter and histogram state, for obs_report
+        obs_registry.log_to(self.metrics)
         self.metrics.close()
         return final
 

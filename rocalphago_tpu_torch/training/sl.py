@@ -20,8 +20,14 @@ The port of ``training/sl.py`` (the reference's
   ``benchmark``).
 
 :class:`SLTrainer`'s loop is also the value trainer's (:mod:`.value`),
-which supplies its own step, loss and metrics. Single card only:
-``num_devices`` is ``None`` or 1.
+which supplies its own step, loss and metrics, and its own ``PHASE``:
+the prefix of the reference's spans (``sl.epoch`` with ``sl.train``,
+``sl.eval``, ``sl.export`` and ``sl.save`` inside), fault barriers
+(``sl.pre_epoch``, ``sl.step_save``, ``sl.pre_save``, ``sl.post_save``)
+and the ``trainer`` label of ``train_data_wait_seconds`` (each batch's
+host wait, :func:`..obs.registry.timed`). Spans and the registry
+snapshot go to ``metrics.jsonl``. Single card only: ``num_devices`` is
+``None`` or 1.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ from rocalphago_tpu_torch.device import resolve_device
 from rocalphago_tpu_torch.io.checkpoint import MetadataWriter, TrainCheckpointer
 from rocalphago_tpu_torch.io.metrics import MetricsLogger
 from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
+from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.training.symmetries import random_transform_batch
 
 
@@ -217,6 +226,8 @@ class SLTrainer:
     each module's ``run_training`` CLI."""
 
     METRICS = ("loss", "accuracy")
+    #: the prefix of the spans and barriers, the ``trainer`` label
+    PHASE = "sl"
 
     def __init__(self, cfg, net: NeuralNetBase | None = None):
         self.cfg = cfg
@@ -251,6 +262,8 @@ class SLTrainer:
             os.path.join(cfg.out_dir, "checkpoints"))
         self.metrics = MetricsLogger(
             os.path.join(cfg.out_dir, "metrics.jsonl"))
+        # spans share the metrics stream (obs.trace)
+        trace.configure(self.metrics)
         self.train_idx, self.val_idx, self.test_idx = split_indices(
             len(self.dataset), cfg.train_val_test, seed=cfg.seed,
             path=os.path.join(cfg.out_dir, "shuffle.npz"))
@@ -300,52 +313,65 @@ class SLTrainer:
                     "config": dataclasses.asdict(cfg),
                     "dataset_positions": len(self.dataset)})
         steps_per_epoch = self._steps_per_epoch()
+        phase = self.PHASE
+        # host wait per prefetched batch: the data-starvation probe
+        data_wait = obs_registry.histogram("train_data_wait_seconds",
+                                           trainer=phase)
         final = {}
         for epoch in range(self.start_epoch, cfg.epochs):
-            skip = self._resume_skip if epoch == self.start_epoch else 0
-            # host RNG seeded per epoch → identical batch order on a
-            # re-run of the same epoch after resume
-            host_rng = np.random.default_rng(
-                np.random.SeedSequence([cfg.seed, epoch]))
-            it = batch_iterator(self.dataset, self.train_idx,
-                                cfg.minibatch, host_rng, epochs=1,
-                                skip=skip)
-            t0 = time.time()
-            steps = []
-            with contextlib.closing(
-                    device_prefetch(it, self.device, size=2)) as batches:
-                for i, (planes, targets) in enumerate(batches):
-                    if i >= steps_per_epoch - skip:
-                        break
-                    self.state, m = self._train_step(
-                        self.state, planes, targets)
-                    steps.append(m)
-                    if cfg.save_every:
-                        gstep = epoch * steps_per_epoch + skip + len(steps)
-                        if gstep % cfg.save_every == 0:
-                            self.ckpt.save(gstep, self.state.state_dict())
-            if not steps:
-                raise ValueError(
-                    f"train split ({len(self.train_idx)} positions) "
-                    f"yields no full minibatch of {cfg.minibatch}; "
-                    "add data or shrink the minibatch")
-            entry = {"epoch": epoch, "step": self.state.step}
-            for k in self.METRICS:
-                entry[f"train_{k}"] = float(
-                    torch.stack([m[k] for m in steps]).mean())
-            dt = time.time() - t0
-            val = self.evaluate(self.val_idx)
-            entry.update({f"val_{k}": v for k, v in val.items()})
-            entry["positions_per_s"] = (len(steps) * cfg.minibatch
-                                        / max(dt, 1e-9))
-            self.metrics.log("epoch", **entry)
-            meta.record_epoch(entry)
-            # exports BEFORE the checkpoint save (the commit point): a
-            # crash in between is healed by resume re-running the
-            # epoch and rewriting identical artifacts atomically
-            self._export_weights(epoch)
-            self.ckpt.save(self.state.step, self.state.state_dict())
-            final = entry
+            with trace.span(f"{phase}.epoch", epoch=epoch):
+                faults.barrier(f"{phase}.pre_epoch", epoch)
+                skip = self._resume_skip if epoch == self.start_epoch else 0
+                # host RNG seeded per epoch → identical batch order on a
+                # re-run of the same epoch after resume
+                host_rng = np.random.default_rng(
+                    np.random.SeedSequence([cfg.seed, epoch]))
+                it = batch_iterator(self.dataset, self.train_idx,
+                                    cfg.minibatch, host_rng, epochs=1,
+                                    skip=skip)
+                t0 = time.time()
+                steps = []
+                with trace.span(f"{phase}.train"), contextlib.closing(
+                        device_prefetch(it, self.device, size=2)) as batches:
+                    for i, (planes, targets) in enumerate(
+                            obs_registry.timed(batches, data_wait)):
+                        if i >= steps_per_epoch - skip:
+                            break
+                        self.state, m = self._train_step(
+                            self.state, planes, targets)
+                        steps.append(m)
+                        if cfg.save_every:
+                            gstep = epoch * steps_per_epoch + skip + len(steps)
+                            if gstep % cfg.save_every == 0:
+                                self.ckpt.save(gstep, self.state.state_dict())
+                                faults.barrier(f"{phase}.step_save", gstep)
+                if not steps:
+                    raise ValueError(
+                        f"train split ({len(self.train_idx)} positions) "
+                        f"yields no full minibatch of {cfg.minibatch}; "
+                        "add data or shrink the minibatch")
+                entry = {"epoch": epoch, "step": self.state.step}
+                for k in self.METRICS:
+                    entry[f"train_{k}"] = float(
+                        torch.stack([m[k] for m in steps]).mean())
+                dt = time.time() - t0
+                with trace.span(f"{phase}.eval"):
+                    val = self.evaluate(self.val_idx)
+                entry.update({f"val_{k}": v for k, v in val.items()})
+                entry["positions_per_s"] = (len(steps) * cfg.minibatch
+                                            / max(dt, 1e-9))
+                self.metrics.log("epoch", **entry)
+                meta.record_epoch(entry)
+                # exports BEFORE the checkpoint save (the commit point): a
+                # crash in between is healed by resume re-running the
+                # epoch and rewriting identical artifacts atomically
+                with trace.span(f"{phase}.export"):
+                    self._export_weights(epoch)
+                with trace.span(f"{phase}.save"):
+                    faults.barrier(f"{phase}.pre_save", epoch)
+                    self.ckpt.save(self.state.step, self.state.state_dict())
+                    faults.barrier(f"{phase}.post_save", epoch)
+                final = entry
         # held-out test-split metric (BASELINE.md metric 1 for the
         # policy: top-1 move accuracy), also reportable standalone
         # through training.evaluate
@@ -355,6 +381,8 @@ class SLTrainer:
             final = dict(final, **fields)
             meta.update(**fields)
             self.metrics.log("test", **test)
+        # the run's counter and histogram state, for obs_report
+        obs_registry.log_to(self.metrics)
         self.metrics.close()
         return final
 

@@ -7,9 +7,12 @@ pairs, the SL trainer's command line, per-epoch exports +
 shard set (``"targets": "outcome"`` in the manifest, z in the
 ``actions`` slot), the layout ``training/selfplay_data.py`` writes.
 
-The loop, checkpoints, resume and exports are the SL trainer's
-(:class:`.sl.SLTrainer`); the augmentation transforms the
-planes only -- the scalar target is rotation-invariant.
+The loop, checkpoints, resume, exports and instrumentation are the SL
+trainer's (:class:`.sl.SLTrainer`), under the prefix ``value``
+(``value.epoch`` spans, ``value.step_save`` barriers,
+``train_data_wait_seconds{trainer="value"}``); the augmentation
+transforms the planes only -- the scalar target is
+rotation-invariant.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ class ValueTrainer(SLTrainer):
     """Value-net regression on an outcome corpus."""
 
     METRICS = ("mse",)
+    PHASE = "value"
 
     def _check_dataset(self) -> None:
         super()._check_dataset()

@@ -51,6 +51,18 @@ policy match by the threshold and with a Wilson lower bound ≥ 0.5.
 Promoted pairs are the reference's ``pool/best.NNNNN.{policy,
 value}.msgpack`` files, so either package reads the other's pool.
 
+Instrumentation (the reference's names, in ``metrics.jsonl``): the
+spans ``zero.iteration`` with ``zero.selfplay``, ``zero.replay`` and
+``zero.update`` (host dispatch time: the card's remainder lands in
+``zero.iteration``, closed after the metrics read), ``zero.gate``,
+``zero.export`` and ``zero.save``; the fault barriers
+``zero.pre_iteration``, ``zero.post_iteration``, ``zero.post_gate``,
+``zero.post_export``, ``zero.pre_save``, ``zero.post_save`` and
+``zero.promote`` (before each file of a promoted pair); the replay's
+pipeline as runner ``zero.replay``, the ``aux_loss{head=}`` gauges, and
+the registry's snapshot at the end. ``--profile-dir DIR`` wraps the run
+in a ``torch.profiler`` capture and writes its Chrome trace into DIR.
+
 Single card only: ``--num-devices`` is ``None`` or 1.
 """
 
@@ -85,7 +97,10 @@ from rocalphago_tpu_torch.features.pyfeatures import (
     LADDER_FEATURES,
     output_planes,
 )
+from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs import trace
 from rocalphago_tpu_torch.ops.labels import terminal_labels
+from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
 from rocalphago_tpu_torch.search.selfplay import (
@@ -273,19 +288,21 @@ class ZeroIteration:
         run = self.selfplay(policy, value)
         self.last_selfplay = run
         generator, noise_rng = game_generators(game_seed, self.device)
-        out = run(generator, noise_rng)
-        full = None
-        if self.econ:
-            final, actions, live, visits, full = out
-        else:
-            final, actions, live, visits = out
-        ownership = score = None
-        if self.aux:
-            # labels of every final position; the loss masks them to
-            # finished games
-            ownership, score = terminal_labels(self.cfg, final)
-        return ZeroGames(actions, live, visits, winner(self.cfg, final),
-                         final.done, full, ownership, score)
+        with trace.span("zero.selfplay", plies=self.move_limit):
+            out = run(generator, noise_rng)
+            full = None
+            if self.econ:
+                final, actions, live, visits, full = out
+            else:
+                final, actions, live, visits = out
+            ownership = score = None
+            if self.aux:
+                # labels of every final position; the loss masks them
+                # to finished games
+                ownership, score = terminal_labels(self.cfg, final)
+            winners = winner(self.cfg, final)
+        return ZeroGames(actions, live, visits, winners, final.done, full,
+                         ownership, score)
 
     # ---------------------------------------------------- the learner
 
@@ -386,8 +403,8 @@ class ZeroIteration:
         stats = torch.zeros((7 if self.aux else 5,), dtype=torch.float32,
                             device=self.device)
         plies = actions.shape[0]
-        pipe = ChunkPipeline(self.device)
-        with torch.enable_grad():
+        pipe = ChunkPipeline(self.device, runner="zero.replay")
+        with trace.span("zero.replay", plies=plies), torch.enable_grad():
             for offset in range(0, plies, self.replay_chunk):
                 for t in range(offset, min(offset + self.replay_chunk,
                                            plies)):
@@ -397,9 +414,10 @@ class ZeroIteration:
                         None if full_f is None else full_f[t])
                     stats = stats + st
                 pipe.push()
-        pipe.finish()
-        return self.apply_updates(state, stats, winners, finished,
-                                  num_moves)
+            pipe.finish()
+        with trace.span("zero.update"):
+            return self.apply_updates(state, stats, winners, finished,
+                                      num_moves)
 
     def apply_updates(self, state: ZeroState, stats, winners, finished,
                       num_moves):
@@ -533,9 +551,12 @@ class ZeroGate:
         paths = self._paths(iteration)
         os.makedirs(self.pool_dir, exist_ok=True)
 
+        # policy before value, each file atomic: a crash between them
+        # leaves a policy file that snapshots() does not list
         @retries.retry(max_attempts=3, base_delay=0.2)
         def write_pair():
             for path, module in zip(paths, (policy, value)):
+                faults.barrier("zero.promote", iteration)
                 write_flax_msgpack(path, params_to_flax(module.state_dict()))
 
         write_pair()
@@ -670,9 +691,44 @@ def _parser() -> argparse.ArgumentParser:
                     help="watchdog: seconds one iteration may take before "
                          "a 'stall' event is logged and the run aborts "
                          "with the last completed checkpoint (0 = off)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of the run (host "
+                         "ops, and the card's kernels on CUDA) into this "
+                         "directory as a Chrome trace (default off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     return ap
+
+
+#: the Chrome trace ``--profile-dir`` writes
+PROFILE_TRACE = "zero.trace.json"
+
+
+def start_profile(out_dir: str, device: torch.device):
+    """Start the ``--profile-dir`` capture (host operations, and the
+    card's kernels when ``device`` is CUDA); emits the reference's
+    ``profiler`` start event. Returns the running profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    trace.emit("profiler", action="start", out_dir=out_dir)
+    print(f"zero: profiler capture -> {out_dir}", file=sys.stderr)
+    return prof
+
+
+def stop_profile(prof, out_dir: str) -> str:
+    """Stop the capture, write its Chrome trace into ``out_dir`` and emit
+    the ``profiler`` stop event; returns the trace's path."""
+    prof.stop()
+    path = os.path.join(out_dir, PROFILE_TRACE)
+    prof.export_chrome_trace(path)
+    trace.emit("profiler", action="stop", out_dir=out_dir)
+    return path
 
 
 def run_training(argv=None) -> dict:
@@ -749,6 +805,10 @@ def run_training(argv=None) -> dict:
     os.makedirs(a.out_dir, exist_ok=True)
     ckpt = TrainCheckpointer(os.path.join(a.out_dir, "checkpoints"))
     metrics = MetricsLogger(os.path.join(a.out_dir, "metrics.jsonl"))
+    # spans share the metrics stream; the opt-in capture brackets the run
+    trace.configure(metrics)
+    profiler = (start_profile(a.profile_dir, dev) if a.profile_dir
+                else None)
     meta = MetadataWriter(
         os.path.join(a.out_dir, "metadata.json"),
         header={"cmd": " ".join(sys.argv), "config": vars(a),
@@ -890,6 +950,10 @@ def run_training(argv=None) -> dict:
                 metrics.log("learner_failover",
                             error=f"{type(e).__name__}: {e}",
                             restored_step=state.iteration, target=it + 1)
+                obs_registry.counter(
+                    "supervisor_restarts_total", worker="learner",
+                    reason=("transient" if retries.is_transient(e)
+                            else "error")).inc()
                 fell_back = True
                 continue
             if out is None:
@@ -913,57 +977,79 @@ def run_training(argv=None) -> dict:
                             reason=sup.drain_reason)
                 drained = True
                 break
-            t0 = time.time()
-            if rig is None:
-                state, m = run_iteration(state, best_p, best_v)
-                # the read syncs the iteration's work: the time below is
-                # its wall time
-                m = metrics_to_host(m)
-            else:
-                state, m = _learner_iteration(state, it)
-            if watchdog is not None:
-                watchdog.beat()
-                last_done["state"] = _to_cpu(state.state_dict())
-                last_done["step"] = it + 1
-            entry = {"iteration": it, **m,
-                     "games_per_min": a.game_batch * 60.0
-                     / max(time.time() - t0, 1e-9)}
-            metrics.log("iteration", **entry)
-            meta.record_epoch(entry)
-            final = entry
-            if gate and ((it + 1) % gate_every == 0
-                         or it + 1 == a.iterations):
-                r = section(gate.match, state.policy, best_p,
-                            match_generator(a.seed, it, 0, dev))
-                promoted, wilson_lb = gate.decide(r)
-                if promoted:
-                    best_p, best_v = (snapshot(state.policy),
-                                      snapshot(state.value))
-                    gate.promote(best_p, best_v, it + 1)
-                metrics.log("gate", iteration=it, promoted=promoted,
-                            wilson_lb=round(wilson_lb, 4), **r)
-                # the ladder probe: the incumbent against a sampled
-                # past best
-                snap = gate.sample(a.seed, it)
-                if snap is not None:
-                    lp, _ = gate.load(snap, state.policy, state.value)
-                    lr = section(gate.match, best_p, lp,
-                                 match_generator(a.seed, it, 1, dev))
-                    metrics.log("ladder", iteration=it, opponent=snap[0],
-                                **lr)
-            if publisher is not None:
-                # version it + 1: the pair the synchronous loop hands
-                # iteration it + 1
-                publisher.publish(
-                    best_p if best_p is not None else snapshot(state.policy),
-                    best_v if best_v is not None else snapshot(state.value),
-                    version=it + 1)
-            if (it + 1) % a.save_every == 0 or it + 1 == a.iterations:
-                # exports before the checkpoint save (the commit point):
-                # a resume from the previous checkpoint rewrites them
-                # identically
-                section(export, it + 1)
-                ckpt.save(it + 1, state.state_dict())
+            with trace.span("zero.iteration", iteration=it):
+                faults.barrier("zero.pre_iteration", it)
+                t0 = time.time()
+                if rig is None:
+                    state, m = run_iteration(state, best_p, best_v)
+                    # the read syncs the iteration's work: the time below
+                    # and zero.iteration are its wall time
+                    m = metrics_to_host(m)
+                else:
+                    state, m = _learner_iteration(state, it)
+                if watchdog is not None:
+                    watchdog.beat()
+                    last_done["state"] = _to_cpu(state.state_dict())
+                    last_done["step"] = it + 1
+                faults.barrier("zero.post_iteration", it)
+                if "aux_loss_ownership" in m:
+                    # host floats already read above
+                    obs_registry.gauge("aux_loss", head="ownership").set(
+                        m["aux_loss_ownership"])
+                    obs_registry.gauge("aux_loss", head="score").set(
+                        m["aux_loss_score"])
+                entry = {"iteration": it, **m,
+                         "games_per_min": a.game_batch * 60.0
+                         / max(time.time() - t0, 1e-9)}
+                metrics.log("iteration", **entry)
+                meta.record_epoch(entry)
+                final = entry
+                if gate and ((it + 1) % gate_every == 0
+                             or it + 1 == a.iterations):
+                    with trace.span("zero.gate", iteration=it):
+                        r = section(gate.match, state.policy, best_p,
+                                    match_generator(a.seed, it, 0, dev))
+                        promoted, wilson_lb = gate.decide(r)
+                        if promoted:
+                            best_p, best_v = (snapshot(state.policy),
+                                              snapshot(state.value))
+                            gate.promote(best_p, best_v, it + 1)
+                        metrics.log("gate", iteration=it,
+                                    promoted=promoted,
+                                    wilson_lb=round(wilson_lb, 4), **r)
+                        # the ladder probe: the incumbent against a
+                        # sampled past best
+                        snap = gate.sample(a.seed, it)
+                        if snap is not None:
+                            lp, _ = gate.load(snap, state.policy,
+                                              state.value)
+                            lr = section(gate.match, best_p, lp,
+                                         match_generator(a.seed, it, 1,
+                                                         dev))
+                            metrics.log("ladder", iteration=it,
+                                        opponent=snap[0], **lr)
+                        faults.barrier("zero.post_gate", it)
+                if publisher is not None:
+                    # version it + 1: the pair the synchronous loop hands
+                    # iteration it + 1
+                    publisher.publish(
+                        best_p if best_p is not None
+                        else snapshot(state.policy),
+                        best_v if best_v is not None
+                        else snapshot(state.value),
+                        version=it + 1)
+                if (it + 1) % a.save_every == 0 or it + 1 == a.iterations:
+                    # exports before the checkpoint save (the commit
+                    # point): a resume from the previous checkpoint
+                    # rewrites them identically, so a crash anywhere
+                    # leaves what the straight run leaves
+                    with trace.span("zero.export", iteration=it):
+                        section(export, it + 1)
+                        faults.barrier("zero.post_export", it)
+                    with trace.span("zero.save", iteration=it):
+                        faults.barrier("zero.pre_save", it)
+                        ckpt.save(it + 1, state.state_dict())
+                        faults.barrier("zero.post_save", it)
     finally:
         if rig is not None:
             buffer.close()          # wakes paced or waiting actors
@@ -975,6 +1061,8 @@ def run_training(argv=None) -> dict:
                 restarts=sum(h.restarts for h in sup.handles()),
                 games_played=sum(h.worker.games_played for h in
                                  sup.handles() if h.worker is not None))
+        if profiler is not None:
+            stop_profile(profiler, a.profile_dir)
     if drained:
         # commit the drain point (no export: exports happen at save
         # boundaries, which the resumed run reproduces); a drain exits 0
@@ -984,6 +1072,8 @@ def run_training(argv=None) -> dict:
                     reason=sup.drain_reason)
     if watchdog is not None:
         watchdog.stop()
+    # the run's counter and histogram state, for obs_report
+    obs_registry.log_to(metrics)
     metrics.close()
     print(json.dumps(final))
     return final

@@ -3,7 +3,8 @@
 ``parse_stages`` against the reference's on good and bad stage lists,
 and a two-stage 5×5 → 7×7 run of the zero loop whose stage exports
 load in the port (at the next stage's board) and in the reference,
-with the transfer match played and Wilson-gated.
+with the transfer match played and Wilson-gated, and its spans in the
+right streams.
 """
 
 import json
@@ -60,6 +61,19 @@ def test_two_stage_run_produces_loadable_exports(tmp_path):
         assert json.load(f) == summary
     with open(os.path.join(out, "stage01_b7", "metadata.json")) as f:
         assert json.load(f)["config"]["seed"] == 1     # base seed + 1
+    # the stage spans land in the curriculum's stream (each stage's run
+    # points the sink at its own), the zero spans in the stage's
+    spans = {}
+    for run in ("", "stage00_b5", "stage01_b7"):
+        with open(os.path.join(out, run, "metrics.jsonl")) as f:
+            spans[run] = [r for r in map(json.loads, f)
+                          if r["event"] == "span"]
+    assert [(r["path"], r.get("board")) for r in spans[""]] == [
+        ("curriculum.stage", 5), ("curriculum.stage", 7),
+        ("curriculum.transfer", 7)]
+    for run in ("stage00_b5", "stage01_b7"):
+        assert "curriculum.stage/zero.iteration/zero.selfplay" in {
+            r["path"] for r in spans[run]}
     first = NeuralNetBase.load_model(
         os.path.join(out, "stage00_b5", "policy.json"), device="cpu")
     second_in = NeuralNetBase.load_model(

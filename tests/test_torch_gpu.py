@@ -884,6 +884,36 @@ def test_zero_iterations_on_the_card_repeat_bit_for_bit(cuda_device):
         assert all(torch.equal(sx[k], sy[k]) for k in sx)
 
 
+def test_zero_cli_profile_dir_traces_the_kernels(cuda_device, tmp_path):
+    """``--profile-dir`` on a 5×5 zero CLI run on the card (48- and
+    49-plane nets, so every encode reads ladders): the Chrome trace it
+    writes holds chase launches, and the run's stream the profiler's
+    start and stop records."""
+    import json
+
+    from rocalphago_tpu_torch.models import CNNValue
+    from rocalphago_tpu_torch.training import zero
+
+    pj, vj = str(tmp_path / "p.json"), str(tmp_path / "v.json")
+    CNNPolicy(board=5, layers=1, filters_per_layer=2,
+              device=cuda_device).save_model(pj)
+    CNNValue(board=5, layers=1, filters_per_layer=2,
+             device=cuda_device).save_model(vj)
+    out, prof = tmp_path / "out", tmp_path / "prof"
+    zero.run_training([pj, vj, str(out), "--game-batch", "2",
+                       "--iterations", "1", "--move-limit", "6", "--sims",
+                       "2", "--sim-chunk", "2", "--save-every", "1",
+                       "--gate-games", "2", "--profile-dir", str(prof)])
+    with open(prof / zero.PROFILE_TRACE) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "chase_kernel" in e["name"]
+               for e in events)
+    with open(out / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert [r["action"] for r in records if r["event"] == "profiler"] == [
+        "start", "stop"]
+
+
 # ------------------------------------------------------------- serving
 
 def small_serve_nets(device, size=9, dtype=torch.bfloat16):

@@ -24,6 +24,7 @@ a spill tag, so the second skipped the first one's files).
 import json
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -120,6 +121,9 @@ def test_spills_restore_across_the_packages(tmp_path):
     spill = str(tmp_path / "b")
     buf = replay.ReplayBuffer(capacity=4, spill_dir=spill)
     buf.put(make_games(5), version=9)
+    # the reference's spill tag is pid.milliseconds: a buffer made in
+    # the millisecond the port's was would read its files as its own
+    time.sleep(0.002)
     ref = ref_replay.ReplayBuffer(capacity=4, spill_dir=spill)
     assert ref.restore() == 1
     e = ref.next_batch(timeout=0)

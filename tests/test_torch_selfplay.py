@@ -389,8 +389,13 @@ def test_cli_main_on_the_cpu(tmp_path, mode):
     games = summary["games"]
     assert set(summary) == {"games", "black_wins", "white_wins", "draws",
                             "mean_moves", "games_per_min", "wall_s",
-                            "sgf_files"}
+                            "sgf_files", "registry"}
     assert summary["sgf_files"] == games
+    reg = summary["registry"]
+    assert reg["counters"]["selfplay_games_total"] >= games
+    assert reg["histograms"]["selfplay_game_plies"]["count"] >= games
+    assert reg["gauges"]["selfplay_games_per_min"] == pytest.approx(
+        summary["games_per_min"], abs=1e-3)
     assert (summary["black_wins"] + summary["white_wins"]
             + summary["draws"]) == games
     lengths = []
