@@ -118,8 +118,8 @@ Phases, in order; any failure exits non-zero before the result line:
     timed, a profile of 10 mid-game replay plies; the value-corpus
     generator's CLI (``....training.selfplay_data``) with the SL export
     before the
-    random ply and the RL export after, batch 256, at least 256
-    positions (49 planes, z ±1; both kernels launched; valid
+    random ply and the RL export after, batch 256, at least
+    ``GEN_POSITIONS`` 128 positions (49 planes, z ±1; both kernels launched; valid
     positions/s and yield); the value trainer on that corpus; and two
     device-search GTP genmoves at 100 simulations over the RL export
     and that value net -- the whole pipeline on one card;
@@ -131,8 +131,9 @@ Phases, in order; any failure exits non-zero before the result line:
     tree kernel bit-exact against its plain version on the Gumbel-grown
     batch-8 slab with every candidate's root edge forced, and timed;
     the Gumbel GTP session, this slice's main path: both nets loaded
-    by ``build_player("gumbel-mcts", ...)``, 6 genmoves at 100
-    simulations, then 4 under ``time_settings 0 1 1``, every reply a
+    by ``build_player("gumbel-mcts", ...)``, ``SEARCH_GENMOVES``
+    genmoves at 100 simulations, then 4 under ``time_settings 0 1 1``,
+    every reply a
     legal vertex, the three kernels launched (counts reset just before,
     read just after), no tree reused, its p50 beside phase 9's; a PUCT
     and a Gumbel search of 100 simulations from one root timed in turns,
@@ -141,7 +142,7 @@ Phases, in order; any failure exits non-zero before the result line:
     to 1; simulations/s; the three kernels launched); the self-play CLI
     with ``--gumbel --m-root 4``; the tournament CLI, ``gumbel-mcts``
     against ``device-mcts`` on the committed 9×9 gumbel nets
-    (``TOURNEY_GAMES`` 2, 8 playouts, move limit ``TOURNEY_MOVES`` 40,
+    (``TOURNEY_GAMES`` 2, 8 playouts, move limit ``TOURNEY_MOVES`` 20,
     no forfeit, a log line a game) and the
     Elo CLI over its log (finite ratings);
 17. the reference's own AlphaGo player, host APV-MCTS, in
@@ -149,7 +150,8 @@ Phases, in order; any failure exits non-zero before the result line:
     CLI (the 19×19 12 × 128 policy and FCN value nets, a 32-filter
     rollout net, a 12 × 128 policy with two global-pooling blocks, a
     9×9 rollout net); the main path, ``build_player("mcts", ...,
-    device_rollout=True)`` at 100 playouts, leaf batch 8, λ 0.5,
+    device_rollout=True)`` at ``MCTS_PLAYOUTS`` 32 playouts (the
+    reference's default 100, cut), leaf batch 8, λ 0.5,
     rollouts to 500 plies, in a GTP session of ``MCTS_GENMOVES``
     genmoves and ``MCTS_TIMED_GENMOVES`` under ``time_settings 0 1 1``
     (one wave each), every reply a legal vertex, labels and chase
@@ -166,7 +168,7 @@ Phases, in order; any failure exits non-zero before the result line:
     move with a top-16 policy pre-filter; and the tournament CLI,
     ``mcts`` with a rollout spec and ``--device-rollout`` against
     ``greedy`` on the committed 9×9 nets (2 games, 8 playouts, move
-    limit ``TOURNEY_MOVES`` 40, no forfeit);
+    limit ``TOURNEY_MOVES`` 30, no forfeit);
 18. the AlphaZero loop, in ``build/smoke_zero``: fresh seeded 19×19
     specs from the spec CLI (the 12 × 128 policy, 48 planes, and the
     12 × 128 FCN value net, 49 planes, with the auxiliary heads grafted
@@ -207,14 +209,15 @@ Phases, in order; any failure exits non-zero before the result line:
 19. serving, in ``build/smoke_serve``: fresh seeded 19×19 12 × 128 bf16
     specs from the spec CLI (the policy, 48 planes, and the FCN value
     net, 49 planes) loaded into a ``ServePool`` at 100 simulations and
-    warmed; ``FleetDriver.genmove_all`` at 1, 8 and 64 sessions, 2
-    genmoves each (moves/s, game-simulations/s against the 1,000 limit,
+    warmed; ``FleetDriver.genmove_all`` at 1, 8 and 64 sessions,
+    ``SERVE_GENMOVES`` 1 round each (moves/s, game-simulations/s against the 1,000 limit,
     evaluator batches, mean occupancy, the three kernels' launches,
     counts reset just before and read just after), a round at 8
     sessions under ``set_sync_debug_mode("error")``, a profiled round
     at 64 sessions and 10 simulations (kernels and host ms a convoy,
-    idle share); 4 threaded sessions through the ladder, 2 genmoves
-    each (p50, p99 against the 5 s limit, launches a genmove); a
+    idle share); 4 threaded sessions through the ladder,
+    ``SERVE_THREAD_GENMOVES`` 1 genmove each (p50, p99 against the 5 s
+    limit, launches a genmove); a
     session under ``slo_s=2.0`` with more simulations than fit,
     answering before the SLO plus about one simulation; a one-session
     pooled genmove and a standalone ``DeviceMCTSPlayer``'s with
@@ -253,12 +256,59 @@ Phases, in order; any failure exits non-zero before the result line:
     phase 11's shape with the cache and without it, ``INCR_SP_RUNS``
     timed runs each in turns from one seed (the same actions every
     time; games/min), and a segment with the cache under
-    ``set_sync_debug_mode("error")``.
+    ``set_sync_debug_mode("error")``;
+21. the network gateway, in ``build/smoke_serve``: phase 19's specs in
+    a warmed ``ServePool`` at 100 simulations behind a ``GatewayServer``
+    (``GATEWAY_CONNS`` 4 connections) and its ``GatewayHTTP``, both on
+    ephemeral ports. The main path: ``run_load`` with 4 connections of
+    ``GATEWAY_GENMOVES`` 2 genmoves from the empty board, every move
+    replayed legally on ``pygo``, the three kernels launched (counts
+    reset just before, read just after) as phase 19's threaded sessions
+    launch them (a labels and a chase launch an evaluator batch, a
+    labels launch a root, two tree launches a simulation), the wire
+    p50 and p99 against the 5 s limit beside phase 19's threaded ones,
+    ``requests.unhandled`` 0; a fifth connection shed with ``overload``
+    and ``retry_after_s`` 1.0, ``connect_with_retry`` admitted once a
+    slot frees, and a pool's session cap refusing ``new_game`` the
+    same way; an SLO server (``slo_ms`` 2000) over a pool with more
+    simulations than fit, answering with ``slo_hit`` within the SLO
+    plus about one simulation; the fault wall (an injected kill gets
+    ``internal`` and drops its connection, a transient fails one
+    request, the server serves on with nothing unhandled and every
+    slot back); ``/healthz`` and ``/metrics`` (the shed count equal to
+    the servers'); the drain (an in-flight genmove answered, then
+    ``goodbye``; ``/healthz`` 503, TCP refused, sessions back to 0,
+    the three drain events in order); and the CLIs as a user runs
+    them: ``python -m rocalphago_tpu_torch.gateway.server`` on the
+    same specs, driven by ``python -m rocalphago_tpu_torch.interface.
+    gtp --connect`` (``boardsize 19``, ``clear_board``, ``komi 7.5``,
+    two genmoves around a ``play``; every reply ``=``, every vertex
+    legal), then SIGTERM: exit 0 within the drain, the drain timeline
+    in its metrics file.
+
+Every phase's wall time is logged. Depth cut to keep the whole run
+well under 1,100 s of its 1,200 s clock with phase 21 in: phase 9's and
+16's GTP sessions 4 genmoves before the timed ones (6), both
+tournaments move limit 20 (40), phase 17's mcts session 2 + 1 genmoves
+(2 + 2; its first genmove only warms the move clock) at 32 playouts
+(the reference's default 100), phase 19's
+fleets 1 round a size (2) and threaded sessions 1 genmove each (2),
+phase 20's GTP sessions 2 genmoves before their resets (4), the
+generator ≥128 positions, one batch (≥256); earlier: phase 18's CLI
+runs 2 iterations (3), phase 20's timed self-play 2 runs a mode (3),
+the tournaments 2 games.
+
+Every child process is started so that it dies with this script,
+however the script ends; a SIGTERM unwinds the phase under way through
+its clean-up. Before the result lines the script checks that no child
+process and no non-daemon thread is left (it kills a stray child and
+fails).
 
 The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
 iteration and generator, 16's GTP session and self-play, 17's GTP
-session, 18's zero iteration, 19's fleets and threaded sessions and
-20's GTP session and self-play runs with the cache together,
+session, 18's zero iteration, 19's fleets and threaded sessions, 20's
+GTP session and self-play runs with the cache and 21's gateway load
+together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -268,13 +318,16 @@ card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -283,7 +336,8 @@ import torch
 SIZE = 19
 SEED = 20261017
 GENMOVES = 12            # per colour
-SEARCH_GENMOVES = 6      # device-search genmoves at 100 simulations
+SEARCH_GENMOVES = 4      # device-search genmoves at 100 simulations (6
+                         # until the gateway phase came in)
 TIMED_GENMOVES = 4       # then under time_settings 0 1 1
 SEARCH_CHECK_SIMS = 16   # simulations of the batched-vs-alone check
 CHUNK = 8                # simulations per chunk (the player's default)
@@ -302,7 +356,8 @@ GS_PLIES, GS_SAMPLE_PLIES = 8, 4   # Gumbel self-play (batch 8, 32 sims)
 PI_ATOL = 1e-5           # π′ batched vs alone; a π′ row's sum vs 1
 # both tournaments' depth, cut from 4 games at move limit 60 to keep the
 # smoke inside its clock on a slower host
-TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 2, 8, 40
+TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 2, 8, 20  # (move limit
+#   40, then 30, until the gateway phase came in)
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -340,11 +395,15 @@ RL_MID = 250             # the replay ply whose lanes and followers are
 #                          checked and profiled (mid-game)
 RL_SMALL_BATCH = 8       # the RL CLI's kill/resume runs
 RL_SMALL_MOVES = 60
-GEN_POSITIONS = 256      # the generator's corpus, at least (cut from 512)
+GEN_POSITIONS = 128      # the generator's corpus, at least: one batch
+                         # (cut from 512, then 256 for the gateway phase)
 MCTS_DIR = os.path.join("build", "smoke_mcts")
-MCTS_GENMOVES = 2        # host APV-MCTS genmoves at 100 playouts
-MCTS_TIMED_GENMOVES = 2  # then under time_settings 0 1 1
-MCTS_PLAYOUTS, MCTS_LEAF_BATCH = 100, 8   # the reference's defaults
+MCTS_GENMOVES = 2        # host APV-MCTS genmoves at MCTS_PLAYOUTS (the
+                         # first only warms the move clock's rate)
+MCTS_TIMED_GENMOVES = 1  # then under time_settings 0 1 1 (cut from 2)
+MCTS_PLAYOUTS = 32       # 4 waves a genmove (the reference's default
+                         # 100, cut for the clock)
+MCTS_LEAF_BATCH = 8      # the reference's default
 MCTS_HOST_PLAYOUTS = 8   # one wave with host rollouts
 VALUE_TOP_K = 16         # the value player's policy pre-filter
 MCTS_TOURNEY_GAMES = 2   # mcts vs greedy, 8 playouts, TOURNEY_MOVES
@@ -388,9 +447,9 @@ KERNEL_SYMBOLS = {"chase": ("chase_kernel",), "labels": ("labels_kernel",),
 SERVE_DIR = os.path.join("build", "smoke_serve")
 SERVE_SIMS = 100         # simulations a genmove (the GTP default)
 SERVE_FLEETS = (1, 8, 64)  # sessions driven in lockstep
-SERVE_GENMOVES = 2       # fleet rounds per fleet size
+SERVE_GENMOVES = 1       # fleet rounds per fleet size (cut from 2)
 SERVE_THREADS = 4        # threaded sessions through the ladder
-SERVE_THREAD_GENMOVES = 2
+SERVE_THREAD_GENMOVES = 1  # (cut from 2 for the gateway phase)
 SERVE_SLO_S = 2.0        # the SLO run's per-genmove deadline
 SERVE_SLO_SIMS = 2000    # more than fit the SLO: the answer is anytime
 SERVE_GENMOVE_LIMIT_S = 5.0        # PERF.md section 2: genmove p50
@@ -402,9 +461,14 @@ INCR_GAMES = 3           # phase 20: seeded 19×19 games through one cache
 INCR_PLIES = 120
 INCR_PASS_EVERY = 23     # a pass every this many plies
 INCR_TIMED_PLIES = 60    # warm plies of game 2 timed in turns
-INCR_GENMOVES = 4        # per GTP session before its resets, both
+INCR_GENMOVES = 2        # per GTP session before its resets, both (4
+                         # until the gateway phase came in)
 #                          colours (6 in all with the two after them)
 INCR_SP_RUNS = 2         # timed self-play runs per mode (cut from 3)
+GATEWAY_CONNS = 4        # phase 21: connections of the load
+GATEWAY_GENMOVES = 2     # genmoves a connection
+GATEWAY_SLO_MS = 2000.0  # the SLO server's per-genmove deadline
+GATEWAY_DRAIN_S = 30.0   # the CLI's SIGTERM: drain and exit within this
 
 
 class SmokeFailure(RuntimeError):
@@ -418,6 +482,82 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: prctl(2), resolved before any fork so the child only calls it
+_PRCTL = ctypes.CDLL(None, use_errno=True).prctl
+_PR_SET_PDEATHSIG = 1
+
+
+def die_with_parent(parent: int) -> None:
+    """In a child between fork and exec: have the kernel send it SIGKILL
+    when this script's process ends, however it ends (a SIGKILL at the
+    clock included), and end at once if that already happened."""
+    _PRCTL(_PR_SET_PDEATHSIG, signal.SIGKILL)
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def child_run(*args, **kw):
+    """``subprocess.run`` for a child that dies with this script (every
+    child is started from the main thread, whose exit the death signal
+    follows)."""
+    parent = os.getpid()
+    return subprocess.run(*args, preexec_fn=lambda: die_with_parent(parent),
+                          **kw)
+
+
+def child_popen(*args, **kw):
+    """``subprocess.Popen`` for a child that dies with this script."""
+    parent = os.getpid()
+    return subprocess.Popen(*args, preexec_fn=lambda: die_with_parent(parent),
+                            **kw)
+
+
+def descendants(pid: int) -> list:
+    """``(pid, state, command)`` of every process below ``pid``, read
+    from ``/proc``."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        kids.setdefault(int(fields[1]), []).append(
+            (int(d), fields[0], cmd.strip()))
+    out, todo = [], [pid]
+    while todo:
+        for kid in kids.get(todo.pop(), []):
+            out.append(kid)
+            todo.append(kid[0])
+    return out
+
+
+def nothing_left() -> str:
+    """The script stops every process it started and leaves no thread
+    that would keep its own process alive after ``main`` returns: a
+    live child is killed and fails the run, and so does a non-daemon
+    thread still alive 30 s after it was found. Returns what is left
+    (daemon threads end with the process)."""
+    strays = [p for p in descendants(os.getpid()) if p[1] != "Z"]
+    for pid, _state, _cmd in strays:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    check(not strays, f"child processes still running: {strays}")
+    main = threading.main_thread()
+    held = [t for t in threading.enumerate() if t is not main
+            and not t.daemon]
+    for t in held:
+        t.join(timeout=30)
+    held = [t.name for t in held if t.is_alive()]
+    check(not held, f"non-daemon threads still running: {held}")
+    left = sorted(t.name for t in threading.enumerate() if t is not main)
+    return f"no child process; daemon threads {left}"
 
 
 def undegraded(engine) -> None:
@@ -557,7 +697,7 @@ def bound(bytes_moved: float, ops: float):
 def phase_card():
     from rocalphago_tpu_torch.ops import _build
 
-    smi = subprocess.run(
+    smi = child_run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
@@ -586,7 +726,7 @@ def sass_sizes(build) -> dict:
         return {}
     out = {}
     for name in build.SOURCES:
-        sass = subprocess.run([tool, "-sass", build.KERNELS._target(name)[1]],
+        sass = child_run([tool, "-sass", build.KERNELS._target(name)[1]],
                               capture_output=True, text=True,
                               timeout=120).stdout
         counts, fn = {}, None
@@ -1764,7 +1904,7 @@ def phase_selfplay_cli(pygo, gumbel: bool = False):
                policy, "--games", str(games), "--out", out, "--seed",
                str(SEED)] + extra
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+        proc = child_run(cmd, cwd=root, capture_output=True, text=True,
                               timeout=CLI_TIMEOUT_S)
         wall = time.perf_counter() - t0
         check(proc.returncode == 0,
@@ -2194,7 +2334,7 @@ def sl_timings(dev, card):
         f"cuDNN " + " / ".join(f"{x:.3f}" for x in det[True]) + " ms, not "
         + " / ".join(f"{x:.3f}" for x in det[False]) + " ms; cost of the "
         f"medians {on / off - 1:+.3f} on {card}")
-    smi = subprocess.run(
+    smi = child_run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
@@ -2750,7 +2890,7 @@ def gumbel_tournament(card):
            str(TOURNEY_PLAYOUTS), "--move-limit", str(TOURNEY_MOVES),
            "--log", log_path]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+    proc = child_run(cmd, cwd=root, capture_output=True, text=True,
                           timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"tournament exited {proc.returncode}: "
@@ -2763,7 +2903,7 @@ def gumbel_tournament(card):
           and len(games) == TOURNEY_GAMES
           and not any("forfeit" in g for g in games),
           f"tournament: tally {tally}, {len(games)} log lines")
-    proc = subprocess.run([sys.executable, "-m",
+    proc = child_run([sys.executable, "-m",
                            "rocalphago_tpu_torch.interface.elo", log_path],
                           cwd=root, capture_output=True, text=True,
                           timeout=CLI_TIMEOUT_S)
@@ -2936,7 +3076,7 @@ class WaveClock:
 def mcts_session(player, counters, clock, card):
     """The main path of phase 17: the mcts player the GTP factory built
     from the specs (device rollouts), a scripted session of
-    ``MCTS_GENMOVES`` genmoves at 100 playouts, then
+    ``MCTS_GENMOVES`` genmoves at ``MCTS_PLAYOUTS`` playouts, then
     ``MCTS_TIMED_GENMOVES`` under ``time_settings 0 1 1``; every reply a
     legal vertex, labels and chase launched (counts reset just before,
     read just after)."""
@@ -2947,7 +3087,8 @@ def mcts_session(player, counters, clock, card):
           and search._leaf_batch == MCTS_LEAF_BATCH
           and search._lmbda == 0.5 and search._rollout_limit == 500
           and search._c_puct == 5.0 and search._L == 20,
-          "the mcts player is not at the reference's defaults")
+          "the mcts player is not at the smoke's playouts and the "
+          "reference's other defaults")
     setup = ["boardsize 19", "clear_board", "komi 7.5", "play b C4",
              "play w D4", "play b D3", "play w Q16", "play b E3"]
     searched = [f"genmove {'wb'[i % 2]}" for i in range(MCTS_GENMOVES)]
@@ -3150,7 +3291,7 @@ def mcts_tournament(card, paths):
            str(TOURNEY_PLAYOUTS), "--move-limit", str(TOURNEY_MOVES),
            "--device-rollout", "--log", log_path]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+    proc = child_run(cmd, cwd=root, capture_output=True, text=True,
                           timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"tournament exited {proc.returncode}: "
@@ -3719,7 +3860,7 @@ def zero_instrumentation(card, paths, timed, straight):
     other runs, the same iteration once read one time fewer; the cause
     was not traced, so both counts come from fresh processes.)"""
     root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
+    proc = child_run(
         [sys.executable, os.path.abspath(__file__), "--host-reads", root],
         capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
     check(proc.returncode == 0, f"--host-reads: rc {proc.returncode}\n"
@@ -4040,8 +4181,6 @@ def serve_threaded(pygo, pool, counters, card) -> dict:
     """``SERVE_THREADS`` sessions through the ladder, each in its own
     thread, ``SERVE_THREAD_GENMOVES`` genmoves each: genmove p50 and p99
     against the 5 s limit, launches per genmove."""
-    import threading
-
     sessions = [pool.open_session() for _ in range(SERVE_THREADS)]
     games = serve_positions(pygo, SERVE_THREADS, SEED + 80)
     lat, errors = [], []
@@ -4359,7 +4498,7 @@ def serve_ladder(pygo, pool, card) -> dict:
             "        'message': str(e)[:120],\n"
             "        'transient': is_transient(e)}))\n")
     root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+    proc = child_run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True,
                           timeout=CLI_TIMEOUT_S)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
@@ -4379,8 +4518,6 @@ def serve_ladder(pygo, pool, card) -> dict:
 
 def join_abandoned() -> None:
     """Wait for the search threads the ladder abandoned as hung."""
-    import threading
-
     for t in threading.enumerate():
         if t.name.startswith("genmove-"):
             t.join(timeout=300)
@@ -4407,7 +4544,7 @@ def serve_gtp(card, paths) -> dict:
     for name, argv, script, size in runs:
         metrics = os.path.join(root, SERVE_DIR, f"{name}.jsonl")
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = child_run(
             [sys.executable, "-m", "rocalphago_tpu_torch.interface.gtp",
              *argv, "--metrics", metrics], cwd=root,
             input="\n".join(script) + "\n", capture_output=True,
@@ -4491,6 +4628,7 @@ def phase_serve(pygo, torchgo, dev, card, counters) -> dict:
         join_abandoned()
         pool.close()
     out["gtp"] = serve_gtp(card, paths)
+    out["paths"] = paths
     out["launches"] = {
         k: sum(out["fleet"][n]["launches"][k] for n in SERVE_FLEETS)
         + out["threaded"]["launches"][k]
@@ -4860,6 +4998,504 @@ def phase_incremental(pygo, torchgo, dev, card, counters, specs):
                 kernels=kernels, main=main_path, selfplay=sp)
 
 
+def batch_launches(batches: int, genmoves: int) -> dict:
+    """The kernels a pooled genmove path launches: a labels and a chase
+    launch an evaluator batch (its terminal values and its encode's
+    ladder planes), a labels launch a root bridge, two tree launches a
+    simulation. Threaded sessions share batches, so the per-genmove
+    counts follow how their requests coalesced."""
+    return {"labels": batches + genmoves, "chase": batches,
+            "tree": 2 * SERVE_SIMS * genmoves}
+
+
+def gateway_settle(server, pool=None, live: int = 0,
+                   timeout: float = 30.0) -> None:
+    """Wait until the gateway holds at most ``live`` connections (and
+    the pool no session): a close is observed at the server's next
+    read."""
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if server.stats()["conns"]["live"] <= live and (
+                pool is None or pool.stats()["sessions"]["live"] == 0):
+            return
+        time.sleep(0.02)
+    check(False, f"the gateway did not settle: {server.stats()['conns']}")
+
+
+def gateway_load(pygo, pool, server, counters, card, threaded) -> dict:
+    """The main path: ``run_load`` with ``GATEWAY_CONNS`` connections of
+    ``GATEWAY_GENMOVES`` genmoves, each client's moves recorded and
+    replayed on ``pygo``."""
+    from rocalphago_tpu_torch.gateway import client as gw
+    from rocalphago_tpu_torch.interface.gtp import parse_color, vertex_to_move
+    from rocalphago_tpu_torch.interface.resilient import percentile
+
+    games = []
+
+    class Recording(gw.GatewayClient):
+        def new_game(self, board=None, komi=None):
+            reply = super().new_game(board=board, komi=komi)
+            self.game = (reply["board"], reply["komi"], [])
+            games.append(self.game)
+            return reply
+
+        def genmove(self, color):
+            reply = super().genmove(color)
+            self.game[2].append((color, reply))
+            return reply
+
+    ev0 = pool.evaluator.stats()
+    before = server.stats()
+    plain = gw.GatewayClient
+    gw.GatewayClient = Recording
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        load = gw.run_load("127.0.0.1", server.port, conns=GATEWAY_CONNS,
+                           moves=GATEWAY_GENMOVES, board=SIZE, timeout=600)
+        torch.cuda.synchronize()
+        launches = serve_launches(counters)
+    finally:
+        gw.GatewayClient = plain
+    gateway_settle(server, pool)
+    genmoves = GATEWAY_CONNS * GATEWAY_GENMOVES
+    check(load["moves"] == genmoves and load["sheds"] == load["disconnects"]
+          == load["errors"] == 0, f"gateway load: {load}")
+    check(len(games) == GATEWAY_CONNS, f"{len(games)} games recorded")
+    for board, komi, moves in games:
+        st = pygo.GameState(size=board, komi=komi)
+        for color, reply in moves:
+            mv = vertex_to_move(reply["move"], board)
+            # the server's last guard turns an illegal move into a pass;
+            # no search passes within two plies of the empty board
+            check(mv is not None and st.is_legal(mv) and reply["rung"] ==
+                  "search", f"gateway genmove {color}: {reply}")
+            st.do_move(mv, parse_color(color))
+    ev = pool.evaluator.stats()
+    batches = ev["batches"] - ev0["batches"]
+    check(launches == batch_launches(batches, genmoves),
+          f"gateway load launches {launches} for {batches} evaluator "
+          f"batches and {genmoves} genmoves")
+    stats = server.stats()
+    check(stats["requests"]["unhandled"] == 0
+          and stats["requests"]["genmoves"] - before["requests"]["genmoves"]
+          == genmoves, f"gateway requests: {stats['requests']}")
+    lat = sorted(load["latencies_s"])
+    p50, p99 = percentile(lat, 0.5), percentile(lat, 0.99)
+    per_genmove = {k: v / genmoves for k, v in launches.items()}
+    log(f"gateway load [{card}]: {GATEWAY_CONNS} connections x "
+        f"{GATEWAY_GENMOVES} genmoves at {SERVE_SIMS} simulations over the "
+        f"wire in {load['elapsed_s']:.2f} s: genmove p50 {p50:.3f} s, p99 "
+        f"{p99:.3f} s (limit {SERVE_GENMOVE_LIMIT_S:.0f} s; phase 19's "
+        f"threaded in process p50 {threaded['p50']:.3f} s, p99 "
+        f"{threaded['p99']:.3f} s: the wire tax {p50 - threaded['p50']:+.3f} "
+        f"s at p50), server wire_ms {stats['wire_ms']}; every move legal "
+        f"on pygo; {batches} evaluator batches; launches {launches} "
+        f"({per_genmove} a genmove; phase 19's threaded "
+        f"{threaded['per_genmove']}, both a labels and a chase launch a "
+        f"batch, a labels launch a root, {2 * SERVE_SIMS} tree launches a "
+        f"genmove); requests.unhandled {stats['requests']['unhandled']}")
+    return dict(p50=p50, p99=p99, launches=launches, per_genmove=per_genmove,
+                batches=batches, elapsed=load["elapsed_s"])
+
+
+def gateway_shed(pool, server, card) -> int:
+    """A fifth connection shed at accept, ``connect_with_retry`` riding it
+    out, and a pool's session cap refusing ``new_game``. Returns the
+    sheds the pool-cap server counted."""
+    from rocalphago_tpu_torch.gateway import client as gw
+    from rocalphago_tpu_torch.gateway.server import GatewayServer
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    held = [gw.GatewayClient("127.0.0.1", server.port)
+            for _ in range(GATEWAY_CONNS)]
+    sleeps = []
+    try:
+        try:
+            gw.GatewayClient("127.0.0.1", server.port).close()
+            check(False, "a fifth connection was admitted")
+        except gw.GatewayRefused as e:
+            check(e.code == "overload" and e.retry_after_s == 1.0,
+                  f"the shed: {e.code} {e.retry_after_s}")
+
+        def sleep(s):
+            sleeps.append(s)
+            held.pop().close()
+            gateway_settle(server, live=GATEWAY_CONNS - 1)
+
+        gw.connect_with_retry("127.0.0.1", server.port, sleep=sleep).close()
+        check(len(sleeps) == 1 and sleeps[0] >= 1.0,
+              f"connect_with_retry slept {sleeps}")
+    finally:
+        for c in held:
+            c.close()
+    gateway_settle(server, pool)
+    capped = ServePool(pool.value, pool.policy, n_sim=SERVE_SIMS,
+                       searcher=pool.search, max_sessions=2)
+    srv = GatewayServer(capped, max_conns=GATEWAY_CONNS).start()
+    clients = []
+    try:
+        for _ in range(3):
+            clients.append(gw.GatewayClient("127.0.0.1", srv.port))
+        for c in clients[:2]:
+            c.new_game()
+        try:
+            clients[2].new_game()
+            check(False, "the pool's session cap admitted a third game")
+        except gw.GatewayRefused as e:
+            check(e.code == "overload" and e.retry_after_s == 1.0,
+                  f"the admission shed: {e.code} {e.retry_after_s}")
+        clients[0].close_game()
+        check(clients[2].new_game()["type"] == "ok",
+              "a freed session slot was not reused")
+    finally:
+        for c in clients:
+            c.close()
+        gateway_settle(srv, capped)
+        srv.close()
+        capped.close()
+    sheds = srv.stats()["conns"]["shed"]
+    log(f"gateway shed [{card}]: a fifth connection refused (overload, "
+        f"retry_after_s 1.0), connect_with_retry admitted after sleeping "
+        f"{sleeps[0]:.3f} s (the hint's floor); the pool's session cap "
+        f"(2) refused a third new_game the same way")
+    return sheds
+
+
+def gateway_slo(pool, card) -> int:
+    """One connection on a server with ``slo_ms`` 2000 over a pool with
+    more simulations than fit: the reply has ``slo_hit`` and comes
+    within the SLO plus about one simulation. Returns the server's
+    sheds (none)."""
+    from rocalphago_tpu_torch.gateway.client import GatewayClient
+    from rocalphago_tpu_torch.gateway.server import GatewayServer
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    slo = ServePool(pool.value, pool.policy, n_sim=SERVE_SLO_SIMS)
+    slo.warm()
+    srv = GatewayServer(slo, max_conns=1, slo_ms=GATEWAY_SLO_MS).start()
+    try:
+        c = GatewayClient("127.0.0.1", srv.port)
+        try:
+            check(c.hello["slo_ms"] == GATEWAY_SLO_MS, f"hello {c.hello}")
+            c.new_game()
+            ev0 = slo.evaluator.stats()["batches"]
+            reply = c.genmove("b")
+            ran = slo.evaluator.stats()["batches"] - ev0 - 1
+        finally:
+            c.close()
+        gateway_settle(srv, slo)
+    finally:
+        srv.close()
+        slo.close()
+    per_sim = reply["elapsed_ms"] / max(ran, 1)
+    # the deadline is checked between simulations: the overshoot is one
+    # simulation, and the root bridge and evaluation before the first
+    check(reply["slo_hit"] is True and reply["rung"] == "search"
+          and 0 < ran < SERVE_SLO_SIMS
+          and reply["elapsed_ms"] <= GATEWAY_SLO_MS + 2 * per_sim,
+          f"the SLO genmove: {reply}, {ran} simulations")
+    log(f"gateway SLO [{card}]: slo_ms {GATEWAY_SLO_MS:.0f}: slo_hit after "
+        f"{reply['elapsed_ms']:.1f} ms, {ran} of {SERVE_SLO_SIMS} "
+        f"simulations ({per_sim:.2f} ms each), move {reply['move']}")
+    return srv.stats()["conns"]["shed"]
+
+
+def gateway_faults(pool, server, card) -> None:
+    """``kill@gateway.conn`` on one request and a transient on another:
+    the killed connection gets ``internal`` and drops, the transient
+    fails that request only, the server serves on."""
+    from rocalphago_tpu_torch.gateway import client as gw
+    from rocalphago_tpu_torch.runtime import faults
+
+    before = server.stats()
+    a = gw.GatewayClient("127.0.0.1", server.port)
+    b = gw.GatewayClient("127.0.0.1", server.port)
+    try:
+        a.new_game()
+        b.new_game()
+        faults.install("kill@gateway.conn:p=1.0,seed=3")
+        try:
+            a.genmove("b")
+            check(False, "the killed request was answered")
+        except gw.GatewayError as e:
+            check(e.code == "internal" and "connection aborted" in str(e),
+                  f"the kill: {e}")
+        finally:
+            faults.install(None)
+        try:
+            a.genmove("b")
+            check(False, "the killed connection served on")
+        except gw.GatewayClosed:
+            pass
+        faults.install("io_error@gateway.conn:p=1.0,seed=5")
+        try:
+            b.genmove("b")
+            check(False, "the transient request was answered")
+        except gw.GatewayError as e:
+            check(e.code == "internal" and "transient fault" in str(e),
+                  f"the transient: {e}")
+        finally:
+            faults.install(None)
+        reply = b.genmove("b")
+        check(reply["type"] == "move" and reply["rung"] == "search",
+              f"after the transient: {reply}")
+        b.close_game()
+    finally:
+        faults.install(None)
+        a.close()
+        b.close()
+    gateway_settle(server, pool)
+    after = server.stats()
+    check(after["faults"]["kills"] == before["faults"]["kills"] + 1
+          and after["faults"]["injected"] == before["faults"]["injected"] + 1
+          and after["requests"]["unhandled"] == 0
+          and after["conns"]["live"] == 0
+          and pool.stats()["sessions"]["live"] == 0,
+          f"after the faults: {after}, {pool.stats()['sessions']}")
+    log(f"gateway faults [{card}]: kill -> internal and the connection "
+        f"dropped; transient -> internal on that request, the next "
+        f"genmove served ({reply['move']}); unhandled 0, kills "
+        f"{after['faults']['kills']}, injected {after['faults']['injected']}"
+        ", every slot back")
+
+
+def http_get(port: int, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def gateway_probes_and_drain(pool, server, http, metrics_path, sheds,
+                             card) -> None:
+    """``/healthz`` and ``/metrics``; then the drain with a genmove in
+    flight: its reply, ``goodbye``, 503, TCP refused, sessions at 0,
+    the three drain events in order."""
+    import socket
+
+    from rocalphago_tpu_torch.gateway import protocol
+    from rocalphago_tpu_torch.runtime.jsonl import read_jsonl
+
+    status, body = http_get(http.port, "/healthz")
+    health = json.loads(body)
+    check(status == 200 and health["status"] == "ok"
+          and health["serve"]["sessions"]["live"] == 0
+          and health["gateway"]["requests"]["unhandled"] == 0
+          and set(health["gateway"]) >= {"proto", "conns", "requests",
+                                         "faults", "wire_ms"},
+          f"/healthz {status}: {health}")
+    status, body = http_get(http.port, "/metrics")
+    text = body.decode()
+    m = re.search(r'^gateway_connections_total\{result="shed"\} (\S+)$', text,
+                  re.M)
+    shed_metric = float(m.group(1)) if m else None
+    total_shed = server.stats()["conns"]["shed"] + sheds
+    check(status == 200 and shed_metric == total_shed
+          and all(f in text for f in ("gateway_conns_live",
+                                      "gateway_wire_seconds",
+                                      "gateway_requests_total",
+                                      "gateway_errors_total",
+                                      "gateway_faults_total")),
+          f"/metrics: shed {shed_metric} vs the servers' {total_shed}")
+    # the drain, with a genmove in flight on a raw connection
+    sock = socket.create_connection(("127.0.0.1", server.port), timeout=120)
+    reader = sock.makefile("rb")
+    try:
+        protocol.read_frame(reader)                       # hello
+        sock.sendall(protocol.encode_frame({"type": "new_game", "id": 1}))
+        protocol.read_frame(reader)
+        sock.sendall(protocol.encode_frame({"type": "genmove", "id": 2,
+                                            "color": "b"}))
+        # a genmove of 100 simulations takes seconds: still in flight
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        server.drain(reason="smoke")
+        drain_s = time.perf_counter() - t0
+        frames = [protocol.read_frame(reader) for _ in range(3)]
+    finally:
+        reader.close()
+        sock.close()
+    check(frames[0]["type"] == "move" and frames[1] == {
+        "type": "goodbye", "reason": "draining"} and frames[2] is None,
+          f"the drain's frames: {frames}")
+    status, body = http_get(http.port, "/healthz")
+    check(status == 503 and json.loads(body)["status"] == "draining",
+          f"/healthz while draining: {status}")
+    try:
+        socket.create_connection(("127.0.0.1", server.port), timeout=5).close()
+        check(False, "a TCP connect succeeded after the drain")
+    except OSError:
+        pass
+    gateway_settle(server, pool)
+    phases = [r["phase"] for r in read_jsonl(metrics_path)
+              if r.get("event") == "drain"]
+    check(phases == ["gateway_requested", "gateway_accept_stopped",
+                     "gateway_drained"], f"drain events {phases}")
+    log(f"gateway probes and drain [{card}]: /healthz 200 with the serve "
+        f"and gateway blocks, /metrics shed count {shed_metric:.0f} = the "
+        f"servers'; drain in {drain_s:.2f} s: the in-flight genmove "
+        f"answered ({frames[0]['move']}), then goodbye, /healthz 503, TCP "
+        "refused, sessions live 0, events " + " -> ".join(phases))
+
+
+def gtp_reply(proc) -> str:
+    """One GTP reply off a subprocess's stdout (lines up to a blank)."""
+    lines = []
+    while True:
+        line = proc.stdout.readline()
+        check(line != "", "the GTP bridge closed its output")
+        if line.strip() == "":
+            if lines:
+                return "".join(lines).strip()
+            continue
+        lines.append(line)
+
+
+def gateway_clis(pygo, paths, card) -> dict:
+    """The gateway server's CLI on phase 19's specs, driven by the GTP
+    bridge's CLI (``--connect``), then SIGTERM."""
+    from rocalphago_tpu_torch.interface.gtp import vertex_to_move
+    from rocalphago_tpu_torch.runtime.jsonl import read_jsonl
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    metrics = os.path.join(root, SERVE_DIR, "gateway_cli.jsonl")
+    errlog = open(os.path.join(root, SERVE_DIR, "gateway_cli.err"), "w")
+    t0 = time.perf_counter()
+    srv = child_popen(
+        [sys.executable, "-m", "rocalphago_tpu_torch.gateway.server",
+         "--policy", paths["policy19"], "--value", paths["value19"],
+         "--port", "0", "--http-port", "0", "--metrics", metrics],
+        cwd=root, stdout=subprocess.PIPE, stderr=errlog, text=True)
+    bridge = None
+    timers = [threading.Timer(CLI_TIMEOUT_S, srv.kill)]
+    try:
+        timers[0].start()
+        line = srv.stdout.readline()
+        check(line.startswith("gateway: serving on 127.0.0.1:"),
+              f"the gateway CLI said {line!r} (exit {srv.poll()})")
+        port = int(line.split(":")[2].split()[0])
+        up_s = time.perf_counter() - t0
+        bridge = child_popen(
+            [sys.executable, "-m", "rocalphago_tpu_torch.interface.gtp",
+             "--connect", f"127.0.0.1:{port}"], cwd=root,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        timers.append(threading.Timer(CLI_TIMEOUT_S, bridge.kill))
+        timers[1].start()
+        st = pygo.GameState(size=SIZE, komi=7.5)
+        replies = []
+
+        def say(cmd: str) -> str:
+            bridge.stdin.write(cmd + "\n")
+            bridge.stdin.flush()
+            reply = gtp_reply(bridge)
+            replies.append((cmd, reply))
+            check(reply.startswith("="), f"gtp --connect: {cmd} -> {reply!r}")
+            return reply[1:].strip()
+
+        def genmove(color: str) -> None:
+            mv = vertex_to_move(say(f"genmove {color}"), SIZE)
+            check(mv is not None and st.is_legal(mv),
+                  f"gtp --connect genmove {color}: {replies[-1]}")
+            st.do_move(mv)
+
+        t1 = time.perf_counter()
+        for cmd in (f"boardsize {SIZE}", "clear_board", "komi 7.5"):
+            say(cmd)
+        genmove("b")
+        white = next(v for v in ("D4", "Q16", "C3")
+                     if st.is_legal(vertex_to_move(v, SIZE)))
+        say(f"play w {white}")
+        st.do_move(vertex_to_move(white, SIZE))
+        genmove("b")
+        say("quit")
+        check(bridge.wait(timeout=60) == 0,
+              f"the GTP bridge exited {bridge.returncode}: "
+              f"{bridge.stderr.read()[-2000:]}")
+        session_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        srv.send_signal(signal.SIGTERM)
+        rc = srv.wait(timeout=GATEWAY_DRAIN_S)
+        stop_s = time.perf_counter() - t2
+        check(rc == 0, f"the gateway CLI exited {rc} on SIGTERM")
+    finally:
+        for t in timers:
+            t.cancel()
+        for proc in (bridge, srv):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        errlog.close()
+    events = read_jsonl(metrics)
+    phases = [r["phase"] for r in events if r.get("event") == "drain"
+              and str(r.get("phase", "")).startswith("gateway")]
+    check(phases == ["gateway_requested", "gateway_accept_stopped",
+                     "gateway_drained"] and events[-1]["event"] == "registry",
+          f"the gateway CLI's metrics: drain {phases}, last "
+          f"{events[-1]['event'] if events else None}")
+    log(f"gateway CLIs [{card}]: the server up in {up_s:.1f} s (start-up, "
+        f"specs, warm); gtp --connect {[r for _, r in replies]} in "
+        f"{session_s:.1f} s with the bridge's start-up, every reply '=' "
+        "and every vertex legal; "
+        f"SIGTERM -> exit 0 in {stop_s:.2f} s, drain events "
+        + " -> ".join(phases))
+    return dict(up_s=up_s, session_s=session_s, stop_s=stop_s)
+
+
+def phase_gateway(pygo, card, counters, serve) -> dict:
+    """Phase 21: the gateway on the card (see the module docstring).
+    Returns the load's launches and wire latencies."""
+    from rocalphago_tpu_torch.gateway.httpapi import GatewayHTTP
+    from rocalphago_tpu_torch.gateway.server import GatewayServer
+    from rocalphago_tpu_torch.io.metrics import MetricsLogger
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = serve["paths"]
+    policy = NeuralNetBase.load_model(paths["policy19"])
+    value = NeuralNetBase.load_model(paths["value19"])
+    metrics_path = os.path.join(root, SERVE_DIR, "gateway.jsonl")
+    for name in ("gateway.jsonl", "gateway_cli.jsonl"):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(root, SERVE_DIR, name))
+    metrics = MetricsLogger(metrics_path, echo=False)
+    pool = ServePool(value, policy, n_sim=SERVE_SIMS)
+    server = http = None
+    try:
+        pool.warm()
+        server = GatewayServer(pool, max_conns=GATEWAY_CONNS,
+                               metrics=metrics).start()
+        http = GatewayHTTP(server).start()
+        out = dict(load=gateway_load(pygo, pool, server, counters, card,
+                                     serve["threaded"]))
+        sheds = gateway_shed(pool, server, card)
+        sheds += gateway_slo(pool, card)
+        gateway_faults(pool, server, card)
+        gateway_probes_and_drain(pool, server, http, metrics_path, sheds,
+                                 card)
+    finally:
+        if http is not None:
+            http.close()
+        if server is not None:
+            server.close()
+        pool.close()
+        metrics.close()
+    out["cli"] = gateway_clis(pygo, paths, card)
+    out["launches"] = out["load"]["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"gateway phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def host_reads_main(root: str) -> int:
     """``--host-reads ROOT``: the port found in ROOT (a checkout, such as
     a ``git archive`` of an earlier commit) builds its kernels and
@@ -4904,47 +5540,74 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+
+    def on_term(signum, frame):
+        # a SIGTERM unwinds the phase under way, so its ``finally``
+        # blocks stop what it started (its children also die with this
+        # process)
+        raise SystemExit(128 + signum)
+
+    signal.signal(signal.SIGTERM, on_term)
     t0 = time.monotonic()
-    card = phase_card()
-    err = {"tree": phase_tree(dev),
-           "labels": phase_labels(pygo, dev),
-           "chase": phase_chase(pygo, torchgo, dev)}
-    phase_encode(pygo, torchgo, dev)
-    phase_forward(torchgo, dev)
-    greedy_launches, p50 = phase_gtp(dev, (L, C))
+    walls = {}
+
+    def phase(n: int, fn, *args):
+        """Run phase ``n`` and log its wall time."""
+        t = time.monotonic()
+        out = fn(*args)
+        walls[n] = time.monotonic() - t
+        log(f"phase {n} ({fn.__name__}): {walls[n]:.1f} s")
+        return out
+
+    card = phase(1, phase_card)
+    err = {"tree": phase(2, phase_tree, dev),
+           "labels": phase(3, phase_labels, pygo, dev),
+           "chase": phase(4, phase_chase, pygo, torchgo, dev)}
+    phase(5, phase_encode, pygo, torchgo, dev)
+    phase(6, phase_forward, torchgo, dev)
+    greedy_launches, p50 = phase(7, phase_gtp, dev, (L, C))
+    t8 = time.monotonic()
     phase8 = phase_batched_search(pygo, torchgo, dev)
     specs = model_specs(dev)
     player = build_player("device-mcts", specs[0], value_path=specs[1])
     tree8 = phase_sync_free(pygo, torchgo, dev, player.policy, player.value)
-    main_path = phase_search_gtp(player, (L, C, T))
+    walls[8] = time.monotonic() - t8
+    log(f"phase 8 (phase_batched_search, phase_sync_free): {walls[8]:.1f} s")
+    main_path = phase(9, phase_search_gtp, player, (L, C, T))
+    t10 = time.monotonic()
     rows = phase_timings(pygo, torchgo, dev, card)
     search_rows = phase_search_timings(torchgo, dev, card, main_path, tree8)
     rows[1]["tree"] = search_rows["tree"]
-    sp = phase_policy_selfplay(torchgo, dev, card, (L, C))
-    ss = phase_search_selfplay(torchgo, dev, card, (L, C, T), player,
-                               sp["final"])
-    phase_selfplay_cli(pygo)
-    sv = phase_supervised(dev, card, (L, C))
-    rf = phase_reinforcement(torchgo, dev, card, (L, C), sv["export"])
-    gb = phase_gumbel(pygo, torchgo, dev, card, (L, C, T), phase8, specs,
-                      main_path)
-    mc = phase_mcts(pygo, torchgo, dev, card, (L, C))
-    zr = phase_zero(torchgo, dev, card, (L, C, T))
-    sv19 = phase_serve(pygo, torchgo, dev, card, (L, C, T))
-    inc = phase_incremental(pygo, torchgo, dev, card, (L, C, T), specs)
-    # the launches of phases 11-20's paths: policy self-play (labels,
+    walls[10] = time.monotonic() - t10
+    log(f"phase 10 (phase_timings, phase_search_timings): {walls[10]:.1f} s")
+    sp = phase(11, phase_policy_selfplay, torchgo, dev, card, (L, C))
+    ss = phase(12, phase_search_selfplay, torchgo, dev, card, (L, C, T),
+               player, sp["final"])
+    phase(13, phase_selfplay_cli, pygo)
+    sv = phase(14, phase_supervised, dev, card, (L, C))
+    rf = phase(15, phase_reinforcement, torchgo, dev, card, (L, C),
+               sv["export"])
+    gb = phase(16, phase_gumbel, pygo, torchgo, dev, card, (L, C, T), phase8,
+               specs, main_path)
+    mc = phase(17, phase_mcts, pygo, torchgo, dev, card, (L, C))
+    zr = phase(18, phase_zero, torchgo, dev, card, (L, C, T))
+    sv19 = phase(19, phase_serve, pygo, torchgo, dev, card, (L, C, T))
+    inc = phase(20, phase_incremental, pygo, torchgo, dev, card, (L, C, T),
+                specs)
+    gw21 = phase(21, phase_gateway, pygo, card, (L, C, T), sv19)
+    # the launches of phases 11-21's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
     # Gumbel GTP session and Gumbel self-play (all three), the mcts GTP
     # session (labels, chase), the zero iteration, the serving fleets
-    # and sessions, the incremental GTP session and self-play runs (all
-    # three); the kernels timed at self-play's shapes
+    # and sessions, the incremental GTP session and self-play runs, the
+    # gateway's load (all three); the kernels timed at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
                 + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
                 + gb["sp_launches"][k] + mc["launches"].get(k, 0)
                 + zr["launches"][k] + sv19["launches"][k]
-                + inc["launches"][k]
+                + inc["launches"][k] + gw21["launches"][k]
                 for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
@@ -5021,6 +5684,15 @@ def main() -> int:
         f"{sv19['threaded']['p50']:.3f} s, p99 {sv19['threaded']['p99']:.3f} "
         f"s, launches a genmove {sv19['threaded']['per_genmove']}; phase 19 "
         f"{sv19['phase_s']:.1f} s on {card}")
+    load = gw21["load"]
+    log(f"gateway: genmove over the wire p50 {load['p50']:.3f} s, p99 "
+        f"{load['p99']:.3f} s at {GATEWAY_CONNS} connections and "
+        f"{SERVE_SIMS} simulations (limit {SERVE_GENMOVE_LIMIT_S:.0f} s), "
+        f"launches a genmove {load['per_genmove']}; phase 21 "
+        f"{gw21['phase_s']:.1f} s on {card}")
+    log("phase wall times (s): " + json.dumps(
+        {n: round(w, 1) for n, w in sorted(walls.items())}))
+    log(f"at the end: {nothing_left()}")
     log(f"genmove p50 {p50:.2f} ms on {card}; smoke took "
         f"{time.monotonic() - t0:.0f} s")
     print(card)

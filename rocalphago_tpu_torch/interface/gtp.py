@@ -45,6 +45,12 @@ a :class:`~rocalphago_tpu_torch.multisize.MultiSizePool` whose
     python -m rocalphago_tpu_torch.interface.gtp --serve \
         --policy policy.json --value value.json [--serve-slo-ms 2000] \
         [--serve-sizes 9,13,19] [--metrics serve.jsonl]
+
+A network play gateway's client (:class:`GatewayBridge`): GTP on stdin
+and stdout, every board change and genmove over the gateway's wire;
+no model is loaded and no device touched::
+
+    python -m rocalphago_tpu_torch.interface.gtp --connect HOST:PORT
 """
 
 from __future__ import annotations
@@ -643,11 +649,170 @@ def run_gtp(player, instream=None, outstream=None, **engine_kwargs):
     return engine
 
 
+class GatewayBridge:
+    """GTP front end over a network gateway.
+
+    ``gtp.py --connect host:port`` speaks stdin/stdout GTP to the
+    controller while every board mutation and genmove goes over the
+    gateway's NDJSON wire. The process loads no model and touches no
+    device: it computes nothing, so this is not a CPU fallback of the
+    engine but a client, and a GoGui on a machine with no card can
+    drive a pool on a card's host.
+
+    Refusals stay structured end to end: a gateway shed
+    (``overload``/``draining``) surfaces as a clean GTP error with
+    the server's retry hint (``? gateway overload, retry in 1.0s``)
+    instead of a hang or a dead pipe; a dropped connection ends the
+    session (the controller sees the error and the loop stops, like
+    ``quit``).
+    """
+
+    def __init__(self, client, name: str = "rocalphago-gateway",
+                 version: str = "0.1"):
+        self.client = client
+        self.name = name
+        self.version = version
+        self._board = int(client.default_board)
+        self._komi = None
+        self._open = False
+
+    # ------------------------------------------------------- commands
+
+    def _ensure_game(self) -> None:
+        if not self._open:
+            self.client.new_game(board=self._board, komi=self._komi)
+            self._open = True
+
+    def cmd_protocol_version(self, args):
+        return "2"
+
+    def cmd_name(self, args):
+        return self.name
+
+    def cmd_version(self, args):
+        return self.version
+
+    def cmd_known_command(self, args):
+        known = args and hasattr(self, f"cmd_{args[0]}")
+        return "true" if known else "false"
+
+    def cmd_list_commands(self, args):
+        return "\n".join(sorted(
+            m[len("cmd_"):] for m in dir(self)
+            if m.startswith("cmd_")))
+
+    def cmd_boardsize(self, args):
+        size = int(args[0])
+        if size not in self.client.boards:
+            raise ValueError("unacceptable size")
+        self._board = size
+        self._open = False
+        return ""
+
+    def cmd_clear_board(self, args):
+        self._open = False
+        self._ensure_game()
+        return ""
+
+    def cmd_komi(self, args):
+        self._komi = float(args[0])
+        if self._open:
+            self.client.set_komi(self._komi)
+        return ""
+
+    def cmd_play(self, args):
+        self._ensure_game()
+        self.client.play(args[0], args[1])
+        return ""
+
+    def cmd_genmove(self, args):
+        self._ensure_game()
+        return self.client.genmove(args[0])["move"]
+
+    def cmd_quit(self, args):
+        self.client.close()
+        return ""
+
+    # ------------------------------------------------------- dispatch
+
+    def handle(self, line: str):
+        """One GTP line → (reply string or None, done) -- the same
+        contract as :meth:`GTPEngine.handle`."""
+        from rocalphago_tpu_torch.gateway.client import (
+            GatewayClosed,
+            GatewayRefused,
+        )
+
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            return None, False
+        parts = line.split()
+        cmd_id = ""
+        if parts[0].isdigit():
+            cmd_id = parts[0]
+            parts = parts[1:]
+        if not parts:
+            return None, False
+        cmd, args = parts[0], parts[1:]
+        fn = getattr(self, f"cmd_{cmd}", None)
+        if fn is None:
+            return f"?{cmd_id} unknown command\n\n", False
+        try:
+            result = fn(args)
+        except GatewayRefused as e:
+            retry = ("" if e.retry_after_s is None
+                     else f", retry in {e.retry_after_s}s")
+            return f"?{cmd_id} gateway {e.code}{retry}\n\n", False
+        except GatewayClosed as e:
+            # the wire is gone: report once and end the session
+            return f"?{cmd_id} gateway connection lost: {e}\n\n", True
+        except Exception as e:  # noqa: BLE001 -- GTP reports all errors
+            return f"?{cmd_id} {e}\n\n", False
+        sep = " " if result else ""
+        return f"={cmd_id}{sep}{result}\n\n", cmd == "quit"
+
+
+def run_bridge(bridge, instream=None, outstream=None):
+    """Blocking GTP loop over a :class:`GatewayBridge` (the
+    ``--connect`` path of :func:`main`)."""
+    instream = instream or sys.stdin
+    outstream = outstream or sys.stdout
+    for line in instream:
+        reply, done = bridge.handle(line)
+        if reply is not None:
+            outstream.write(reply)
+            outstream.flush()
+        if done:
+            break
+    return bridge
+
+
+def make_player(args):
+    """Build the requested agent from saved model specs (on
+    ``args.device``: the card unless it names another device)."""
+    from rocalphago_tpu_torch.search.players import build_player
+
+    try:
+        return build_player(
+            args.player, args.policy, value_path=args.value,
+            rollout_path=args.rollout, temperature=args.temperature,
+            playouts=args.playouts, leaf_batch=args.leaf_batch,
+            lmbda=args.lmbda, symmetric=args.symmetric,
+            device_rollout=args.device_rollout, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="GTP engine over the PyTorch port's players")
-    ap.add_argument("--policy", required=True,
-                    help="policy model JSON spec (the reference's format)")
+    ap.add_argument("--policy",
+                    help="policy model JSON spec (the reference's format; "
+                         "required unless --connect)")
+    ap.add_argument("--connect", metavar="HOST:PORT", default=None,
+                    help="bridge GTP to a network play gateway instead of "
+                         "loading models: no model, no device; a gateway "
+                         "shed is a clean GTP error with the retry hint")
     ap.add_argument("--value", help="value model JSON spec (mcts, "
                     "device-mcts, gumbel-mcts, --serve)")
     ap.add_argument("--rollout", help="rollout model JSON spec (mcts; "
@@ -696,6 +861,33 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' to run on "
                          "the CPU)")
     a = ap.parse_args(argv)
+    if a.connect:
+        # the bridge path: no models, no device, just the wire. The
+        # resilient client rides out drains and sheds (reconnect and
+        # replay, backoff honoring retry_after_s)
+        from rocalphago_tpu_torch.gateway.client import (
+            GatewayRefused,
+            ResilientGatewayClient,
+        )
+
+        host, _, port = a.connect.rpartition(":")
+        if not host or not port.isdigit():
+            ap.error("--connect wants HOST:PORT")
+        try:
+            client = ResilientGatewayClient(host, int(port))
+        except GatewayRefused as e:
+            retry = ("" if e.retry_after_s is None
+                     else f" (retry in {e.retry_after_s}s)")
+            raise SystemExit(f"gateway refused: {e}{retry}")
+        except OSError as e:
+            raise SystemExit(f"cannot reach gateway {a.connect}: {e}")
+        try:
+            run_bridge(GatewayBridge(client))
+        finally:
+            client.close()
+        return
+    if not a.policy:
+        ap.error("--policy is required (unless --connect)")
     metrics = None
     if a.metrics:
         from rocalphago_tpu_torch.io.metrics import MetricsLogger
@@ -732,17 +924,7 @@ def main(argv=None):
         session = pool.open_session(resilient=not a.no_resilient)
         player = session.player
     else:
-        from rocalphago_tpu_torch.search.players import build_player
-
-        try:
-            player = build_player(
-                a.player, a.policy, value_path=a.value,
-                rollout_path=a.rollout, temperature=a.temperature,
-                playouts=a.playouts, leaf_batch=a.leaf_batch,
-                lmbda=a.lmbda, symmetric=a.symmetric,
-                device_rollout=a.device_rollout, device=a.device)
-        except ValueError as e:
-            raise SystemExit(str(e))
+        player = make_player(a)
     try:
         run_gtp(player, metrics=metrics, resilient=not a.no_resilient,
                 hang_timeout_s=a.genmove_timeout, serve_pool=pool,

@@ -14,6 +14,7 @@ the kernels and the encode (integer and boolean outputs).
 """
 
 import io
+import time
 
 import numpy as np
 import pytest
@@ -1141,3 +1142,44 @@ def test_incremental_selfplay_segment_makes_no_host_sync(cuda_device):
             torch.Generator(device=cuda_device).manual_seed(1))
         for inc in (True, False)]
     assert torch.equal(runs[0].actions, runs[1].actions)
+
+
+def test_gateway_conversation_over_a_card_pool(cuda_device):
+    """One gateway conversation over a small card pool (the 48 and 49
+    planes, so the ladder planes read with the chase kernel): every
+    move legal, the three kernels launched, nothing unhandled."""
+    from rocalphago_tpu_torch.gateway.client import GatewayClient
+    from rocalphago_tpu_torch.gateway.server import GatewayServer
+    from rocalphago_tpu_torch.models import CNNValue
+    from rocalphago_tpu_torch.serve import ServePool
+
+    kw = dict(board=9, layers=2, filters_per_layer=16, device=cuda_device)
+    pol, val = CNNPolicy(seed=7, **kw), CNNValue(seed=8, **kw)
+    with ServePool(val, pol, n_sim=32) as pool:
+        pool.warm()
+        with GatewayServer(pool, max_conns=2).start() as srv:
+            counters = (labels, chase, tree)
+            for c in counters:
+                c.launches = 0
+            st = pygo.GameState(size=9)
+            c = GatewayClient("127.0.0.1", srv.port)
+            try:
+                c.new_game(komi=6.5)
+                for color in "bwbw":
+                    reply = c.genmove(color)
+                    assert reply["rung"] == "search"
+                    mv = vertex_to_move(reply["move"], 9)
+                    assert mv is None or st.is_legal(mv)
+                    st.do_move(mv)
+                c.close_game()
+            finally:
+                c.close()
+            launches = {k.__name__: k.launches for k in counters}
+            assert all(n > 0 for n in launches.values()), launches
+            deadline = time.monotonic() + 10
+            while srv.stats()["conns"]["live"] and time.monotonic() < deadline:
+                time.sleep(0.02)
+            stats = srv.stats()
+            assert stats["requests"]["unhandled"] == 0
+            assert stats["requests"]["genmoves"] == 4
+            assert pool.stats()["sessions"]["live"] == 0
