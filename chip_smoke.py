@@ -286,6 +286,37 @@ Phases, in order; any failure exits non-zero before the result line:
     legal), then SIGTERM: exit 0 within the drain, the drain timeline
     in its metrics file.
 
+22. the network fleet, part 2, in ``build/smoke_fleet`` (phase 19's
+    specs and a second seeded pair of the same shape, phase 18's zero
+    specs): (a) a ``ParamsPublisher(spill_dir=)`` publishes the second
+    pair while a session's genmove is in flight, a ``SpillWatcher``
+    swaps it into a warmed 100-simulation pool: that genmove ends on
+    its pinned version, the next on the new one; the new version
+    evaluates within ``SIZE_ULPS`` of a fresh pool on the second specs
+    at batch 8; card memory stays flat across ``FLEET_SWAPS`` more
+    swaps; ``rollout_swap_seconds``; (b) a ``CanaryController`` behind
+    ``GatewayServer(canary=)``: the candidate arm searches on the staged
+    version, scripted outcomes promote one candidate and roll back
+    another, whose live session falls back to current; (c) the main
+    path: ``run_load`` (``GATEWAY_CONNS`` connections of
+    ``ROUTER_GENMOVES`` genmove) through a ``RolloutRouter`` over two
+    in-process gateways (a 1-session pool sharing the searcher, and the
+    pool), sticky with a spillover, every move legal, the three kernels
+    launched as phase 21's load launches them (counts reset just before,
+    read just after), the routed p50 beside phase 21's wire p50 and
+    beside the same load through a router over the pool's replica alone
+    (the hop apart from the replica split); a
+    fleet-wide swap and ``await_convergence``; a game failed over
+    mid-drain; (d) the CLIs: ``gateway.server --spill``,
+    ``rollout.router --replica``, ``gtp --connect`` through the router,
+    a spill showing on ``/healthz``, SIGTERM and exit 0 for each; (e)
+    replay over the wire: the ``replaynet.server`` CLI, a
+    ``--mode selfplay --board 19`` actor on the card, the zero CLI
+    learning one iteration with ``--replay-connect``, a synthetic actor
+    SIGKILLed mid-run and restarted, produced ids equal to ingested ids,
+    and the service drained and restarted, recovering its buffer and
+    dedup window.
+
 Every phase's wall time is logged. Depth cut to keep the whole run
 well under 1,100 s of its 1,200 s clock with phase 21 in: phase 9's and
 16's GTP sessions 4 genmoves before the timed ones (6), both
@@ -307,8 +338,8 @@ fails).
 The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
 iteration and generator, 16's GTP session and self-play, 17's GTP
 session, 18's zero iteration, 19's fleets and threaded sessions, 20's
-GTP session and self-play runs with the cache and 21's gateway load
-together,
+GTP session and self-play runs with the cache, 21's gateway load and
+22's routed load together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -469,6 +500,15 @@ GATEWAY_CONNS = 4        # phase 21: connections of the load
 GATEWAY_GENMOVES = 2     # genmoves a connection
 GATEWAY_SLO_MS = 2000.0  # the SLO server's per-genmove deadline
 GATEWAY_DRAIN_S = 30.0   # the CLI's SIGTERM: drain and exit within this
+FLEET_DIR = os.path.join("build", "smoke_fleet")
+FLEET_SWAPS = 5          # phase 22: swaps the card-memory check spans
+CANARY_GAMES = 4         # the canary's budget (4 straight wins: lb 0.51)
+ROUTER_GENMOVES = 1      # genmoves a connection of the routed load (cut
+#                          from phase 21's 2 for the clock)
+CLI_PLAYOUTS = 32        # the gateway CLI's simulations (depth cut)
+REPLAY_GAMES = 12        # the synthetic actor's game batches
+REPLAY_KILL_AFTER = 3    # its ingested batches before the SIGKILL
+WIRE_MOVES = 16          # the self-play actor's move limit (its default)
 
 
 class SmokeFailure(RuntimeError):
@@ -4038,6 +4078,7 @@ def phase_zero(torchgo, dev, card, counters):
     zero_pool(dev, work, card)
     out["phase_s"] = time.perf_counter() - t0
     out["cli_walls"] = walls
+    out["paths"] = paths
     log(f"zero phase: {out['phase_s']:.1f} s (specs and the four CLI runs "
         f"{t1 - t0:.1f} s, the timed iteration and its checks "
         f"{t2 - t1:.1f} s, card vs CPU and the pool "
@@ -5496,6 +5537,709 @@ def phase_gateway(pygo, card, counters, serve) -> dict:
     return out
 
 
+def fleet_specs(work: str) -> dict:
+    """A second seeded pair of phase 19's shape (the 19×19 12 × 128 FCN
+    policy and value nets) from the port's spec CLI: what the hot swap
+    and the canary install."""
+    from rocalphago_tpu_torch.models import specs
+
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, seed in (("policy19", 62), ("value19", 63)):
+            out[name] = os.path.join(work, f"{name}b.json")
+            specs.main([name[:-2], "--board", "19", "--seed",
+                        str(SEED + seed), "--out", out[name]])
+    return out
+
+
+def recording_acquire(pool):
+    """Wrap ``pool.evaluator.acquire``: every version a search pins is
+    appended to the returned list, and the event is set at each pin.
+    Returns ``(versions, event, restore)``."""
+    plain = pool.evaluator.acquire
+    versions, pinned = [], threading.Event()
+
+    def acquire(version=None):
+        v = plain(version)
+        versions.append(v)
+        pinned.set()
+        return v
+
+    pool.evaluator.acquire = acquire
+    return versions, pinned, lambda: setattr(pool.evaluator, "acquire",
+                                             plain)
+
+
+def fleet_swap(pygo, torchgo, pool, second, work, card) -> dict:
+    """(a) A ``ParamsPublisher(spill_dir=)`` publishes the second pair
+    while a session's genmove is in flight; a ``SpillWatcher`` swaps it
+    into the pool. The in-flight genmove ends on its pinned version,
+    the next one on the new; the new version evaluates as a fresh pool
+    on the second specs does; card memory stays flat across
+    ``FLEET_SWAPS`` more swaps."""
+    import gc
+
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.obs import registry
+    from rocalphago_tpu_torch.rollout.hotswap import HotSwapper, SpillWatcher
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+    from rocalphago_tpu_torch.training.actor import ParamsPublisher
+    from rocalphago_tpu_torch.training.zero import snapshot
+
+    spill = os.path.join(work, "spill")
+    pol_b = NeuralNetBase.load_model(second["policy19"])
+    val_b = NeuralNetBase.load_model(second["value19"])
+    pair_a = tuple(snapshot(n.module) for n in (pool.policy, pool.value))
+    pair_b = tuple(snapshot(n.module) for n in (pol_b, val_b))
+    pub = ParamsPublisher(spill_dir=spill)
+    swapper = HotSwapper(pool)
+    watcher = SpillWatcher(spill, swapper, pool.policy.module,
+                           pool.value.module, poll_s=0.02).start()
+    versions, pinned, restore = recording_acquire(pool)
+    st = pygo.GameState(size=SIZE, komi=7.5)
+    out = {}
+    try:
+        v0 = pool.params_version
+        with pool.open_session() as sess:
+            done = {}
+
+            def genmove():
+                done["move"] = sess.get_move(st)
+                done["version"] = sess.params_version
+                done["t"] = time.perf_counter()
+
+            t = threading.Thread(target=genmove, name="smoke-swap-genmove")
+            t.start()
+            check(pinned.wait(120), "the genmove never pinned a version")
+            published = pub.publish(*pair_b)
+            t_end = time.monotonic() + 60
+            while swapper.version < published and time.monotonic() < t_end:
+                time.sleep(0.005)
+            t_swapped = time.perf_counter()
+            in_flight = t.is_alive()
+            t.join(300)
+            check(not t.is_alive() and swapper.version == published,
+                  f"the swap: watcher at {swapper.version}, genmove "
+                  f"alive {t.is_alive()}")
+            v1 = pool.params_version
+            mv = done["move"]
+            check(done["version"] == v0 != v1 and in_flight
+                  and t_swapped < done["t"] and mv is not None
+                  and st.is_legal(mv),
+                  f"in-flight genmove: version {done['version']} (pinned "
+                  f"{v0}, new {v1}), swapped in flight {in_flight}, move "
+                  f"{mv}")
+            st.do_move(mv)
+            mv2 = sess.get_move(st)
+            check(sess.params_version == v1 and mv2 is not None
+                  and st.is_legal(mv2),
+                  f"next genmove on version {sess.params_version}, not {v1}")
+            rung = sess.player.last_rung
+        # the new version evaluates as a fresh pool on the second specs
+        many = torchgo.seed_labels(pool.cfg, torchgo.from_pygo(
+            pool.cfg, serve_positions(pygo, 8, SEED + 88),
+            device=pool.device, with_labels=False))
+        got_p, got_v = pool.evaluator.eval_direct(many)
+        fresh = ServePool(val_b, pol_b, n_sim=SERVE_SIMS,
+                          searcher=pool.search)
+        try:
+            want_p, want_v = fresh.evaluator.eval_direct(many)
+        finally:
+            fresh.close()
+        err = (float((got_p - want_p).abs().max()),
+               float((got_v - want_v).abs().max()))
+        lim = tuple(SIZE_ULPS * bf16_ulp(float(x.abs().max()))
+                    for x in (want_p, want_v))
+        exact = torch.equal(got_p, want_p) and torch.equal(got_v, want_v)
+        check(torch.isfinite(got_p).all() and err[0] <= lim[0]
+              and err[1] <= lim[1],
+              f"the swapped version vs a fresh pool: {err} over {lim}")
+        # memory across swaps (A, B, A, ...), one evaluation after each
+        mem = []
+        for i in range(FLEET_SWAPS + 1):
+            # B, A, B, ...: the pool ends on the phase-19 pair (A)
+            pub.publish(*(pair_b if i % 2 == 0 else pair_a))
+            t_end = time.monotonic() + 60
+            while swapper.version < pub.get()[0] and \
+                    time.monotonic() < t_end:
+                time.sleep(0.005)
+            pool.evaluator.eval_direct(many)[0].cpu()
+            torch.cuda.synchronize()
+            gc.collect()
+            mem.append(torch.cuda.memory_allocated(pool.device))
+        check(swapper.version == pub.get()[0] and max(mem[1:]) <= mem[0],
+              f"card memory across swaps {mem} (watcher at "
+              f"{swapper.version})")
+        hist = registry.snapshot()["histograms"]["rollout_swap_seconds"]
+        out = dict(swap_s=hist["sum"] / hist["count"], swaps=hist["count"],
+                   mem=mem, err=err, exact=exact)
+        log(f"hot swap [{card}]: a genmove at {SERVE_SIMS} simulations "
+            f"pinned version {v0}; the spill of version {published} landed "
+            f"while it searched (swapped in flight: {in_flight}); it ended "
+            f"on version {v0} with {mv} (rung {rung}), the next on {v1} with "
+            f"{mv2}; the swapped version vs a fresh pool on the second "
+            f"specs at batch 8: max |diff| priors {err[0]:.3e}, values "
+            f"{err[1]:.3e} (limits {lim[0]:.3e}, {lim[1]:.3e}; bit-equal "
+            f"{exact}); card memory allocated after {FLEET_SWAPS + 1} "
+            f"swaps {mem} bytes (flat); rollout_swap_seconds mean "
+            f"{out['swap_s']:.4f} s over {out['swaps']} swaps (the working "
+            "copies of both nets)")
+    finally:
+        restore()
+        watcher.stop()
+    return out
+
+
+def fleet_canary(pygo, pool, second, card) -> dict:
+    """(b) A candidate staged through ``GatewayServer(canary=)``: the
+    candidate arm searches on the staged version; scripted outcomes
+    promote one candidate and roll back another, and the rolled-back
+    arm's live session falls back to current."""
+    from rocalphago_tpu_torch.gateway import client as gw
+    from rocalphago_tpu_torch.gateway.server import GatewayServer
+    from rocalphago_tpu_torch.interface.gtp import vertex_to_move
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.rollout.canary import CanaryController
+
+    pol_b = NeuralNetBase.load_model(second["policy19"])
+    val_b = NeuralNetBase.load_model(second["value19"])
+    pair_b = (pol_b.module.state_dict(), val_b.module.state_dict())
+    pair_a = tuple({k: v.clone() for k, v in n.module.state_dict().items()}
+                   for n in (pool.policy, pool.value))
+    can = CanaryController(pool, fraction=1.0, min_games=CANARY_GAMES)
+    versions, _, restore = recording_acquire(pool)
+    srv = GatewayServer(pool, max_conns=4, canary=can).start()
+
+    def play_one(c, st, color):
+        reply = c.genmove(color)
+        mv = vertex_to_move(reply["move"], SIZE)
+        check(mv is not None and st.is_legal(mv),
+              f"canary genmove {color}: {reply}")
+        st.do_move(mv)
+
+    try:
+        staged = can.stage(*pair_b)
+        c = gw.GatewayClient("127.0.0.1", srv.port, timeout=600)
+        try:
+            c.new_game(board=SIZE)
+            play_one(c, pygo.GameState(size=SIZE), "b")
+        finally:
+            c.close()
+        check(versions == [staged] and can.stats()["assigned"][
+            "candidate"] == 1, f"candidate arm pinned {versions}, staged "
+            f"{staged}")
+        for _ in range(CANARY_GAMES):
+            can.record("candidate", won=True)
+        check(can.state == "promoted" and pool.params_version == staged,
+              f"canary after {CANARY_GAMES} wins: {can.stats()}")
+        lb_promote = can.stats()["wilson_lb"]
+        versions.clear()
+        second_v = can.stage(*pair_a)
+        c = gw.GatewayClient("127.0.0.1", srv.port, timeout=600)
+        try:
+            c.new_game(board=SIZE)
+            st = pygo.GameState(size=SIZE)
+            play_one(c, st, "b")
+            for _ in range(CANARY_GAMES):
+                can.record("candidate", won=False)
+            check(can.state == "rolled_back", f"canary: {can.stats()}")
+            play_one(c, st, "w")
+        finally:
+            c.close()
+        check(versions == [second_v, staged],
+              f"the rolled-back session pinned {versions}; want "
+              f"{[second_v, staged]}")
+        gateway_settle(srv, pool)
+        check(srv.stats()["requests"]["unhandled"] == 0,
+              f"canary gateway: {srv.stats()['requests']}")
+        stats = can.stats()
+        log(f"canary [{card}]: candidate version {staged} staged, the "
+            f"canary arm's genmove searched on it; "
+            f"{CANARY_GAMES} scripted wins -> promoted (Wilson lb "
+            f"{lb_promote}); candidate {second_v} staged, its live session "
+            f"pinned, {CANARY_GAMES} losses -> rolled back (lb "
+            f"{stats['wilson_lb']}), the session's next genmove on current "
+            f"{staged}; promotions {stats['promotions']}, rollbacks "
+            f"{stats['rollbacks']}; gateway requests.unhandled 0")
+        return dict(promoted=staged, rolled_back=second_v)
+    finally:
+        srv.close()
+        restore()
+        if can.state == "running":
+            can.rollback(reason="smoke")
+
+
+def fleet_router(pygo, pool, counters, card, gw21) -> dict:
+    """(c) Two in-process gateway replicas behind a ``RolloutRouter``:
+    ``a`` over a 1-session pool sharing the pool's searcher, ``b`` over
+    the pool. The main path: ``run_load`` through the router (sticky
+    sessions, a spillover off ``a``), every move legal; the same load
+    through a router over ``b`` alone (the hop without the split); a
+    fleet-wide swap and ``await_convergence``; a game failed over
+    mid-drain."""
+    from rocalphago_tpu_torch.gateway import client as gw
+    from rocalphago_tpu_torch.gateway.server import GatewayServer
+    from rocalphago_tpu_torch.interface.gtp import parse_color, vertex_to_move
+    from rocalphago_tpu_torch.interface.resilient import percentile
+    from rocalphago_tpu_torch.rollout.router import Replica, RolloutRouter
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    small = ServePool(pool.value, pool.policy, n_sim=SERVE_SIMS,
+                      max_sessions=1, searcher=pool.search)
+    a = GatewayServer(small, max_conns=4).start()
+    b = GatewayServer(pool, max_conns=GATEWAY_CONNS + 2).start()
+    reps = [Replica("127.0.0.1", a.port, gateway=a, name="a"),
+            Replica("127.0.0.1", b.port, gateway=b, name="b")]
+    router = RolloutRouter(reps, max_conns=8).start()
+    games = []
+
+    class Recording(gw.GatewayClient):
+        def new_game(self, board=None, komi=None):
+            reply = super().new_game(board=board, komi=komi)
+            self.game = (reply["board"], reply["komi"], [])
+            games.append(self.game)
+            return reply
+
+        def genmove(self, color):
+            reply = super().genmove(color)
+            self.game[2].append((color, reply))
+            return reply
+
+    try:
+        small.warm()
+        ev0 = [p.evaluator.stats()["batches"] for p in (small, pool)]
+        plain = gw.GatewayClient
+        gw.GatewayClient = Recording
+        try:
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            load = gw.run_load("127.0.0.1", router.port, conns=GATEWAY_CONNS,
+                               moves=ROUTER_GENMOVES, board=SIZE,
+                               timeout=600)
+            torch.cuda.synchronize()
+            launches = serve_launches(counters)
+        finally:
+            gw.GatewayClient = plain
+        genmoves = GATEWAY_CONNS * ROUTER_GENMOVES
+        check(load["moves"] == genmoves and load["sheds"] ==
+              load["disconnects"] == load["errors"] == 0,
+              f"routed load: {load}")
+        for board, komi, moves in games:
+            st = pygo.GameState(size=board, komi=komi)
+            for color, reply in moves:
+                mv = vertex_to_move(reply["move"], board)
+                check(mv is not None and st.is_legal(mv)
+                      and reply["rung"] == "search",
+                      f"routed genmove {color}: {reply}")
+                st.do_move(mv, parse_color(color))
+        batches = sum(p.evaluator.stats()["batches"] - e
+                      for p, e in zip((small, pool), ev0))
+        check(launches == batch_launches(batches, genmoves),
+              f"routed load launches {launches} for {batches} batches")
+        rst = router.stats()
+        shares = {n: r["routed"] for n, r in rst["replicas"].items()}
+        check(rst["spillovers"] >= 1 and shares["a"] >= 1,
+              f"router after the load: {rst}")
+        lat = sorted(load["latencies_s"])
+        p50, p99 = percentile(lat, 0.5), percentile(lat, 0.99)
+        # the control: the same load through a router over ``b`` alone,
+        # one pool as phase 21's, so its p50 less phase 21's is the
+        # router's hop and the main path's less it the replica split
+        for srv in (a, b):
+            gateway_settle(srv)
+        with RolloutRouter([Replica("127.0.0.1", b.port, gateway=b,
+                                    name="b")], max_conns=8).start() as one:
+            ctl = gw.run_load("127.0.0.1", one.port, conns=GATEWAY_CONNS,
+                              moves=ROUTER_GENMOVES, board=SIZE, timeout=600)
+        check(ctl["moves"] == genmoves and ctl["errors"] == ctl["sheds"]
+              == ctl["disconnects"] == 0, f"one-replica routed load: {ctl}")
+        p50_one = percentile(sorted(ctl["latencies_s"]), 0.5)
+        # a fleet-wide swap: one version number on both replicas
+        target = max(small.params_version, pool.params_version) + 1
+        pair = [n.module.state_dict() for n in (pool.policy, pool.value)]
+        t0 = time.perf_counter()
+        for p in (small, pool):
+            p.set_params(*pair, version=target)
+        converged = router.await_convergence(target, timeout=30)
+        conv_s = time.perf_counter() - t0
+        check(converged and all(r.params_version == target for r in reps),
+              f"convergence on {target}: {rst['replicas']}")
+        for srv in (a, b):
+            gateway_settle(srv)
+        # a game failed over mid-drain
+        c = gw.GatewayClient("127.0.0.1", router.port, timeout=600)
+        try:
+            c.new_game(board=SIZE)
+            st = pygo.GameState(size=SIZE, komi=7.5)
+            for color in "bw":
+                if color == "w":
+                    holder = a if router.stats()["replicas"]["a"][
+                        "sessions"] else b
+                    holder.drain(timeout=5.0)
+                mv = vertex_to_move(c.genmove(color)["move"], SIZE)
+                check(mv is not None and st.is_legal(mv),
+                      f"failover genmove {color}: {mv}")
+                st.do_move(mv)
+            mv = vertex_to_move(c.genmove("b")["move"], SIZE)
+            check(mv is not None and st.is_legal(mv),
+                  f"the genmove after the failover: {mv}")
+        finally:
+            c.close()
+        fst = router.stats()
+        # a backend read past the router's 30 s timeout during the load
+        # fails over too: count the mid-drain game's own
+        failovers = fst["failovers"] - rst["failovers"]
+        retried = fst["retried_genmoves"] - rst["retried_genmoves"]
+        check(failovers == 1 and retried <= 1, f"failover: {fst}")
+        for srv in (a, b):
+            check(srv.stats()["requests"]["unhandled"] == 0,
+                  f"replica requests: {srv.stats()['requests']}")
+        per_genmove = {k: v / genmoves for k, v in launches.items()}
+        wire = gw21["load"]
+        log(f"router [{card}]: {GATEWAY_CONNS} connections x "
+            f"{ROUTER_GENMOVES} genmove at {SERVE_SIMS} simulations over 2 "
+            f"replicas in {load['elapsed_s']:.2f} s: routed shares {shares}, "
+            f"spillovers {rst['spillovers']}; genmove p50 {p50:.3f} s, p99 "
+            f"{p99:.3f} s beside phase 21's wire p50 {wire['p50']:.3f} s "
+            f"(the router's tax {p50 - wire['p50']:+.3f} s at p50); the same "
+            f"load through a router over b alone: p50 {p50_one:.3f} s (the "
+            f"hop {p50_one - wire['p50']:+.3f} s, the replica split "
+            f"{p50 - p50_one:+.3f} s); every "
+            f"move legal; launches {launches} ({per_genmove} a genmove, "
+            f"{batches} evaluator batches); a fleet-wide swap to version "
+            f"{target} converged in {conv_s:.3f} s; a game failed over "
+            f"mid-drain (failovers {failovers}, retried genmoves {retried}; "
+            f"the load's {rst['failovers']}), its next genmove legal; "
+            f"replicas' "
+            "requests.unhandled 0, no routed conversation answered an error")
+        return dict(p50=p50, p99=p99, p50_one=p50_one, launches=launches,
+                    per_genmove=per_genmove, conv_s=conv_s,
+                    spillovers=rst["spillovers"], elapsed=load["elapsed_s"])
+    finally:
+        router.close()
+        a.close()
+        b.close()
+        small.close()
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def read_line(proc, prefix: str, what: str) -> str:
+    line = proc.stdout.readline()
+    check(line.startswith(prefix),
+          f"{what} said {line!r} (exit {proc.poll()})")
+    return line
+
+
+def stop_children(procs, timers) -> None:
+    for t in timers:
+        t.cancel()
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def fleet_clis(pygo, paths, second, work, card) -> dict:
+    """(d) The CLIs as a user runs them: the gateway with ``--spill``, the
+    router over it, ``gtp --connect`` through the router; a spill shows
+    as the new version on ``/healthz``; SIGTERM, and each exits 0."""
+    from rocalphago_tpu_torch.interface.gtp import vertex_to_move
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training.actor import ParamsPublisher
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spill = os.path.join(work, "cli_spill")
+    os.makedirs(spill, exist_ok=True)
+    errs = [open(os.path.join(work, f"{n}.err"), "w")
+            for n in ("gateway", "router", "bridge")]
+    http = free_port()
+    t0 = time.perf_counter()
+    gwp = child_popen(
+        [sys.executable, "-m", "rocalphago_tpu_torch.gateway.server",
+         "--policy", paths["policy19"], "--value", paths["value19"],
+         "--port", "0", "--http-port", str(http), "--playouts",
+         str(CLI_PLAYOUTS), "--spill", spill],
+        cwd=root, stdout=subprocess.PIPE, stderr=errs[0], text=True)
+    procs, timers = [gwp], [threading.Timer(CLI_TIMEOUT_S, gwp.kill)]
+    timers[0].start()
+    try:
+        line = read_line(gwp, "gateway: serving on 127.0.0.1:", "gateway CLI")
+        gport = int(line.split(":")[2].split()[0])
+        up_s = time.perf_counter() - t0
+        rtp = child_popen(
+            [sys.executable, "-m", "rocalphago_tpu_torch.rollout.router",
+             "--replica", f"127.0.0.1:{gport}:{http}", "--port", "0",
+             "--http-port", "0"],
+            cwd=root, stdout=subprocess.PIPE, stderr=errs[1], text=True)
+        procs.append(rtp)
+        line = read_line(rtp, "router: serving on 127.0.0.1:", "router CLI")
+        rport = int(line.split(":")[2].split()[0])
+        bridge = child_popen(
+            [sys.executable, "-m", "rocalphago_tpu_torch.interface.gtp",
+             "--connect", f"127.0.0.1:{rport}"], cwd=root,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=errs[2],
+            text=True)
+        procs.append(bridge)
+        timers += [threading.Timer(CLI_TIMEOUT_S, p.kill)
+                   for p in (rtp, bridge)]
+        for t in timers[1:]:
+            t.start()
+        st = pygo.GameState(size=SIZE, komi=7.5)
+        replies = []
+
+        def say(cmd: str) -> str:
+            bridge.stdin.write(cmd + "\n")
+            bridge.stdin.flush()
+            reply = gtp_reply(bridge)
+            replies.append(reply)
+            check(reply.startswith("="), f"gtp via the router: {cmd} -> "
+                  f"{reply!r}")
+            return reply[1:].strip()
+
+        for cmd in (f"boardsize {SIZE}", "clear_board", "komi 7.5"):
+            say(cmd)
+        for color in "bw":
+            mv = vertex_to_move(say(f"genmove {color}"), SIZE)
+            check(mv is not None and st.is_legal(mv),
+                  f"gtp via the router genmove {color}: {replies[-1]}")
+            st.do_move(mv)
+        say("quit")
+        check(bridge.wait(timeout=60) == 0,
+              f"the GTP bridge exited {bridge.returncode}")
+        _, body = http_get(http, "/healthz")
+        before = json.loads(body)["serve"]["params"]["version"]
+        pub = ParamsPublisher(spill_dir=spill)
+        pub.publish(NeuralNetBase.load_model(second["policy19"]).module,
+                    NeuralNetBase.load_model(second["value19"]).module)
+        t1 = time.perf_counter()
+        health = {}
+        while time.perf_counter() - t1 < 60:
+            status, body = http_get(http, "/healthz")
+            health = json.loads(body)
+            if health["serve"]["params"]["version"] > before:
+                break
+            time.sleep(0.1)
+        seen_s = time.perf_counter() - t1
+        check(status == 200 and health["serve"]["params"] == {
+            "version": before + 1, "swaps": 1} and health["gateway"][
+            "requests"]["unhandled"] == 0,
+              f"/healthz after the spill: {health.get('serve')}")
+        rcs = []
+        t2 = time.perf_counter()
+        for proc in (rtp, gwp):
+            proc.send_signal(signal.SIGTERM)
+            rcs.append(proc.wait(timeout=GATEWAY_DRAIN_S))
+        stop_s = time.perf_counter() - t2
+        check(rcs == [0, 0], f"router, gateway exits on SIGTERM: {rcs}")
+    finally:
+        stop_children(procs, timers)
+        for f in errs:
+            f.close()
+    log(f"fleet CLIs [{card}]: the gateway CLI with --spill up in "
+        f"{up_s:.1f} s, the router CLI over it, gtp --connect through the "
+        f"router {replies} (every reply '=', every vertex legal); a spill "
+        f"published -> /healthz serve.params {health['serve']['params']} "
+        f"after {seen_s:.2f} s; SIGTERM -> router and gateway exit "
+        f"{rcs} in {stop_s:.2f} s")
+    return dict(up_s=up_s, seen_s=seen_s, stop_s=stop_s)
+
+
+def fleet_replay(work, zero_paths, counters, card) -> dict:
+    """(e) Replay over the wire: the service CLI; a ``--mode selfplay
+    --board 19`` actor process on the card, then the same actor in this
+    process (its launches counted); the zero CLI learning one iteration
+    from the wire (``--replay-connect``, phase 18's specs); a synthetic
+    actor SIGKILLed mid-run and restarted; the produced ids equal the
+    ingested ids; the service drained and restarted recovers its buffer
+    and dedup window."""
+    from rocalphago_tpu_torch.replaynet import actor
+    from rocalphago_tpu_torch.replaynet.actor import synth_games
+    from rocalphago_tpu_torch.replaynet.client import ReplayClient
+    from rocalphago_tpu_torch.runtime.jsonl import read_jsonl
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spill = os.path.join(work, "replay_spill")
+    spools = [os.path.join(work, f"spool{i}") for i in range(3)]
+    err = open(os.path.join(work, "replay.err"), "w")
+    procs, timers = [], []
+
+    def start(args, **kw):
+        p = child_popen([sys.executable, "-m", *args], cwd=root,
+                        stderr=err, text=True, **kw)
+        procs.append(p)
+        timers.append(threading.Timer(CLI_TIMEOUT_S, p.kill))
+        timers[-1].start()
+        return p
+
+    def service():
+        p = start(["rocalphago_tpu_torch.replaynet.server", "--port", "0",
+                   "--spill-dir", spill, "--capacity", "32"],
+                  stdout=subprocess.PIPE)
+        line = p.stdout.readline()
+        restored = 0
+        if line.startswith("replaynet: restored"):
+            restored = int(line.split()[2])
+            line = p.stdout.readline()
+        check(line.startswith("replaynet: serving on 127.0.0.1:"),
+              f"the replay service CLI said {line!r}")
+        return p, int(line.split(":")[2]), restored
+
+    def run(args) -> float:
+        t = time.perf_counter()
+        p = start(args, stdout=subprocess.DEVNULL)
+        check(p.wait(timeout=CLI_TIMEOUT_S) == 0,
+              f"{args[0]} exited {p.returncode}")
+        return time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    try:
+        svc, port, _ = service()
+        addr = f"127.0.0.1:{port}"
+        selfplay = ["--connect", addr, "--games", "1", "--mode", "selfplay",
+                    "--board", str(SIZE), "--move-limit", str(WIRE_MOVES),
+                    "--seed", str(SEED), "--device", "cuda"]
+        sp_s = run(["rocalphago_tpu_torch.replaynet.actor", *selfplay,
+                    "--spool-dir", spools[0], "--actor-id", "0"])
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(actor.main([*selfplay, "--spool-dir", spools[2],
+                              "--actor-id", "2"]) == 0,
+                  "the in-process self-play actor")
+        torch.cuda.synchronize()
+        actor_launches = serve_launches(counters)
+        check(actor_launches["labels"] > 0 and actor_launches["tree"] > 0
+              and actor_launches["chase"] == 0,
+              f"a self-play actor's batch launched {actor_launches}")
+        out = os.path.join(work, "zero_wire")
+        zero_s = run(["rocalphago_tpu_torch.training.zero", *zero_paths, out,
+                      "--game-batch", "2", "--move-limit", str(WIRE_MOVES),
+                      "--sims", "4", "--iterations", "1", "--no-gating",
+                      "--seed", str(SEED), "--replay-connect", addr])
+        rows = read_jsonl(os.path.join(out, "metrics.jsonl"))
+        (it,) = [r for r in rows if r["event"] == "iteration"]
+        check(all(np.isfinite(it[k]) for k in ("policy_loss", "value_loss"))
+              and os.path.exists(os.path.join(out,
+                                              "policy.00001.flax.msgpack")),
+              f"the zero CLI over the wire: {it}")
+        argv = ["rocalphago_tpu_torch.replaynet.actor", "--connect", addr,
+                "--spool-dir", spools[1], "--actor-id", "1", "--games",
+                str(REPLAY_GAMES), "--seed", str(SEED)]
+        victim = start(argv + ["--rate-s", "0.1"], stdout=subprocess.DEVNULL)
+        with ReplayClient("127.0.0.1", port) as c:
+            t_end = time.monotonic() + 120
+            while c.stats()["ingest"]["puts"] < 2 + REPLAY_KILL_AFTER:
+                check(victim.poll() is None and time.monotonic() < t_end,
+                      "the synthetic actor ended before its kill")
+                time.sleep(0.02)
+        victim.kill()
+        victim.wait()
+        run(argv)
+        with ReplayClient("127.0.0.1", port) as c:
+            stats = c.stats()
+        ids = []
+        for sp in spools:
+            with ReplayClient("127.0.0.1", port, spool_dir=sp) as c:
+                check(c.spool_depth == 0, f"{sp} still spools")
+                ids.append(c.produced_ids())
+        produced = ids[0] | ids[1] | ids[2]
+        svc.send_signal(signal.SIGTERM)
+        check(svc.wait(timeout=GATEWAY_DRAIN_S) == 0,
+              f"the replay service exited {svc.returncode} on SIGTERM")
+        with open(os.path.join(spill, "dedup.json")) as f:
+            ingested = set(json.load(f))
+        check(produced == ingested and len(produced) == 2 + REPLAY_GAMES
+              and stats["ingest"]["puts"] == 2 + REPLAY_GAMES
+              and stats["takes"]["batches"] == 1
+              and stats["requests"]["unhandled"] == 0,
+              f"produced {len(produced)} ids, ingested {len(ingested)} "
+              f"(equal: {produced == ingested}); service {stats['ingest']}, "
+              f"takes {stats['takes']}, requests {stats['requests']}")
+        svc2, port2, restored = service()
+        with ReplayClient("127.0.0.1", port2) as c:
+            c.put_games(synth_games(SEED, 1, 0), version=0)
+            dup = c.dup_acks
+            taken = set()
+            while True:
+                got = c.next_batch()
+                if got is None:
+                    break
+                taken.add(got["record"]["game_id"])
+            stats2 = c.stats()
+        svc2.send_signal(signal.SIGTERM)
+        check(svc2.wait(timeout=GATEWAY_DRAIN_S) == 0,
+              f"the restarted service exited {svc2.returncode}")
+        # the first self-play batch was learned; the in-process actor's
+        # and the synthetic ones restore
+        check(restored == REPLAY_GAMES + 1 and dup == 1
+              and taken == ids[1] | ids[2] and len(ids[0]) == 1
+              and stats2["ingest"]["puts"] == 0
+              and stats2["requests"]["unhandled"] == 0,
+              f"restart: restored {restored}, dup acks {dup}, taken "
+              f"{len(taken)}, {stats2['ingest']}")
+    finally:
+        stop_children(procs, timers)
+        err.close()
+    wall = time.perf_counter() - t0
+    log(f"replay over the wire [{card}]: the service CLI; a self-play actor "
+        f"(--board {SIZE}, on the card) shipped its batch in {sp_s:.1f} s "
+        f"with the process start, the same actor in process launched "
+        f"{actor_launches} for its batch of 2 games; the zero CLI learned "
+        f"iteration 1 from the "
+        f"wire in {zero_s:.1f} s (policy loss {it['policy_loss']:.4f}, "
+        f"value loss {it['value_loss']:.4f}); a synthetic actor SIGKILLed "
+        f"after {REPLAY_KILL_AFTER} batches and restarted; produced ids = "
+        f"ingested ids ({len(produced)}), {stats['ingest']}, "
+        f"requests.unhandled 0; drained (exit 0) and restarted: restored "
+        f"{restored} entries, a re-shipped batch acked dup, the "
+        f"{len(taken)} restored batches taken; {wall:.1f} s")
+    return dict(selfplay_s=sp_s, zero_s=zero_s, wall=wall,
+                ingest_games=stats["ingest"]["games"],
+                actor_launches=actor_launches)
+
+
+def phase_fleet(pygo, torchgo, card, counters, serve, zero, gw21) -> dict:
+    """Phase 22: the fleet, part 2 (see the module docstring)."""
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.serve.sessions import ServePool
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, FLEET_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = serve["paths"]
+    second = fleet_specs(work)
+    policy = NeuralNetBase.load_model(paths["policy19"])
+    value = NeuralNetBase.load_model(paths["value19"])
+    pool = ServePool(value, policy, n_sim=SERVE_SIMS)
+    try:
+        pool.warm()
+        out = dict(swap=fleet_swap(pygo, torchgo, pool, second, work, card))
+        out["canary"] = fleet_canary(pygo, pool, second, card)
+        out["router"] = fleet_router(pygo, pool, counters, card, gw21)
+    finally:
+        join_abandoned()
+        pool.close()
+    out["cli"] = fleet_clis(pygo, paths, second, work, card)
+    out["replay"] = fleet_replay(work, zero["paths"], counters, card)
+    out["launches"] = out["router"]["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"fleet phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def host_reads_main(root: str) -> int:
     """``--host-reads ROOT``: the port found in ROOT (a checkout, such as
     a ``git archive`` of an earlier commit) builds its kernels and
@@ -5595,19 +6339,23 @@ def main() -> int:
     inc = phase(20, phase_incremental, pygo, torchgo, dev, card, (L, C, T),
                 specs)
     gw21 = phase(21, phase_gateway, pygo, card, (L, C, T), sv19)
-    # the launches of phases 11-21's paths: policy self-play (labels,
+    fl22 = phase(22, phase_fleet, pygo, torchgo, card, (L, C, T), sv19, zr,
+                 gw21)
+    # the launches of phases 11-22's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
     # Gumbel GTP session and Gumbel self-play (all three), the mcts GTP
     # session (labels, chase), the zero iteration, the serving fleets
     # and sessions, the incremental GTP session and self-play runs, the
-    # gateway's load (all three); the kernels timed at self-play's shapes
+    # gateway's load and the routed load (all three); the kernels timed
+    # at self-play's shapes
     launches = {k: sp["launches"].get(k, 0) + ss["launches"][k]
                 + sv["launches"].get(k, 0) + rf["launches"].get(k, 0)
                 + rf["gen_launches"].get(k, 0) + gb["main"]["launches"][k]
                 + gb["sp_launches"][k] + mc["launches"].get(k, 0)
                 + zr["launches"][k] + sv19["launches"][k]
                 + inc["launches"][k] + gw21["launches"][k]
+                + fl22["launches"][k]
                 for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
@@ -5690,6 +6438,18 @@ def main() -> int:
         f"{SERVE_SIMS} simulations (limit {SERVE_GENMOVE_LIMIT_S:.0f} s), "
         f"launches a genmove {load['per_genmove']}; phase 21 "
         f"{gw21['phase_s']:.1f} s on {card}")
+    rt = fl22["router"]
+    log(f"fleet: hot swap {fl22['swap']['swap_s']:.4f} s a swap (mean of "
+        f"{fl22['swap']['swaps']}); routed genmove p50 {rt['p50']:.3f} s, p99 "
+        f"{rt['p99']:.3f} s (the router's tax {rt['p50'] - load['p50']:+.3f} "
+        f"s at p50 against phase 21's wire; over one replica "
+        f"{rt['p50_one']:.3f} s, {rt['p50_one'] - load['p50']:+.3f} s), "
+        f"convergence "
+        f"{rt['conv_s']:.3f} s, launches a routed genmove "
+        f"{rt['per_genmove']}; a self-play actor's batch of 2 games "
+        f"{fl22['replay']['actor_launches']}; wire ingest "
+        f"{fl22['replay']['ingest_games']} games; phase 22 "
+        f"{fl22['phase_s']:.1f} s on {card}")
     log("phase wall times (s): " + json.dumps(
         {n: round(w, 1) for n, w in sorted(walls.items())}))
     log(f"at the end: {nothing_left()}")

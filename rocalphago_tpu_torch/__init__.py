@@ -13,6 +13,16 @@ Entry points (model loading, :class:`~.features.api.Preprocess`, the
 GTP ``main``) run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request they raise
 (:func:`resolve_device`).
+
+Importing the package itself loads no torch (``resolve_device`` is
+resolved on first use), so the host-only modules -- the replay wire
+and its synthetic actor among them -- start without it.
 """
 
-from rocalphago_tpu_torch.device import resolve_device  # noqa: F401
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from rocalphago_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,7 +13,8 @@ Durability and transport:
 
 - crash-safe spill: with ``spill_dir`` set, every accepted entry is
   written atomically (:func:`~rocalphago_tpu_torch.runtime.atomic.
-  atomic_write_json`) and removed again when consumed or evicted;
+  atomic_write_json`) and removed again when consumed or evicted (and
+  written again when :meth:`ReplayBuffer.requeue` puts it back);
   :meth:`ReplayBuffer.restore` reloads whatever survived, skipping
   anything unreadable;
 - tolerant JSONL ingest: :class:`JsonlIngester` tails ``*.jsonl``
@@ -286,6 +287,27 @@ class ReplayBuffer:
         if evicted_games:
             registry.counter("replay_evicted_games_total").inc(
                 evicted_games)
+        return True
+
+    def requeue(self, entry: ReplayEntry) -> bool:
+        """Put a consumed entry back at the head of the FIFO, with its
+        seq: the take-side loss guard of the replay service (a popped
+        entry whose reply could not be sent). Capacity may overshoot by
+        the requeued entry, since dropping it is the loss the guard
+        prevents. False only when closed."""
+        with self._cond:
+            if self._closed:
+                return False
+            if self.spill_dir:
+                # re-spilled before the entry is visible (as in put)
+                atomic.atomic_write_json(
+                    self._spill_path(entry.seq),
+                    games_to_record(entry.games, entry.version, entry.seq),
+                    indent=None)
+            self._entries.insert(0, entry)
+            fill = self._fill_games()
+            self._cond.notify_all()
+        registry.gauge("replay_fill_games").set(fill)
         return True
 
     # ------------------------------------------------------- consumers

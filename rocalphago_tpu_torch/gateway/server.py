@@ -50,7 +50,11 @@ Run it as::
     python -m rocalphago_tpu_torch.gateway.server --policy P.json \
         --value V.json [--sizes 9,13,19] [--port 9462] [--http-port 9463] \
         [--playouts 100] [--slo-ms 2000] [--metrics gateway.jsonl] \
-        [--device cpu]
+        [--spill DIR] [--device cpu]
+
+``--spill DIR`` follows a rollout spill pointer with a
+:class:`~rocalphago_tpu_torch.rollout.hotswap.SpillWatcher`: promoted
+params hot-swap into the live pool.
 """
 
 from __future__ import annotations
@@ -546,9 +550,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(
-        description="Network play gateway over a serve pool. (The "
-                    "reference's --spill hot swap of promoted params is "
-                    "not in this port yet.)")
+        description="Network play gateway over a serve pool")
     ap.add_argument("--policy", required=True,
                     help="policy model JSON spec")
     ap.add_argument("--value", required=True,
@@ -567,6 +569,10 @@ def main(argv=None) -> int:
                          "pool (needs FCN heads)")
     ap.add_argument("--metrics", default=None,
                     help="JSONL path for drain/degradation events")
+    ap.add_argument("--spill", default=None,
+                    help="rollout spill dir to watch (the gate's pool dir, "
+                         "or a ParamsPublisher's spill_dir): promoted "
+                         "params hot-swap into the live pool, no restart")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the pool (default cuda; 'cpu' "
                          "to run on the CPU)")
@@ -597,6 +603,16 @@ def main(argv=None) -> int:
         pool = ServePool(value, policy, n_sim=a.playouts,
                          metrics=metrics)
     pool.warm()
+    watcher = None
+    if a.spill:
+        from rocalphago_tpu_torch.rollout.hotswap import (
+            HotSwapper,
+            SpillWatcher,
+        )
+
+        watcher = SpillWatcher(
+            a.spill, HotSwapper(pool, metrics=metrics),
+            policy.module, value.module, metrics=metrics).start()
     server = GatewayServer(pool, host=a.host, port=a.port,
                            max_conns=a.max_conns, slo_ms=a.slo_ms,
                            metrics=metrics).start()
@@ -614,6 +630,8 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         sup.request_drain(reason="keyboard")
     server.drain(reason="sigterm")
+    if watcher is not None:
+        watcher.stop()
     if http is not None:
         http.close()
     pool.close()

@@ -159,13 +159,44 @@ class MultiSizePool:
                    version: int | None = None) -> int:
         """Hot-swap every member pool to the state dicts ``(params_p,
         params_v)`` (or promote a registered ``version``): one checkpoint,
-        one version number, every size. The member pools load the new
-        weights into the shared modules, so a later :meth:`add_size`
-        net shares them too."""
-        return self._fanout(
+        one version number, every size. The source nets follow (by
+        reference, as each member pool's do), so a later
+        :meth:`add_size` net shares the new weights."""
+        v = self._fanout(
             lambda pool, ver: pool.set_params(params_p, params_v,
                                               version=ver),
             version)
+        self._follow()
+        return v
+
+    def _follow(self) -> None:
+        """The source nets take the default pool's current modules (one
+        attribute store each)."""
+        pool = self.pool_for(self.default_size)
+        self.policy.module = pool.policy.module
+        self.value.module = pool.value.module
+
+    def stage_params(self, params_p, params_v,
+                     version: int | None = None) -> int:
+        """Stage a candidate on every member pool (the canary's arm), one
+        version number across the ladder."""
+        return self._fanout(
+            lambda pool, ver: pool.stage_params(params_p, params_v,
+                                                version=ver),
+            version)
+
+    def promote_version(self, version: int) -> int:
+        """Promote a staged version on every member pool."""
+        v = int(version)
+        for s in self.sizes:
+            self.pool_for(s).promote_version(v)
+        self._follow()
+        return v
+
+    def discard_version(self, version: int) -> None:
+        """Retire a staged version on every member pool."""
+        for s in self.sizes:
+            self.pool_for(s).discard_version(version)
 
     # -------------------------------------------------------- warmup
 

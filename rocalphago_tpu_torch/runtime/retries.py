@@ -15,7 +15,9 @@ XLA's status words: an out-of-memory error is transient (XLA's
 its memory), while a sticky CUDA error -- ``torch.AcceleratorError``,
 or a ``RuntimeError`` whose message starts ``CUDA error:`` (an illegal
 address, a launch failure) -- is not: it poisons the context, and
-every retry would replay it.
+every retry would replay it. The module loads no torch: with torch not
+imported, no CUDA error can exist, so the host-only processes (the
+replay service, its synthetic actors) start without it.
 
 Only retry pure work: an idempotent artifact write or read.
 """
@@ -27,8 +29,6 @@ import hashlib
 import sys
 import time
 
-import torch
-
 _MAX_DELAY = 30.0
 
 # programming errors: never retry, whatever the message says
@@ -37,22 +37,21 @@ _FATAL_TYPES = (TypeError, ValueError, KeyError, IndexError,
                 NotImplementedError, KeyboardInterrupt, SystemExit)
 
 
-# a sticky CUDA error poisons the context: never retry
-_STICKY_TYPES = tuple(t for t in (getattr(torch, "AcceleratorError", None),)
-                      if t is not None)
-
-
 def is_transient(exc: BaseException) -> bool:
     """True if ``exc`` looks like infrastructure flake worth another
     attempt; False for programming errors."""
     if isinstance(exc, _FATAL_TYPES):
         return False
-    if isinstance(exc, torch.cuda.OutOfMemoryError):
-        return True
-    if isinstance(exc, _STICKY_TYPES) or (
-            isinstance(exc, RuntimeError)
-            and str(exc).startswith("CUDA error:")):
-        return False
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        if isinstance(exc, torch.cuda.OutOfMemoryError):
+            return True
+        # a sticky CUDA error poisons the context: never retry
+        sticky = getattr(torch, "AcceleratorError", None)
+        if (sticky is not None and isinstance(exc, sticky)) or (
+                isinstance(exc, RuntimeError)
+                and str(exc).startswith("CUDA error:")):
+            return False
     return isinstance(exc, (OSError, TimeoutError, ConnectionError))
 
 

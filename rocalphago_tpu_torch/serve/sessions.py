@@ -442,7 +442,7 @@ class ServePool:
         """The lockstep throughput drive over ``sessions``."""
         return FleetDriver(self, sessions)
 
-    # -------------------------------------------------------- versions
+    # -------------------------------------------------------- rollout
 
     @property
     def params_version(self) -> int:
@@ -458,14 +458,45 @@ class ServePool:
         ``(params_p, params_v)`` (or promote a registered ``version``)
         as the current pair; live sessions keep playing, and genmoves in
         flight finish on the version they pinned. The pool's nets follow
-        so the degraded rungs serve the same weights."""
+        so the degraded rungs serve the same weights
+        (:meth:`_follow`)."""
         pair = (None, None) if params_p is None else \
             self._working(params_p, params_v)
         v = self.evaluator.set_params(*pair, version=version)
-        pp, pv = self.evaluator.version_params(v)
-        self.policy.module.load_state_dict(pp.state_dict())
-        self.value.module.load_state_dict(pv.state_dict())
+        self._follow(v)
         return v
+
+    def _follow(self, version: int) -> None:
+        """Point the pool's nets at ``version``'s modules by reference
+        (the evaluator's working copies, which compute the same outputs
+        bit for bit), one attribute store each, as the reference points
+        its nets' params. A forward already running on another thread
+        (the ladder's policy rung) keeps the module it started on, so it
+        never reads half-swapped weights, as an in-place copy into the
+        live module would let it."""
+        self.policy.module, self.value.module = \
+            self.evaluator.version_params(version)
+
+    def stage_params(self, params_p, params_v,
+                     version: int | None = None) -> int:
+        """Register a candidate pair WITHOUT flipping current (the
+        canary's arm): sessions reach it only through
+        :meth:`ServeSession.pin_version`."""
+        return self.evaluator.add_version(
+            *self._working(params_p, params_v), version=version)
+
+    def promote_version(self, version: int) -> int:
+        """Full rollout of a staged version: flip current to it and drop
+        the stage pin."""
+        v = self.set_params(version=version)
+        self.evaluator.release(v)
+        return v
+
+    def discard_version(self, version: int) -> None:
+        """Roll a staged version back: drop the stage pin, so it retires
+        once in-flight pinned searches finish; sessions pinned to it fall
+        back to current on their next genmove."""
+        self.evaluator.release(version)
 
     # --------------------------------------------------------- warmup
 

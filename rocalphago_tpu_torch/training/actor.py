@@ -107,13 +107,20 @@ class ParamsPublisher:
     """A versioned pair of nets actors wait on between games. The
     learner (or the gate, after a promotion) calls :meth:`publish` with
     snapshots (the trainer's own modules change in place); actors block
-    in :meth:`wait_version`."""
+    in :meth:`wait_version`.
 
-    def __init__(self):
+    With ``spill_dir`` set, every publish is also mirrored to disk as a
+    Flax msgpack pair plus the ``rollout.json`` pointer, the reference's
+    files, so a serving process of either package follows it
+    (:class:`~rocalphago_tpu_torch.rollout.hotswap.SpillWatcher`)."""
+
+    def __init__(self, spill_dir: str | None = None):
         self._cond = threading.Condition()
         self._version = -1     # guarded-by: self._cond
         self._policy = None    # guarded-by: self._cond
         self._value = None     # guarded-by: self._cond
+        #: directory each publish is mirrored into (None: in process only)
+        self.spill_dir = spill_dir
 
     def publish(self, policy, value, version: int | None = None) -> int:
         """Install a pair; bumps the version (or sets it: lockstep pins
@@ -126,7 +133,35 @@ class ParamsPublisher:
             v = self._version
             self._cond.notify_all()
         registry.gauge("actor_params_version").set(v)
+        if self.spill_dir is not None:
+            self._spill(v, policy, value)
         return v
+
+    def _spill(self, version: int, policy, value) -> None:
+        """Mirror one publish to disk: the pair as Flax msgpack (host
+        copies of the snapshots' weights), then the pointer flipped at
+        it. Pointer-last ordering means a watcher that reads the pointer
+        always finds both files; older pairs are pruned best-effort once
+        the pointer has moved on."""
+        from rocalphago_tpu_torch.models.weights import (
+            params_to_flax,
+            write_flax_msgpack,
+        )
+
+        d = self.spill_dir
+        os.makedirs(d, exist_ok=True)
+        ppath = os.path.join(d, f"spill.{version:05d}.policy.msgpack")
+        vpath = os.path.join(d, f"spill.{version:05d}.value.msgpack")
+        for path, net in ((ppath, policy), (vpath, value)):
+            write_flax_msgpack(path, params_to_flax(net.state_dict()))
+        write_spill(d, version=version, policy_path=ppath, value_path=vpath)
+        for name in sorted(os.listdir(d)):
+            if (name.startswith("spill.") and name.endswith(".msgpack")
+                    and not name.startswith(f"spill.{version:05d}.")):
+                try:
+                    os.remove(os.path.join(d, name))
+                except OSError:
+                    pass  # a concurrent reader may hold it open
 
     def get(self):
         """The latest ``(version, policy, value)``; version -1 before the

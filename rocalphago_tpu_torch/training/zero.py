@@ -680,6 +680,13 @@ def _parser() -> argparse.ArgumentParser:
                          "synchronous loop")
     ap.add_argument("--actors", type=int, default=1,
                     help="self-play actor threads (--actor-learner)")
+    ap.add_argument("--replay-connect", default=None, metavar="HOST:PORT",
+                    help="consume games from a networked replay service "
+                         "instead of in-process actors: implies "
+                         "--actor-learner with no local actor thread; "
+                         "self-play comes from actor processes "
+                         "(rocalphago_tpu_torch.replaynet.actor) shipping "
+                         "to the service")
     ap.add_argument("--replay-capacity", type=int, default=None,
                     help="replay buffer capacity in game batches "
                          "(default 8)")
@@ -870,7 +877,7 @@ def run_training(argv=None) -> dict:
 
     rig = sup = publisher = gang = None
     lockstep = False
-    if a.actor_learner:
+    if a.actor_learner or a.replay_connect:
         from rocalphago_tpu_torch.data.replay import ReplayBuffer
         from rocalphago_tpu_torch.runtime import supervisor as superv
         from rocalphago_tpu_torch.training.actor import (
@@ -880,7 +887,32 @@ def run_training(argv=None) -> dict:
         )
         from rocalphago_tpu_torch.training.learner import ZeroLearner
 
-        lockstep = a.actors == 1 and not a.replay_sample
+        lockstep = (a.actors == 1 and not a.replay_sample
+                    and not a.replay_connect)
+    if a.replay_connect:
+        # the wire rig: the learner consumes a remote replay service
+        # through RemoteReplayBuffer (FIFO over the wire, reconnecting
+        # inside the client); actor processes ship to the service, so
+        # there is no in-process publisher
+        from rocalphago_tpu_torch.replaynet.client import (
+            RemoteReplayBuffer,
+            ReplayClient,
+        )
+
+        rhost, _, rport = a.replay_connect.rpartition(":")
+        buffer = RemoteReplayBuffer(
+            ReplayClient(rhost or "127.0.0.1", int(rport)))
+        gang = DispatchGang()
+        sup = superv.Supervisor(metrics=metrics)
+        learner = ZeroLearner(iteration.learn, buffer, gang=gang,
+                              sample=a.replay_sample, metrics=metrics)
+        sup.install_sigterm()
+        sup.start()
+        rig = (buffer, publisher, sup, learner)
+        metrics.log("actor_learner", actors=0, lockstep=False,
+                    remote=a.replay_connect, sample=a.replay_sample,
+                    supervised=True)
+    elif a.actor_learner:
         buffer = ReplayBuffer(capacity=a.replay_capacity,
                               spill_dir=os.path.join(a.out_dir, "replay"))
         # a drained or killed predecessor's spill: the lockstep actor

@@ -1183,3 +1183,112 @@ def test_gateway_conversation_over_a_card_pool(cuda_device):
             assert stats["requests"]["unhandled"] == 0
             assert stats["requests"]["genmoves"] == 4
             assert pool.stats()["sessions"]["live"] == 0
+
+
+def swap_pool(device):
+    from rocalphago_tpu_torch.models import CNNValue
+    from rocalphago_tpu_torch.serve import ServePool
+
+    kw = dict(board=9, layers=2, filters_per_layer=16, device=device)
+    pol, val = CNNPolicy(seed=11, **kw), CNNValue(seed=12, **kw)
+    pool = ServePool(val, pol, n_sim=32)
+    pool.warm()
+    return pool, pol, val
+
+
+def scaled(module, s):
+    return {k: v * s for k, v in module.state_dict().items()}
+
+
+def test_hot_swap_under_an_in_flight_genmove_on_the_card(cuda_device):
+    """A swap while a session's genmove is searching: that genmove ends
+    on the version it pinned, with a legal move; the next one runs on
+    the new version."""
+    import threading
+
+    pool, pol, val = swap_pool(cuda_device)
+    try:
+        pinned = threading.Event()
+        plain = pool.evaluator.acquire
+
+        def acquire(version=None):
+            v = plain(version)
+            pinned.set()
+            return v
+
+        pool.evaluator.acquire = acquire
+        st = pygo.GameState(size=9)
+        out = {}
+        with pool.open_session() as sess:
+            def genmove():
+                out["move"] = sess.get_move(st)
+                out["version"] = sess.params_version
+
+            t = threading.Thread(target=genmove)
+            t.start()
+            assert pinned.wait(60)
+            v0 = pool.params_version
+            v1 = pool.set_params(scaled(pol.module, 0.5),
+                                 val.module.state_dict())
+            t.join(120)
+            assert not t.is_alive() and out["version"] == v0 != v1
+            assert out["move"] is None or st.is_legal(out["move"])
+            st.do_move(out["move"])
+            mv = sess.get_move(st)
+            assert sess.params_version == v1
+            assert mv is None or st.is_legal(mv)
+    finally:
+        pool.close()
+
+
+def test_card_memory_stays_flat_across_swaps(cuda_device):
+    """Retired versions free their working copies and the facade nets'
+    old modules: five swaps (each with a genmove) leave the allocated
+    card memory where the first left it."""
+    import gc
+
+    pool, pol, val = swap_pool(cuda_device)
+    try:
+        st = pygo.GameState(size=9)
+
+        def swap_and_play(i):
+            pool.set_params(scaled(pol.module, 1.0 + 0.01 * i),
+                            val.module.state_dict())
+            with pool.open_session(resilient=False) as sess:
+                sess.get_move(st)
+            torch.cuda.synchronize()
+            gc.collect()
+            return torch.cuda.memory_allocated(cuda_device)
+
+        base = swap_and_play(0)
+        after = [swap_and_play(i) for i in range(1, 6)]
+        assert max(after) <= base, (base, after)
+        assert pool.stats()["params"]["swaps"] == 6
+    finally:
+        pool.close()
+
+
+def test_selfplay_actor_ships_card_games(cuda_device, tmp_path):
+    """The actor CLI's self-play mode plays on the card (the labels
+    kernel scores its games, the tree kernel walks its searches) and
+    ships the record over the wire."""
+    from rocalphago_tpu_torch.replaynet import actor
+    from rocalphago_tpu_torch.replaynet.client import ReplayClient
+    from rocalphago_tpu_torch.replaynet.server import ReplayService
+
+    svc = ReplayService(capacity=4).start()
+    try:
+        for k in (labels, tree):
+            k.launches = 0
+        assert actor.main(["--connect", f"127.0.0.1:{svc.port}",
+                           "--spool-dir", str(tmp_path / "a"), "--games",
+                           "1", "--mode", "selfplay", "--board", "9",
+                           "--device", "cuda"]) == 0
+        assert labels.launches > 0 and tree.launches > 0
+        with ReplayClient("127.0.0.1", svc.port, attempts=2) as c:
+            rec = c.next_batch()["record"]
+        assert rec["visits_dtype"] == "int32"
+        assert np.asarray(rec["visits"]).shape == (16, 2, 82)
+        assert svc.stats()["requests"]["unhandled"] == 0
+    finally:
+        svc.close()
