@@ -62,7 +62,7 @@ Phases, in order; any failure exits non-zero before the result line:
     under ``set_sync_debug_mode("error")``; the timed run (games per
     minute under the reference's metric name, board-plies/s, mean game
     length, the pipeline's ``host_gap_frac``; chase and labels launched,
-    counts reset just before and read just after); its first 8 games
+    counts reset just before and read just after); its first 4 games
     replayed on the CPU port (every action sensible there, the same
     live rows, boards, done flags and winners); ``winner`` on the card
     against ``host_winners``; the chase kernel on the lanes of one of
@@ -85,7 +85,7 @@ Phases, in order; any failure exits non-zero before the result line:
     on the committed 19×19 games of ``results/sl19_r5/sgf`` (48 planes;
     the manifest counts every game and one position per non-pass move;
     labels and chase launched, counts reset just before and read just
-    after; positions/s), its first 2 games converted again by the CPU
+    after; positions/s), its first game converted again by the CPU
     port, bit for bit; the SL trainer's CLI entry on a fresh seeded
     12 × 128 bf16 policy saved as a spec (minibatch 16, symmetries on,
     2 epochs of 50 steps: finite losses, every artifact, the ``sl.*``
@@ -112,7 +112,7 @@ Phases, in order; any failure exits non-zero before the result line:
     replay and update timed with a sync after each (games per minute
     under the reference's metric, ms per replay ply, the replay's MFU
     share), chase and labels launched (counts reset just before, read
-    just after), the params moved and finite, its first 8 games
+    just after), the params moved and finite, its first 4 games
     replayed on the CPU, the chase kernel on a mid-game replay ply's
     lanes and the labels kernel on its final region boards bit-exact and
     timed, a profile of 10 mid-game replay plies; the value-corpus
@@ -137,12 +137,12 @@ Phases, in order; any failure exits non-zero before the result line:
     legal vertex, the three kernels launched (counts reset just before,
     read just after), no tree reused, its p50 beside phase 9's; a PUCT
     and a Gumbel search of 100 simulations from one root timed in turns,
-    and a profile of a Gumbel chunk; Gumbel search self-play (batch 8, 32 simulations, 8 plies playing the
-    halving winner, then 4 sampling π′; every π′ row finite and summing
+    and a profile of a Gumbel chunk; Gumbel search self-play (batch 8, 32 simulations, 4 plies playing the
+    halving winner, then 2 sampling π′; every π′ row finite and summing
     to 1; simulations/s; the three kernels launched); the self-play CLI
     with ``--gumbel --m-root 4``; the tournament CLI, ``gumbel-mcts``
     against ``device-mcts`` on the committed 9×9 gumbel nets
-    (``TOURNEY_GAMES`` 2, 8 playouts, move limit ``TOURNEY_MOVES`` 20,
+    (``TOURNEY_GAMES`` 2, 8 playouts, move limit ``TOURNEY_MOVES`` 12,
     no forfeit, a log line a game) and the
     Elo CLI over its log (finite ratings);
 17. the reference's own AlphaGo player, host APV-MCTS, in
@@ -150,7 +150,7 @@ Phases, in order; any failure exits non-zero before the result line:
     CLI (the 19×19 12 × 128 policy and FCN value nets, a 32-filter
     rollout net, a 12 × 128 policy with two global-pooling blocks, a
     9×9 rollout net); the main path, ``build_player("mcts", ...,
-    device_rollout=True)`` at ``MCTS_PLAYOUTS`` 32 playouts (the
+    device_rollout=True)`` at ``MCTS_PLAYOUTS`` 16 playouts (the
     reference's default 100, cut), leaf batch 8, λ 0.5,
     rollouts to 500 plies, in a GTP session of ``MCTS_GENMOVES``
     genmoves and ``MCTS_TIMED_GENMOVES`` under ``time_settings 0 1 1``
@@ -168,7 +168,7 @@ Phases, in order; any failure exits non-zero before the result line:
     move with a top-16 policy pre-filter; and the tournament CLI,
     ``mcts`` with a rollout spec and ``--device-rollout`` against
     ``greedy`` on the committed 9×9 nets (2 games, 8 playouts, move
-    limit ``TOURNEY_MOVES`` 30, no forfeit);
+    limit ``TOURNEY_MOVES`` 12, no forfeit);
 18. the AlphaZero loop, in ``build/smoke_zero``: fresh seeded 19×19
     specs from the spec CLI (the 12 × 128 policy, 48 planes, and the
     12 × 128 FCN value net, 49 planes, with the auxiliary heads grafted
@@ -303,10 +303,9 @@ Phases, in order; any failure exits non-zero before the result line:
     in-process gateways (a 1-session pool sharing the searcher, and the
     pool), sticky with a spillover, every move legal, the three kernels
     launched as phase 21's load launches them (counts reset just before,
-    read just after), the routed p50 beside phase 21's wire p50 and
-    beside the same load through a router over the pool's replica alone
-    (the hop apart from the replica split); a
-    fleet-wide swap and ``await_convergence``; a game failed over
+    read just after), the routed p50 beside phase 21's wire p50 (PR 14's
+    control, the same load over the pool's replica alone, was cut for
+    phase 23's clock); a fleet-wide swap and ``await_convergence``; a game failed over
     mid-drain; (d) the CLIs: ``gateway.server --spill``,
     ``rollout.router --replica``, ``gtp --connect`` through the router,
     a spill showing on ``/healthz``, SIGTERM and exit 0 for each; (e)
@@ -317,8 +316,39 @@ Phases, in order; any failure exits non-zero before the result line:
     and the service drained and restarted, recovering its buffer and
     dedup window.
 
+23. data parallelism, in ``build/smoke_parallel``: two ranks sharing
+    the one card (gloo on CUDA tensors), each started by ``python -m
+    torch.distributed.run`` on the port's CLIs: (a) the SL trainer on
+    phase 14's spec and corpus, ``PAR_STEPS`` steps at global minibatch
+    ``PAR_MINIBATCH`` (16 a rank) against one rank's run of the same,
+    one epoch record
+    and the artifacts from rank 0 alone, each rank's backend; the first
+    step's update within ``PAR_UPDATE_L2`` and the train loss within
+    ``PAR_LOSS_RTOL`` of one rank's; (b) the
+    zero CLI at ``--num-devices 2`` on phase 18's specs, one iteration
+    against phase 18's straight run's first (the game statistics
+    equal, the updates within ``PAR_UPDATE_L2``), the labels, chase and
+    tree launches of each rank; (c) the self-play CLI with ``--shard``,
+    8 19×19 games, every SGF byte-equal to one rank's; (d) a probe
+    (``--ranks-probe``) in two ranks: the three kernels against their
+    plain versions in each rank, the zero CLI's first play over the
+    ranks equal to one rank's here bit for bit (actions, live rows,
+    visits, winners), the SL step timed with its gradient all-reduce
+    and each rank's card memory, and on rank 0 a one-rank NCCL group
+    (an all_reduce, a broadcast, an SL step through it equal to one
+    without it, the step and the all-reduce timed). Two ranks on one
+    card measure overhead, not scaling.
+
 Every phase's wall time is logged. Depth cut to keep the whole run
-well under 1,100 s of its 1,200 s clock with phase 21 in: phase 9's and
+well under 1,100 s of its 1,200 s clock with phase 23 in: phase 16's
+Gumbel self-play 4 + 2 plies (8 + 4), both tournaments' move limit 12
+(20), phase 17's mcts session at 16 playouts (32), phase 20's games 80
+plies (120) and its timed self-play 1 run a mode (2), phases 11 and 15
+replaying 4 games on the CPU (8), phase 14 re-converting 1 game (2),
+phase 22's routed
+load without its one-replica control, phase 23's SL runs a 1%
+validation and test split and its three CLI runs at once; with
+phase 21 in: phase 9's and
 16's GTP sessions 4 genmoves before the timed ones (6), both
 tournaments move limit 20 (40), phase 17's mcts session 2 + 1 genmoves
 (2 + 2; its first genmove only warms the move clock) at 32 playouts
@@ -339,7 +369,9 @@ The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
 iteration and generator, 16's GTP session and self-play, 17's GTP
 session, 18's zero iteration, 19's fleets and threaded sessions, 20's
 GTP session and self-play runs with the cache, 21's gateway load and
-22's routed load together,
+22's routed load, and 23's runs in this process and in every rank
+(the zero CLI's and the probe's ranks, the one-rank play and self-play
+here) together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -350,6 +382,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -375,7 +408,8 @@ CHUNK = 8                # simulations per chunk (the player's default)
 SP_BATCH = 256           # policy self-play: games in lockstep
 SP_MAX_MOVES = 300       # the reference's headline game length
 SP_CHUNK = 10            # plies per segment
-SP_REPLAY = 8            # games of the card run replayed on the CPU
+SP_REPLAY = 4            # games of the card run replayed on the CPU (8
+#                          until phase 23 came in)
 SS_BATCH, SS_SIMS, SS_PLIES = 8, 32, 8     # search self-play
 SS_ALPHA, SS_EPS, SS_FORCED_K = 0.03, 0.25, 2.0
 SS_TREE256_SIMS = 16     # simulations of the batch-256 tree timed
@@ -383,11 +417,13 @@ CLI_TIMEOUT_S = 300
 PUCT_DIR = os.path.join("results", "zero_r5", "target_compare", "puct")
 GUMBEL_DIR = os.path.join("results", "zero_r5", "target_compare", "gumbel")
 M_ROOT = 16              # Gumbel root candidates (the player's default)
-GS_PLIES, GS_SAMPLE_PLIES = 8, 4   # Gumbel self-play (batch 8, 32 sims)
+GS_PLIES, GS_SAMPLE_PLIES = 4, 2   # Gumbel self-play (batch 8, 32 sims;
+#                                    8 and 4 until phase 23 came in)
 PI_ATOL = 1e-5           # π′ batched vs alone; a π′ row's sum vs 1
 # both tournaments' depth, cut from 4 games at move limit 60 to keep the
 # smoke inside its clock on a slower host
-TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 2, 8, 20  # (move limit
+TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 2, 8, 12  # (move limit
+#   20 until phase 23 came in,
 #   40, then 30, until the gateway phase came in)
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
@@ -412,7 +448,8 @@ LABELS_OPS_PER_POINT_SWEEP = 6
 BF16_FLOPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16
 SL_DIR = os.path.join("build", "smoke_sl")
 SL_GAMES = os.path.join("results", "sl19_r5", "sgf")
-SL_CPU_GAMES = 2         # games the CPU port converts again
+SL_CPU_GAMES = 1         # games the CPU port converts again (2 until
+#                          phase 23 came in)
 SL_EPOCH_LENGTH = 50     # steps per epoch of the SL runs (2 epochs)
 SL_KILL_AFTER = 25       # steps before the mid-epoch kill
 SL_TIMED_BATCHES = (16, 256)
@@ -432,8 +469,8 @@ MCTS_DIR = os.path.join("build", "smoke_mcts")
 MCTS_GENMOVES = 2        # host APV-MCTS genmoves at MCTS_PLAYOUTS (the
                          # first only warms the move clock's rate)
 MCTS_TIMED_GENMOVES = 1  # then under time_settings 0 1 1 (cut from 2)
-MCTS_PLAYOUTS = 32       # 4 waves a genmove (the reference's default
-                         # 100, cut for the clock)
+MCTS_PLAYOUTS = 16       # 2 waves a genmove (the reference's default
+                         # 100, cut for the clock: 32 until phase 23)
 MCTS_LEAF_BATCH = 8      # the reference's default
 MCTS_HOST_PLAYOUTS = 8   # one wave with host rollouts
 VALUE_TOP_K = 16         # the value player's policy pre-filter
@@ -489,13 +526,14 @@ SERVE_HANG_S = 3.0       # the ladder's hang timeout in the hang check
 SERVE_PROFILE_SIMS = 10  # the profiled fleet round (64 sessions)
 SIZE_ULPS = 4            # bf16 ulps a row may move between padded sizes
 INCR_GAMES = 3           # phase 20: seeded 19×19 games through one cache
-INCR_PLIES = 120
+INCR_PLIES = 80          # (120 until phase 23 came in)
 INCR_PASS_EVERY = 23     # a pass every this many plies
 INCR_TIMED_PLIES = 60    # warm plies of game 2 timed in turns
 INCR_GENMOVES = 2        # per GTP session before its resets, both (4
                          # until the gateway phase came in)
 #                          colours (6 in all with the two after them)
-INCR_SP_RUNS = 2         # timed self-play runs per mode (cut from 3)
+INCR_SP_RUNS = 1         # timed self-play runs per mode (cut from 3, then
+#                          2 until phase 23 came in)
 GATEWAY_CONNS = 4        # phase 21: connections of the load
 GATEWAY_GENMOVES = 2     # genmoves a connection
 GATEWAY_SLO_MS = 2000.0  # the SLO server's per-genmove deadline
@@ -509,6 +547,23 @@ CLI_PLAYOUTS = 32        # the gateway CLI's simulations (depth cut)
 REPLAY_GAMES = 12        # the synthetic actor's game batches
 REPLAY_KILL_AFTER = 3    # its ingested batches before the SIGKILL
 WIRE_MOVES = 16          # the self-play actor's move limit (its default)
+PAR_DIR = os.path.join("build", "smoke_parallel")
+PAR_RANKS = 2            # phase 23: ranks sharing the one card (gloo)
+PAR_MINIBATCH = 32       # the SL runs' global minibatch (16 a rank)
+PAR_STEPS = 4            # SL steps of the two-rank and one-rank runs
+PAR_TIMED_STEPS = 20     # SL steps timed in each rank of the probe
+# two ranks against one, the relative L2 distance of a net's update
+# (every parameter). In bf16 cuDNN computes 16 rows and 32 with other
+# algorithms, so one process's gradient of the 12 x 128 policy from two
+# half-minibatches lies ~0.1 from the whole minibatch's (phase 23 logs
+# it), and the SL runs' updates drift further apart over their 4 steps
+PAR_UPDATE_L2 = 0.5
+# the two ranks' first SL step against the same two halves in one
+# process: the same kernels on the same rows, float32 sums of two terms
+PAR_SPLIT_L2 = 1e-5
+PAR_LOSS_RTOL = 1e-2     # the SL epoch's mean train loss, two ranks vs one
+PAR_SP_GAMES, PAR_SP_MOVES, PAR_SP_CHUNK = 8, 60, 20   # self-play --shard
+PAR_TIMEOUT_S = 600      # one torch.distributed.run
 
 
 class SmokeFailure(RuntimeError):
@@ -2399,7 +2454,8 @@ def phase_supervised(dev, card, counters):
     timings = sl_timings(dev, card)
     log(f"supervised phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "positions_per_s": rate,
-            "timings": timings, "export": os.path.join(straight, "model.json")}
+            "timings": timings, "export": os.path.join(straight, "model.json"),
+            "spec": spec, "corpus": corpus}
 
 
 # ------------------------------------------------------ reinforcement path
@@ -2860,8 +2916,9 @@ def gumbel_tree_kernel(search, tree, g, cand, card):
 
 def gumbel_selfplay(torchgo, dev, card, counters, pol, val):
     """Gumbel search self-play at full width: batch 8, 32 simulations a
-    move (a plan of 40), recorded π′ targets, 8 plies playing the halving
-    winner, then 4 plies sampling π′; every π′ row finite and summing to
+    move (a plan of 40), recorded π′ targets, ``GS_PLIES`` plies playing
+    the halving winner, then ``GS_SAMPLE_PLIES`` sampling π′; every π′
+    row finite and summing to
     1 within ``PI_ATOL``; the three kernels launched (counts reset just
     before, read just after). Returns the launches and simulations/s."""
     from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
@@ -5843,18 +5900,6 @@ def fleet_router(pygo, pool, counters, card, gw21) -> dict:
               f"router after the load: {rst}")
         lat = sorted(load["latencies_s"])
         p50, p99 = percentile(lat, 0.5), percentile(lat, 0.99)
-        # the control: the same load through a router over ``b`` alone,
-        # one pool as phase 21's, so its p50 less phase 21's is the
-        # router's hop and the main path's less it the replica split
-        for srv in (a, b):
-            gateway_settle(srv)
-        with RolloutRouter([Replica("127.0.0.1", b.port, gateway=b,
-                                    name="b")], max_conns=8).start() as one:
-            ctl = gw.run_load("127.0.0.1", one.port, conns=GATEWAY_CONNS,
-                              moves=ROUTER_GENMOVES, board=SIZE, timeout=600)
-        check(ctl["moves"] == genmoves and ctl["errors"] == ctl["sheds"]
-              == ctl["disconnects"] == 0, f"one-replica routed load: {ctl}")
-        p50_one = percentile(sorted(ctl["latencies_s"]), 0.5)
         # a fleet-wide swap: one version number on both replicas
         target = max(small.params_version, pool.params_version) + 1
         pair = [n.module.state_dict() for n in (pool.policy, pool.value)]
@@ -5902,10 +5947,7 @@ def fleet_router(pygo, pool, counters, card, gw21) -> dict:
             f"replicas in {load['elapsed_s']:.2f} s: routed shares {shares}, "
             f"spillovers {rst['spillovers']}; genmove p50 {p50:.3f} s, p99 "
             f"{p99:.3f} s beside phase 21's wire p50 {wire['p50']:.3f} s "
-            f"(the router's tax {p50 - wire['p50']:+.3f} s at p50); the same "
-            f"load through a router over b alone: p50 {p50_one:.3f} s (the "
-            f"hop {p50_one - wire['p50']:+.3f} s, the replica split "
-            f"{p50 - p50_one:+.3f} s); every "
+            f"(the router's tax {p50 - wire['p50']:+.3f} s at p50); every "
             f"move legal; launches {launches} ({per_genmove} a genmove, "
             f"{batches} evaluator batches); a fleet-wide swap to version "
             f"{target} converged in {conv_s:.3f} s; a game failed over "
@@ -5913,7 +5955,7 @@ def fleet_router(pygo, pool, counters, card, gw21) -> dict:
             f"the load's {rst['failovers']}), its next genmove legal; "
             f"replicas' "
             "requests.unhandled 0, no routed conversation answered an error")
-        return dict(p50=p50, p99=p99, p50_one=p50_one, launches=launches,
+        return dict(p50=p50, p99=p99, launches=launches,
                     per_genmove=per_genmove, conv_s=conv_s,
                     spillovers=rst["spillovers"], elapsed=load["elapsed_s"])
     finally:
@@ -6240,6 +6282,557 @@ def phase_fleet(pygo, torchgo, card, counters, serve, zero, gw21) -> dict:
     return out
 
 
+# ---------------------------------------------------- data parallelism
+
+
+def torchrun_start(args: list, log_path: str):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node PAR_RANKS ARGS``, its output into ``log_path``.out
+    and .err (runs at once fill no pipe); ``(process, log path, start
+    time)``. The launcher gets a SIGTERM when this script ends however
+    it ends, and stops its workers (which run in sessions of their
+    own)."""
+    parent = os.getpid()
+
+    def pre():
+        _PRCTL(_PR_SET_PDEATHSIG, signal.SIGTERM)
+        if os.getppid() != parent:
+            os._exit(1)
+
+    with open(log_path + ".out", "w") as out, \
+            open(log_path + ".err", "w") as err:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={PAR_RANKS}", *args],
+            stdout=out, stderr=err, preexec_fn=pre)
+    return p, log_path, time.perf_counter()
+
+
+def torchrun_wait(started, timeout: float = PAR_TIMEOUT_S):
+    """``(rc, stdout, stderr, seconds)`` of a :func:`torchrun_start`ed
+    run; at the time limit, or on an error here, the launcher gets a
+    SIGTERM."""
+    p, log_path, t0 = started
+    try:
+        p.wait(timeout=timeout)
+    except BaseException:
+        p.terminate()
+        p.wait(timeout=120)
+        raise
+    finally:
+        texts = []
+        for ext in (".out", ".err"):
+            with open(log_path + ext) as f:
+                texts.append(f.read())
+    if p.returncode is None:
+        raise SmokeFailure(f"torchrun {log_path} did not end")
+    return p.returncode, texts[0], texts[1], time.perf_counter() - t0
+
+
+def rank_backends(err: str) -> dict:
+    """``{rank: (backend, why)}`` from the ranks' ``distributed_init``
+    lines."""
+    return {int(r): (b, why) for r, b, why in re.findall(
+        rf"^parallel: rank (\d+) of {PAR_RANKS}, backend (\w+) \((.*)\)$",
+        err, re.M)}
+
+
+def update_l2(got: dict, want: dict, start: dict) -> float:
+    """The relative L2 distance between two updates from ``start`` over
+    every parameter of the net (a net no update moved must stay put in
+    both). Per tensor it would be noise where a gradient is zero but for
+    rounding: the policy head's bias, whose softmax residuals cancel."""
+    diff = want_sq = 0.0
+    for k, p0 in start.items():
+        d_want = want[k].double() - p0.double()
+        d_got = got[k].double() - p0.double()
+        diff += float(((d_got - d_want) ** 2).sum())
+        want_sq += float((d_want ** 2).sum())
+    if want_sq == 0.0:
+        check(diff == 0.0, "a net moved in one run only")
+        return 0.0
+    return (diff / want_sq) ** 0.5
+
+
+def host_state(module) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in
+            module.state_dict().items()}
+
+
+def split_step(spec: str, corpus: str, start: dict) -> tuple:
+    """The SL CLI's first step (its batch, draws and rate) computed in
+    this process twice: as two ranks compute it (the two halves of the
+    minibatch forward and backward apart, each over the global valid
+    count, the gradients summed) and as one rank does (the whole
+    minibatch at once); the params after each."""
+    import torch.nn.functional as F
+
+    from rocalphago_tpu_torch.data.pipeline import (
+        ShardedDataset,
+        batch_iterator,
+        split_indices,
+    )
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training import sl
+    from rocalphago_tpu_torch.training.symmetries import (
+        draw_elements,
+        random_transform_batch,
+    )
+
+    dev = torch.device("cuda", 0)
+    ds = ShardedDataset(corpus)
+    train = split_indices(len(ds), (0.98, 0.01, 0.01), seed=SEED)[0]
+    planes, actions = (torch.from_numpy(x).to(dev) for x in next(
+        batch_iterator(ds, train, PAR_MINIBATCH, np.random.default_rng(
+            np.random.SeedSequence([SEED, 0])), epochs=1)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    planes, actions = random_transform_batch(
+        None, planes.float(), actions, SIZE,
+        t=draw_elements(gen, PAR_MINIBATCH, dev))
+    n = SIZE * SIZE
+    count = (actions < n).float().sum().clamp(min=1.0)
+    out = []
+    for parts in (PAR_RANKS, 1):
+        net = NeuralNetBase.load_model(spec, device=dev)
+        net.module.load_state_dict(start)
+        opt, lr_at = sl.make_optimizer(sl.SLConfig(),
+                                       net.module.parameters())
+        opt.zero_grad(set_to_none=True)
+        rows_a = PAR_MINIBATCH // parts
+        for r in range(parts):
+            rows = slice(r * rows_a, (r + 1) * rows_a)
+            logits = net.module(planes[rows])
+            valid = (actions[rows] < n).float()
+            xent = F.cross_entropy(logits, actions[rows].clamp(
+                max=n - 1).long(), reduction="none")
+            ((xent * valid).sum() / count).backward()
+        sl.apply_update(opt, lr_at(0))
+        out.append(host_state(net.module))
+    return tuple(out)
+
+
+def par_sl_argv(spec: str, corpus: str, out: str) -> list:
+    """Phase 23's SL command line (a 1% validation and test split: the
+    evaluations stay short; a checkpoint every step)."""
+    return [spec, corpus, out, "--minibatch", str(PAR_MINIBATCH), "--epochs",
+            "1", "--epoch-length", str(PAR_STEPS), "--train-val-test",
+            "0.98", "0.01", "0.01", "--save-every", "1", "--seed", str(SEED)]
+
+
+def par_sl(work: str, spec: str, corpus: str, ran) -> dict:
+    """(a) The SL trainer's CLI over two ranks sharing the card against
+    one rank: the same global minibatch, steps and draws. The first
+    step equals the same two halves computed in this process
+    (:func:`split_step`) within ``PAR_SPLIT_L2``; against one rank's
+    whole-minibatch run the updates are within ``PAR_UPDATE_L2`` (bf16:
+    cuDNN computes 16 rows and 32 with other algorithms) and the train
+    loss within ``PAR_LOSS_RTOL``; the artifacts are rank 0's alone.
+    ``ran`` is the two-rank run's :func:`torchrun_wait`."""
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training import sl
+
+    two, one = os.path.join(work, "sl_two"), os.path.join(work, "sl_one")
+    rc, _, err, wall_two = ran
+    check(rc == 0, f"sl over {PAR_RANKS} ranks: rc {rc}\n{err[-4000:]}")
+    backends = rank_backends(err)
+    check(sorted(backends) == list(range(PAR_RANKS)) and all(
+        b == "gloo" for b, _ in backends.values()),
+        f"sl ranks: backends {backends}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sl.run_training(par_sl_argv(spec, corpus, one))
+    wall_one = time.perf_counter() - t0
+    start = host_state(NeuralNetBase.load_model(spec, device="cpu").module)
+    first = final_params(two, 1)
+    split, whole = split_step(spec, corpus, start)
+    l2_split = update_l2(first, split, start)
+    floor = update_l2(split, whole, start)
+    check(l2_split <= PAR_SPLIT_L2, f"sl: two ranks' first update "
+          f"{l2_split:.3e} from the same halves in one process (limit "
+          f"{PAR_SPLIT_L2})")
+    l2 = update_l2(first, final_params(one, 1), start)
+    l2_all = update_l2(final_params(two, PAR_STEPS),
+                       final_params(one, PAR_STEPS), start)
+    check(max(l2, l2_all) <= PAR_UPDATE_L2, f"sl: two ranks' updates "
+          f"{l2:.3e}, {l2_all:.3e} from one rank's (limit {PAR_UPDATE_L2})")
+    rows = {}
+    for name, out in (("two", two), ("one", one)):
+        rows[name] = [e for e in run_events(out) if e["event"] == "epoch"]
+        check(len(rows[name]) == 1, f"sl {name}: {len(rows[name])} epoch "
+              "records (rank 1 writes none)")
+        for f in ("model.json", "metadata.json", "shuffle.npz",
+                  "weights.00000.flax.msgpack"):
+            check(os.path.exists(os.path.join(out, f)), f"sl {name}: no {f}")
+    loss2, loss1 = rows["two"][0]["train_loss"], rows["one"][0]["train_loss"]
+    check(abs(loss2 - loss1) <= PAR_LOSS_RTOL * abs(loss1),
+          f"sl: train loss {loss2} over two ranks, {loss1} over one")
+    log(f"parallel sl: {PAR_STEPS} steps at global minibatch "
+        f"{PAR_MINIBATCH} of the 19x19 12x128 bf16 policy; two ranks "
+        f"sharing the card, backends " + ", ".join(
+            f"rank {r} {b} ({why})" for r, (b, why) in sorted(
+                backends.items())) +
+        f"; the first update's relative L2 {l2_split:.3e} against the same "
+        f"halves in one process (limit {PAR_SPLIT_L2}), {l2:.3e} against "
+        f"one rank's whole minibatch (in one process the halves lie "
+        f"{floor:.3e} from the whole: bf16), after {PAR_STEPS} steps "
+        f"{l2_all:.3e} (limit {PAR_UPDATE_L2}); "
+        f"train loss {loss2:.6f} vs {loss1:.6f}; CLI "
+        f"wall {wall_two:.1f} s (two ranks, launcher included) vs "
+        f"{wall_one:.1f} s (one rank, in process)")
+    return {"update_l2": l2, "update_l2_all": l2_all, "split_l2": l2_split,
+            "bf16_floor": floor,
+            "loss": (loss2, loss1), "walls": (wall_two, wall_one)}
+
+
+def par_zero_cli(work: str, paths, straight: str, ran) -> dict:
+    """(b) The zero CLI at ``--num-devices 2`` over two ranks
+    (``zero_argv(paths, work/zero_two, 1, "--num-devices", "2")``, its
+    :func:`torchrun_wait` ``ran``): one iteration against the one-rank
+    run's first (phase 18's straight run, the same command but the
+    width): the game statistics equal, the updates within
+    ``PAR_UPDATE_L2``, every rank launching the three kernels."""
+    from rocalphago_tpu_torch.models import NeuralNetBase
+
+    two = os.path.join(work, "zero_two")
+    rc, _, err, wall = ran
+    check(rc == 0, f"zero over {PAR_RANKS} ranks: rc {rc}\n{err[-4000:]}")
+    launches = {int(r): json.loads(d) for r, d in re.findall(
+        rf"zero: rank (\d+) of {PAR_RANKS} on \S+ \(\w+\): kernel launches "
+        r"(\{[^}]*\})", err)}
+    check(sorted(launches) == list(range(PAR_RANKS)) and all(
+        n > 0 for per in launches.values() for n in per.values()),
+        f"zero ranks' launches {launches}")
+    got = zero_artifacts(two, 1)
+    want = zero_artifacts(straight, 1)
+    rows = [[r for r in x[1] if r["event"] == "iteration"][0]
+            for x in (got, want)]
+    for k in ("black_win_rate", "draw_rate", "mean_moves", "finished_rate"):
+        check(rows[0][k] == rows[1][k], f"zero: {k} {rows[0][k]} over two "
+              f"ranks, {rows[1][k]} over one")
+    l2 = {}
+    for name, path in zip(("policy", "value"), paths):
+        l2[name] = update_l2(got[0][name], want[0][name], host_state(
+            NeuralNetBase.load_model(path, device="cpu").module))
+        check(l2[name] <= PAR_UPDATE_L2, f"zero {name}: update {l2[name]:.3e}"
+              f" from one rank's (limit {PAR_UPDATE_L2})")
+    check(len(run_events(two)) and os.path.exists(
+        os.path.join(two, "policy.json")), "zero two ranks: no artifacts")
+    log(f"parallel zero CLI: one iteration at game batch {ZERO_BATCH} "
+        f"({ZERO_BATCH // PAR_RANKS} a rank), {ZERO_SIMS} simulations, move "
+        f"limit {ZERO_MOVES}: game statistics equal to one rank's "
+        f"(mean moves {rows[0]['mean_moves']}); update relative L2 policy "
+        f"{l2['policy']:.3e}, value {l2['value']:.3e} (limit "
+        f"{PAR_UPDATE_L2}); launches per rank " + ", ".join(
+            f"rank {r} {per}" for r, per in sorted(launches.items()))
+        + f"; {wall:.1f} s")
+    return {"launches": launches, "update_l2": l2, "wall": wall}
+
+
+def par_sp_argv(spec: str, out: str) -> list:
+    """Phase 23's self-play command line (``--shard`` added for two
+    ranks)."""
+    return ["--policy", spec, "--games", str(PAR_SP_GAMES), "--max-moves",
+            str(PAR_SP_MOVES), "--chunk", str(PAR_SP_CHUNK), "--seed",
+            str(SEED), "--out", out]
+
+
+def par_selfplay(work: str, spec: str, counters, ran) -> dict:
+    """(c) The self-play CLI with ``--shard`` over two ranks (its
+    :func:`torchrun_wait` ``ran``) against one rank: every SGF byte for
+    byte (moves, results), the same summary counts."""
+    from rocalphago_tpu_torch.interface import selfplay_cli
+
+    two, one = os.path.join(work, "sp_two"), os.path.join(work, "sp_one")
+    rc, _, err, wall = ran
+    check(rc == 0, f"self-play --shard: rc {rc}\n{err[-4000:]}")
+    for c in counters:
+        c.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = selfplay_cli.main(par_sp_argv(spec, one))
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    names = sorted(os.listdir(one))
+    check(sorted(os.listdir(two)) == names, "self-play --shard: other files")
+    sgfs = [n for n in names if n.endswith(".sgf")]
+    check(len(sgfs) == PAR_SP_GAMES, f"{len(sgfs)} SGFs")
+    for n in sgfs:
+        with open(os.path.join(one, n), "rb") as a, \
+                open(os.path.join(two, n), "rb") as b:
+            check(a.read() == b.read(), f"self-play --shard: {n} differs")
+    with open(os.path.join(two, "summary.json")) as f:
+        shard = json.load(f)
+    keys = ("games", "black_wins", "white_wins", "draws", "mean_moves")
+    check({k: shard[k] for k in keys} == {k: summary[k] for k in keys},
+          f"self-play --shard summary {shard} vs {summary}")
+    log(f"parallel self-play --shard: {PAR_SP_GAMES} 19x19 games "
+        f"({PAR_SP_GAMES // PAR_RANKS} a rank), up to {PAR_SP_MOVES} plies: "
+        f"every SGF byte-equal to one rank's, mean moves "
+        f"{summary['mean_moves']}; {wall:.1f} s over two ranks; one-rank "
+        f"launches {launches}")
+    return {"launches": launches, "wall": wall}
+
+
+def zero_play(dev, paths, mesh=None) -> tuple:
+    """The zero CLI's first iteration's play (its nets, command line and
+    game seed) on ``mesh``'s rows: the gathered record's actions,
+    live rows, visits and winners on the host, and the seconds."""
+    from rocalphago_tpu_torch.engine.torchgo import default_komi
+    from rocalphago_tpu_torch.models import NeuralNetBase
+    from rocalphago_tpu_torch.training import zero
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    pol, val = (NeuralNetBase.load_model(p, device=dev) for p in paths)
+    cfg = dataclasses.replace(pol.cfg, komi=default_komi(pol.board))
+    it = zero.ZeroIteration(cfg, pol.feature_list, val.feature_list,
+                            batch=ZERO_BATCH, move_limit=ZERO_MOVES,
+                            n_sim=ZERO_SIMS, dirichlet_alpha=ZERO_ALPHA,
+                            device=dev, mesh=mesh)
+    seed = zero.next_keys(torch.Generator().manual_seed(SEED).get_state())[1]
+    t0 = time.perf_counter()
+    games = it.play(pol.module, val.module, seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {}
+    for k, axis in (("actions", 1), ("live", 1), ("visits", 1),
+                    ("winners", 0)):
+        x = getattr(games, k)
+        out[k] = (x if mesh is None else mesh.gather(x, axis)).cpu()
+    return out, seconds
+
+
+def sl_step_timing(dev, mesh=None, batch: int = PAR_MINIBATCH) -> dict:
+    """The SL train step of the flagship policy on ``mesh``'s rows of a
+    seeded global minibatch: host ms a step, synchronised (both ranks
+    step in lockstep: the gradient all-reduce waits for both), the
+    gradient all-reduce alone, and the card memory this rank
+    allocated at most."""
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
+    from rocalphago_tpu_torch.training import sl
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    net = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                    seed=SEED + 42, device=dev)
+    module = net.module
+    opt, lr_at = sl.make_optimizer(sl.SLConfig(), module.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = sl.TrainState(module, opt, gen)
+    step = sl.make_train_step(module, opt, lr_at, SIZE, True, mesh=mesh)
+    rng = np.random.default_rng(SEED + 60)
+    planes = (rng.random((batch, SIZE, SIZE, 48)) < 0.2).astype(np.uint8)
+    actions = rng.integers(0, SIZE * SIZE, batch).astype(np.int32)
+    planes, actions = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                       for x in meshlib.shard_batch(mesh, (planes, actions)))
+    out = {"step_ms": wall_ms(lambda: step(state, planes, actions),
+                              PAR_TIMED_STEPS),
+           "local_batch": int(planes.shape[0])}
+    out["allreduce_ms"] = (wall_ms(lambda: mesh.all_reduce_grads([module]),
+                                   PAR_TIMED_STEPS)
+                           if mesh is not None else 0.0)
+    out["grad_bytes"] = 4 * sum(p.numel() for p in module.parameters())
+    out["max_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def nccl_probe(dev, group) -> dict:
+    """A one-rank NCCL group on the card: an all_reduce, a broadcast,
+    one SL step through it (equal to the step without it, bit for bit),
+    and the step and the gradient all-reduce timed through it beside the
+    step with no group."""
+    import torch.distributed as dist
+
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
+    from rocalphago_tpu_torch.training import sl
+
+    mesh = meshlib.Mesh(1, 0, dev, group=group)
+    x = torch.arange(6, dtype=torch.float32, device=dev)
+    ok = torch.equal(mesh.all_reduce(x.clone()), x) and torch.equal(
+        mesh.broadcast(x.clone()), x)
+    params = []
+    for m in (mesh, None):
+        net = CNNPolicy(board=SIZE, layers=12, filters_per_layer=128,
+                        seed=SEED + 42, device=dev)
+        opt, lr_at = sl.make_optimizer(sl.SLConfig(),
+                                       net.module.parameters())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        state = sl.TrainState(net.module, opt, gen)
+        rng = np.random.default_rng(SEED + 61)
+        planes = torch.as_tensor(rng.random((16, SIZE, SIZE, 48)) < 0.2,
+                                 dtype=torch.uint8, device=dev)
+        actions = torch.as_tensor(rng.integers(0, SIZE * SIZE, 16),
+                                  dtype=torch.int32, device=dev)
+        sl.make_train_step(net.module, opt, lr_at, SIZE, True,
+                           mesh=m)(state, planes, actions)
+        params.append(host_state(net.module))
+    same = all(torch.equal(params[0][k], v) for k, v in params[1].items())
+    timed = sl_step_timing(dev, mesh)
+    plain = sl_step_timing(dev, None)
+    return {"backend": dist.get_backend(group), "collectives_ok": ok,
+            "step_equal": same, "step_ms": timed["step_ms"],
+            "allreduce_ms": timed["allreduce_ms"],
+            "plain_step_ms": plain["step_ms"],
+            "plain_max_memory_bytes": plain["max_memory_bytes"]}
+
+
+def ranks_probe(out_dir: str, policy_json: str, value_json: str) -> int:
+    """``--ranks-probe DIR POLICY VALUE``, one rank of phase 23 under
+    ``torch.distributed.run``: the three kernels against their plain
+    versions in this rank, the zero CLI's first play over the ranks
+    (launches counted), the SL step timed with its all-reduce, and on
+    rank 0 a one-rank NCCL group (:func:`nccl_probe`); writes
+    ``DIR/rank<r>.json`` (and rank 0's gathered play record)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from rocalphago_tpu_torch.engine import pygo, torchgo
+    from rocalphago_tpu_torch.ops import chase as C
+    from rocalphago_tpu_torch.ops import labels as L
+    from rocalphago_tpu_torch.ops import tree as T
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
+
+    backend = meshlib.distributed_init()
+    mesh = meshlib.make_mesh()
+    dev = mesh.device
+    os.makedirs(out_dir, exist_ok=True)
+    res = {"rank": mesh.rank, "width": mesh.width, "backend": backend,
+           "device": str(dev)}
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        res["max_abs_err"] = {
+            "tree": float(phase_tree(dev)),
+            "labels": float(phase_labels(pygo, dev)),
+            "chase": float(phase_chase(pygo, torchgo, dev))}
+    for c in (L, C, T):
+        c.launches = 0
+    record, res["play_s"] = zero_play(dev, (policy_json, value_json), mesh)
+    res["play_launches"] = {"labels": L.launches, "chase": C.launches,
+                            "tree": T.launches}
+    if mesh.rank == 0:
+        torch.save(record, os.path.join(out_dir, "play.pt"))
+    res["sl"] = sl_step_timing(dev, mesh)
+    group = dist.new_group([0], backend="nccl")
+    if mesh.rank == 0:
+        res["nccl"] = nccl_probe(dev, group)
+    mesh.barrier()
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def par_probe(work: str, paths, counters) -> dict:
+    """(d) and the numbers: :func:`ranks_probe` over two ranks, and the
+    zero play on one rank here against the ranks' gathered record,
+    actions and winners bit for bit."""
+    probe = os.path.join(work, "probe")
+    rc, _, err, wall = torchrun_wait(torchrun_start(
+        [os.path.abspath(__file__), "--ranks-probe", probe, *paths],
+        os.path.join(work, "probe_run")))
+    check(rc == 0, f"ranks probe: rc {rc}\n{err[-4000:]}")
+    ranks = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(probe, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for res in ranks:
+        check(res["backend"] == "gloo" and res["width"] == PAR_RANKS,
+              f"probe rank {res['rank']}: {res['backend']}, width "
+              f"{res['width']}")
+        check(all(e == 0 for e in res["max_abs_err"].values()),
+              f"probe rank {res['rank']}: a kernel disagrees with its plain "
+              f"version {res['max_abs_err']}")
+        check(all(n > 0 for n in res["play_launches"].values()),
+              f"probe rank {res['rank']}: launches {res['play_launches']}")
+    nccl = ranks[0]["nccl"]
+    check(nccl["backend"] == "nccl" and nccl["collectives_ok"]
+          and nccl["step_equal"], f"one-rank NCCL group: {nccl}")
+    got = torch.load(os.path.join(probe, "play.pt"), weights_only=True)
+    for c in counters:
+        c.launches = 0
+    want, one_s = zero_play(torch.device("cuda", 0), paths)
+    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    for k in ("actions", "winners", "live", "visits"):
+        check(torch.equal(got[k], want[k]), f"zero play over two ranks: "
+              f"{k} differ from one rank's")
+    sl2, mib = ranks[0]["sl"], 2.0 ** 20
+    log(f"parallel probe ({wall:.1f} s): the three kernels bit-exact "
+        f"against their plain versions in each rank; zero play over two "
+        f"ranks = one rank's (actions, live, visits, winners bit for "
+        f"bit), {ranks[0]['play_s']:.2f} s against {one_s:.2f} s, "
+        f"launches per rank " + ", ".join(
+            f"rank {x['rank']} {x['play_launches']}" for x in ranks) +
+        f", one rank {launches}")
+    log(f"parallel SL step of the 19x19 12x128 bf16 policy at global "
+        f"minibatch {PAR_MINIBATCH}: one rank {nccl['plain_step_ms']:.2f} "
+        f"ms ({nccl['plain_max_memory_bytes'] / mib:.0f} MiB); two ranks "
+        f"sharing the card (gloo) " + ", ".join(
+            f"rank {x['rank']} {x['sl']['step_ms']:.2f} ms with its "
+            f"all-reduce of {x['sl']['grad_bytes'] / mib:.2f} MiB "
+            f"{x['sl']['allreduce_ms']:.2f} ms "
+            f"({x['sl']['allreduce_ms'] / x['sl']['step_ms']:.3f} of a "
+            f"step), {x['sl']['max_memory_bytes'] / mib:.0f} MiB"
+            for x in ranks) + f"; a one-rank NCCL group: step "
+        f"{nccl['step_ms']:.2f} ms, all-reduce {nccl['allreduce_ms']:.3f} ms "
+        f"({nccl['allreduce_ms'] / nccl['step_ms']:.4f} of a step); two "
+        f"ranks on one card measure overhead, not scaling")
+    return {"ranks": ranks, "launches": launches, "wall": wall,
+            "sl": sl2, "nccl": nccl}
+
+
+def phase_parallel(card, counters, sl_paths, zero_paths, zero_straight):
+    """Data parallelism over ranks (phase 23): two ranks sharing the
+    card, started by ``torch.distributed.run`` on the port's CLIs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, PAR_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    spec, corpus = sl_paths
+    # the three CLI runs at once (their checks are timing-free); the
+    # probe's timings alone after them
+    cmds = {
+        "sl": ["-m", "rocalphago_tpu_torch.training.sl",
+               *par_sl_argv(spec, corpus, os.path.join(work, "sl_two")),
+               "--num-devices", str(PAR_RANKS)],
+        "zero": ["-m", "rocalphago_tpu_torch.training.zero",
+                 *zero_argv(zero_paths, os.path.join(work, "zero_two"), 1,
+                            "--num-devices", str(PAR_RANKS))],
+        "selfplay": ["-m", "rocalphago_tpu_torch.interface.selfplay_cli",
+                     *par_sp_argv(spec, os.path.join(work, "sp_two")),
+                     "--shard"]}
+    started, ran = {}, {}
+    try:
+        for name, args in cmds.items():
+            started[name] = torchrun_start(
+                args, os.path.join(work, f"{name}_run"))
+        for name, run in started.items():
+            ran[name] = torchrun_wait(run)
+    finally:
+        for p, _, _ in started.values():
+            if p.poll() is None:
+                p.terminate()
+                p.wait(timeout=120)
+    log(f"parallel: the three CLI runs over {PAR_RANKS} ranks at once in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"sl": par_sl(work, spec, corpus, ran["sl"])}
+    out["zero"] = par_zero_cli(work, zero_paths, zero_straight, ran["zero"])
+    out["selfplay"] = par_selfplay(work, spec, counters[:2], ran["selfplay"])
+    out["probe"] = par_probe(work, zero_paths, counters)
+    out["phase_s"] = time.perf_counter() - t0
+    launches = {k: out["probe"]["launches"][k] + sum(
+        x["play_launches"][k] for x in out["probe"]["ranks"]) + sum(
+        per[k] for per in out["zero"]["launches"].values())
+        for k in out["probe"]["launches"]}
+    for k, n in out["selfplay"]["launches"].items():
+        launches[k] += n
+    out["launches"] = launches
+    log(f"parallel phase: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def host_reads_main(root: str) -> int:
     """``--host-reads ROOT``: the port found in ROOT (a checkout, such as
     a ``git archive`` of an earlier commit) builds its kernels and
@@ -6271,6 +6864,8 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--host-reads":
         return host_reads_main(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--ranks-probe":
+        return ranks_probe(*sys.argv[2:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from rocalphago_tpu_torch.engine import pygo, torchgo
@@ -6341,6 +6936,10 @@ def main() -> int:
     gw21 = phase(21, phase_gateway, pygo, card, (L, C, T), sv19)
     fl22 = phase(22, phase_fleet, pygo, torchgo, card, (L, C, T), sv19, zr,
                  gw21)
+    par = phase(23, phase_parallel, card, (L, C, T), (sv["spec"],
+                                                      sv["corpus"]),
+                zr["paths"], os.path.join(os.path.dirname(os.path.abspath(
+                    __file__)), ZERO_DIR, "straight"))
     # the launches of phases 11-22's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
@@ -6355,7 +6954,7 @@ def main() -> int:
                 + gb["sp_launches"][k] + mc["launches"].get(k, 0)
                 + zr["launches"][k] + sv19["launches"][k]
                 + inc["launches"][k] + gw21["launches"][k]
-                + fl22["launches"][k]
+                + fl22["launches"][k] + par["launches"][k]
                 for k in ss["launches"]}
     shapes = {"labels": sp["labels"], "chase": sp["chase"],
               "tree": ss["tree8"]}
@@ -6442,14 +7041,19 @@ def main() -> int:
     log(f"fleet: hot swap {fl22['swap']['swap_s']:.4f} s a swap (mean of "
         f"{fl22['swap']['swaps']}); routed genmove p50 {rt['p50']:.3f} s, p99 "
         f"{rt['p99']:.3f} s (the router's tax {rt['p50'] - load['p50']:+.3f} "
-        f"s at p50 against phase 21's wire; over one replica "
-        f"{rt['p50_one']:.3f} s, {rt['p50_one'] - load['p50']:+.3f} s), "
-        f"convergence "
+        f"s at p50 against phase 21's wire), convergence "
         f"{rt['conv_s']:.3f} s, launches a routed genmove "
         f"{rt['per_genmove']}; a self-play actor's batch of 2 games "
         f"{fl22['replay']['actor_launches']}; wire ingest "
         f"{fl22['replay']['ingest_games']} games; phase 22 "
         f"{fl22['phase_s']:.1f} s on {card}")
+    log(f"parallel, two ranks sharing the card: SL update relative L2 "
+        f"{par['sl']['update_l2']:.3e}, zero update relative L2 "
+        f"{par['zero']['update_l2']}, zero launches per rank "
+        f"{par['zero']['launches']}, self-play --shard byte-equal; SL step "
+        f"one rank {par['probe']['nccl']['plain_step_ms']:.2f} ms, two ranks "
+        f"{par['probe']['sl']['step_ms']:.2f} ms; phase 23 "
+        f"{par['phase_s']:.1f} s on {card}")
     log("phase wall times (s): " + json.dumps(
         {n: round(w, 1) for n, w in sorted(walls.items())}))
     log(f"at the end: {nothing_left()}")

@@ -85,10 +85,12 @@ def load_hdf5(path: str):
 
 
 def split_indices(n: int, fractions=(0.93, 0.05, 0.02), seed: int = 0,
-                  path: str | None = None):
+                  path: str | None = None, write: bool = True):
     """Shuffled train/val/test index split; persisted to ``path`` (npz)
     so interrupted runs resume with the identical split (the
-    reference's ``shuffle.npz`` behavior)."""
+    reference's ``shuffle.npz`` behavior). ``write=False`` (a rank
+    that is not the coordinator) reads an existing file but never
+    writes one: the split is a pure function of the seed."""
     if path is not None:
         try:
             z = np.load(path)
@@ -114,7 +116,7 @@ def split_indices(n: int, fractions=(0.93, 0.05, 0.02), seed: int = 0,
     train = perm[:n_train]
     val = perm[n_train:n_train + n_val]
     test = perm[n_train + n_val:]
-    if path is not None:
+    if path is not None and write:
         # atomic write (.npz suffix on the temp name stops np.savez
         # appending another one)
         tmp = path + ".tmp.npz"

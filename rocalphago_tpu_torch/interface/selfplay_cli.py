@@ -12,6 +12,15 @@ playing each ply's halving winner), then writes one SGF per game and a
 ``summary.json``. It runs on the card unless ``--device`` names another
 device, and raises when no card is there.
 
+``--shard`` plays the game batch over data-parallel ranks (launch them
+with ``python -m torch.distributed.run --nproc-per-node N -m
+rocalphago_tpu_torch.interface.selfplay_cli ... --shard``; one rank
+without a launcher): rank *r* plays its chunk of each half of the
+batch (``search.selfplay``'s ``halves`` layout) with the one-rank run's
+draws, the results are gathered over the ranks, and rank 0 alone writes
+the SGFs, named by global game index, and ``summary.json`` with the
+global counts. Policy mode only, as in the reference.
+
 The summary carries the registry's snapshot (this CLI writes no
 ``metrics.jsonl``): ``selfplay_game_plies`` (one observation per game,
 from the game lengths the summary reads anyway), ``selfplay_games_total``
@@ -34,6 +43,7 @@ from rocalphago_tpu_torch.data import sgf
 from rocalphago_tpu_torch.engine import pygo, torchgo
 from rocalphago_tpu_torch.models import NeuralNetBase
 from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.atomic import atomic_write_json
 
@@ -101,11 +111,15 @@ def main(argv=None):
                          "has ended (policy mode; 0 = every ply up to "
                          "--max-moves in one run), or simulations per "
                          "chunk with --search-sims (0 = 8)")
+    ap.add_argument("--shard", action="store_true",
+                    help="shard the game batch over the data-parallel "
+                         "ranks (torch.distributed.run; --games a "
+                         "multiple of twice their number)")
     ap.add_argument("--search-sims", type=int, default=0,
                     help="play every move from a search of this "
                          "many simulations on the card instead of "
                          "sampling the raw policy (requires --value; "
-                         "incompatible with --opponent)")
+                         "incompatible with --opponent/--shard)")
     ap.add_argument("--value", default=None,
                     help="value model JSON (with --search-sims)")
     ap.add_argument("--gumbel", action="store_true",
@@ -138,16 +152,22 @@ def main(argv=None):
         # split, so an odd batch is fine there
         raise SystemExit("--games must be even (colour split)")
 
-    net = NeuralNetBase.load_model(a.policy, device=a.device)
-    opp = (NeuralNetBase.load_model(a.opponent, device=a.device)
+    if a.search_sims and (a.opponent or a.shard):
+        raise SystemExit("--search-sims is self-play with one net "
+                         "(no --opponent/--shard)")
+    mesh = None
+    device = a.device
+    if a.shard:
+        meshlib.distributed_init(device=a.device)
+        mesh = meshlib.make_mesh(device=a.device)
+        device = mesh.device
+    net = NeuralNetBase.load_model(a.policy, device=device)
+    opp = (NeuralNetBase.load_model(a.opponent, device=device)
            if a.opponent else net)
     cfg, dev = net.cfg, net.device
     if a.search_sims:
         if not a.value:
             raise SystemExit("--search-sims requires --value")
-        if a.opponent:
-            raise SystemExit("--search-sims is self-play with one net "
-                             "(no --opponent)")
         from rocalphago_tpu_torch.search.device_mcts import (
             make_mcts_selfplay,
         )
@@ -166,21 +186,23 @@ def main(argv=None):
             final, actions, live = mcts_run(
                 generator, np.random.default_rng(a.seed))
             return _finish(cfg, final, actions, live)
-    elif a.chunk:
+    elif a.chunk or a.shard:
         from rocalphago_tpu_torch.search.selfplay import (
+            gather_result,
             make_selfplay_chunked,
         )
 
         runner = make_selfplay_chunked(
             cfg, net.feature_list, net.module, opp.module, batch=a.games,
-            max_moves=a.max_moves, chunk=a.chunk,
-            temperature=a.temperature, device=dev)
+            max_moves=a.max_moves, chunk=a.chunk or max(a.max_moves, 1),
+            temperature=a.temperature, device=dev, mesh=mesh)
 
         # stop once every game has ended by two passes; the skipped tail
         # is zero-padded with live False, which the SGF writer reads as
-        # the game's end
+        # the game's end. Sharded: every rank's share, gathered
         def run(generator):
-            return runner(generator, stop_when_done=True)
+            return gather_result(mesh, runner(generator,
+                                              stop_when_done=True))
     else:
         from rocalphago_tpu_torch.search.selfplay import make_selfplay
 
@@ -212,6 +234,8 @@ def main(argv=None):
         "games_per_min": round(games_per_min, 3),
         "wall_s": round(dt, 3),
     }
+    if not meshlib.is_coordinator():
+        return summary        # rank 0 writes the global record
     os.makedirs(a.out, exist_ok=True)
     if not a.no_sgf:
         paths = games_to_sgf(

@@ -27,19 +27,35 @@ _STATE_FILE = "state.pt"
 
 
 class TrainCheckpointer:
-    """One ``torch.save`` file per step directory ``<root>/<step>``."""
+    """One ``torch.save`` file per step directory ``<root>/<step>``.
 
-    def __init__(self, directory: str):
+    Data-parallel ranks hold the same replicated state, so one writes
+    it: ``write=False`` on the others, and ``mesh`` (a
+    :class:`~..parallel.mesh.Mesh`) makes every save a barrier, after
+    which every rank restores the written files."""
+
+    def __init__(self, directory: str, write: bool = True, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.write = write
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
+
+    def save(self, step: int, state: dict) -> None:
+        """Write ``state`` as step ``step`` (on the writing rank), then
+        wait for every rank."""
+        if self.write:
+            self.write_step(step, state)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # transient-failure backoff around the filesystem: a flaky shared
     # filesystem can fail a write or a read that succeeds a moment
     # later; both are idempotent
     @retry(max_attempts=3, base_delay=0.5)
-    def save(self, step: int, state: dict) -> None:
+    def write_step(self, step: int, state: dict) -> None:
         """Write ``state`` (a dict of tensors, numbers and nested dicts
-        of them; tensors are saved as they are given) as step ``step``."""
+        of them; tensors are saved as they are given) as step ``step``,
+        with no barrier (a watchdog's last save)."""
         final = os.path.join(self.directory, str(int(step)))
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -108,10 +124,13 @@ class MetadataWriter:
     """Append-per-epoch ``metadata.json`` (the reference's
     ``MetadataWriterCallback`` format -- tooling reads this file)."""
 
-    def __init__(self, path: str, header: dict | None = None):
+    def __init__(self, path: str, header: dict | None = None,
+                 enabled: bool = True):
         self.path = path
+        #: False on ranks that are not the coordinator: nothing written
+        self.enabled = enabled
         self.data = None
-        if os.path.exists(path):
+        if enabled and os.path.exists(path):
             try:
                 with open(path) as f:
                     self.data = json.load(f)
@@ -145,4 +164,5 @@ class MetadataWriter:
         self._flush()
 
     def _flush(self) -> None:
-        atomic_write_json(self.path, self.data)
+        if self.enabled:
+            atomic_write_json(self.path, self.data)

@@ -90,13 +90,20 @@ def _run_selfplay(a, client: ReplayClient) -> int:
     per produced game index."""
     import torch
 
-    from rocalphago_tpu_torch.device import resolve_device
     from rocalphago_tpu_torch.engine.torchgo import GoConfig
     from rocalphago_tpu_torch.models import CNNPolicy, CNNValue
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
     from rocalphago_tpu_torch.training.actor import games_to_host
     from rocalphago_tpu_torch.training.zero import ZeroIteration, next_keys
 
-    dev = resolve_device(a.device)
+    # its own mesh: the width from the local ranks (one device a rank),
+    # reduced to divide --batch
+    n_dev = meshlib.world_size()
+    while a.batch % n_dev:
+        n_dev -= 1
+    mesh = meshlib.make_mesh(n_dev if n_dev in (1, meshlib.world_size())
+                             else 1, a.device)
+    dev = mesh.device
     feats = ("board", "ones")
     vfeats = feats + ("color",)
     pol = CNNPolicy(feats, board=a.board, layers=1, filters_per_layer=4,
@@ -106,7 +113,7 @@ def _run_selfplay(a, client: ReplayClient) -> int:
     iteration = ZeroIteration(
         GoConfig(size=a.board), feats, vfeats, batch=a.batch,
         move_limit=a.move_limit, n_sim=a.sims, max_nodes=16,
-        sim_chunk=a.sim_chunk, device=dev)
+        sim_chunk=a.sim_chunk, device=dev, mesh=mesh)
     rng = torch.Generator().manual_seed(
         a.seed + 1000 * (a.actor_id + 1)).get_state()
     done = len(client.produced_ids())

@@ -68,6 +68,15 @@ Telemetry, the reference's names: ``device_mcts_chunk_seconds``,
 ``selfplay_fullsearch_frac`` and ``policy_targets_pruned_total``.
 Rates and margins are read only where the loop already waits for the
 card (a deadline drains the pipeline; a get_move reads the visits).
+
+Search self-play sharded over data-parallel ranks
+(``make_mcts_selfplay(mesh=)``, :mod:`..parallel.mesh`): the tree slabs
+are per game, so sharding is placement. Rank *r* plays the contiguous
+block *r* of the global batch; every ply's draws (the root noise, the
+gamma draws, the budget and the move) are made for the global batch and
+sliced, and the run stops after the ply on which every game of every
+rank has ended (an ``all_reduce`` of the done flags), so the record is
+the one-rank run's rows.
 """
 
 from __future__ import annotations
@@ -107,6 +116,7 @@ from rocalphago_tpu_torch.runtime.deadline import Deadline
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.clock import MoveClock
 from rocalphago_tpu_torch.search.selfplay import (
+    draw_uniform,
     gumbel_argmax,
     gumbel_noise,
     sensible_mask,
@@ -1075,10 +1085,16 @@ class MCTSSelfplay:
                  n_sim: int, temperature: float, sim_chunk: int,
                  record_visits: bool, gumbel: bool, gumbel_sample: bool,
                  dirichlet_alpha: float, noise_frac: float, forced_k: float,
-                 cap_p: float, cheap: int, cap_per_row: bool, device):
+                 cap_p: float, cheap: int, cap_per_row: bool, device,
+                 mesh=None):
         self.cfg = cfg
         self.search = search
-        self.batch = batch
+        #: the sharded mesh (None: one rank); ``batch`` is then this
+        #: rank's games of ``global_batch``
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.global_batch = batch
+        self.batch = (batch if self.mesh is None
+                      else self.mesh.local_batch(batch))
         self.max_moves = max_moves
         self.n_sim = n_sim
         self.temperature = temperature
@@ -1115,9 +1131,12 @@ class MCTSSelfplay:
         for the whole batch (lockstep games: a full row makes the batch
         pay full price), or one per game with ``cap_per_row``; a full
         ply gets ``n_sim`` simulations, the rest ``cap_cheap``."""
-        shape = (self.batch,) if self.cap_per_row else (1,)
-        return self.budget_from(torch.rand(shape, generator=generator,
-                                           device=self.device))
+        if self.cap_per_row:
+            u = draw_uniform((self.batch,), generator, self.device,
+                             self.mesh)
+        else:
+            u = torch.rand((1,), generator=generator, device=self.device)
+        return self.budget_from(u)
 
     def budget_from(self, u: torch.Tensor):
         """:meth:`draw_budget` from given uniforms ``u`` (f32 ``[1]``,
@@ -1128,15 +1147,18 @@ class MCTSSelfplay:
 
     def draw_noise(self, generator: torch.Generator) -> torch.Tensor:
         """The Gumbel root draw of a ply (f32 ``[B, A]``)."""
-        return self.search.draw_noise(self.batch, generator)
+        noise = self.search.draw_noise(self.global_batch, generator)
+        return noise if self.mesh is None else self.mesh.take(noise)
 
     def draw_gamma(self, noise_rng: np.random.Generator) -> torch.Tensor:
         """The gamma draws behind a ply's ``Dir(α)`` root noise, made on
         the host (torch's gamma sampler takes no generator)."""
-        return torch.as_tensor(
-            noise_rng.gamma(self.dirichlet_alpha,
-                            size=(self.batch, self.cfg.num_points + 1)),
-            dtype=torch.float32).to(self.device)
+        gamma = noise_rng.gamma(self.dirichlet_alpha,
+                                size=(self.global_batch,
+                                      self.cfg.num_points + 1))
+        if self.mesh is not None:
+            gamma = self.mesh.take(gamma)
+        return torch.as_tensor(gamma, dtype=torch.float32).to(self.device)
 
     def sample_weighted(self, weights: torch.Tensor,
                         generator: torch.Generator) -> torch.Tensor:
@@ -1147,7 +1169,7 @@ class MCTSSelfplay:
                 weights > 0,
                 torch.log(torch.clamp(weights, min=1e-9)) / self.temperature,
                 float("-inf"))
-            return gumbel_argmax(logits, generator).int()
+            return gumbel_argmax(logits, generator, self.mesh).int()
         return torch.argmax(weights, dim=-1).int()
 
     # ---------------------------------------------------------- a ply
@@ -1222,7 +1244,9 @@ class MCTSSelfplay:
                 # stops at the batch's largest budget
                 full, budget_rows = self.draw_budget(generator)
                 fh = full.cpu()
-                n_ply = self.n_sim if bool(fh.any()) else self.cheap
+                any_full = (bool(fh.any()) if self.mesh is None
+                            else self.mesh.any_true(full))
+                n_ply = self.n_sim if any_full else self.cheap
                 budget = budget_rows if self.cap_per_row else None
                 full_sum += float(fh.float().mean())
                 fulls.append(full)
@@ -1253,7 +1277,8 @@ class MCTSSelfplay:
             lives.append(live)
             if self.record_visits:
                 targets.append(target)
-            done = bool(states.done.all())
+            done = (bool(states.done.all()) if self.mesh is None
+                    else self.mesh.all_true(states.done))
             self._ply_h.observe(time.monotonic() - t_ply)
             if done:
                 break
@@ -1293,7 +1318,7 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
                        noise_frac: float = 0.25, forced_k: float = 0.0,
                        cap_p: float = 0.0, cap_cheap: int | None = None,
                        cap_per_row: bool = False,
-                       device=None) -> MCTSSelfplay:
+                       device=None, mesh=None) -> MCTSSelfplay:
     """Search self-play: every move of every game comes from a fresh
     search over the batch (no subtree reuse), ``n_sim`` simulations in
     chunks of ``sim_chunk``; one net plays both colours.
@@ -1325,6 +1350,9 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
     masked, :meth:`DeviceMCTS.run_sims_chunked`). The draw is read on
     the host once a ply. With the caps off nothing is drawn for them, so
     the games are those of the uncapped runner.
+
+    ``mesh``: this rank plays its block of the global ``batch`` with the
+    one-rank run's draws (module docstring); the return is its rows.
 
     Returns an :class:`MCTSSelfplay`: ``run(generator, noise_rng=None)
     -> (final GoState, actions i32 [T, B], live bool [T, B])``, and
@@ -1358,4 +1386,4 @@ def make_mcts_selfplay(cfg: GoConfig, policy_features: tuple,
     return MCTSSelfplay(cfg, search, batch, max_moves, n_sim, temperature,
                         sim_chunk, record_visits, gumbel, gumbel_sample,
                         dirichlet_alpha, noise_frac, forced_k, cap_p, cheap,
-                        cap_per_row, dev)
+                        cap_per_row, dev, mesh=mesh)

@@ -41,6 +41,15 @@ with no sensible move. The reference draws from JAX's RNG, which torch
 cannot reproduce: the parity tests replay the reference's actions
 through :meth:`Ply.logits` and :meth:`Ply.advance` and compare
 everything but the draw (``tests/test_torch_selfplay.py``).
+
+Sharded over data-parallel ranks (``mesh=``, :mod:`..parallel.mesh`):
+the batch must be a multiple of twice the width, and rank *r* of *W*
+plays global games ``[r·h, (r+1)·h)`` and ``[B/2 + r·h, B/2 + (r+1)·h)``
+with ``h = B/(2W)`` (the ``halves`` layout): its local first half is
+net A's Black games, as the colour split needs. Each ply's draws are
+made for the global batch on every rank and sliced to those rows, so a
+rank's games are exactly those games of the one-rank run;
+:func:`gather_result` assembles the global result on every rank.
 """
 
 from __future__ import annotations
@@ -105,13 +114,25 @@ def _half_swap(x: torch.Tensor, swap: bool) -> torch.Tensor:
     return torch.roll(x, x.shape[0] // 2, dims=0) if swap else x
 
 
-def gumbel_argmax(logits: torch.Tensor,
-                  generator: torch.Generator) -> torch.Tensor:
+def draw_uniform(shape, generator: torch.Generator, device, mesh=None,
+                 layout: str = "contiguous") -> torch.Tensor:
+    """Uniforms of ``shape`` (batch first) for this rank's rows: on a
+    sharded ``mesh`` drawn for the global batch and sliced by
+    ``layout``, so every rank's rows get the one-rank run's draws."""
+    if mesh is None or not mesh.sharded:
+        return torch.rand(shape, generator=generator, device=device)
+    full = (shape[0] * mesh.width, *shape[1:])
+    return mesh.take(torch.rand(full, generator=generator, device=device),
+                     0, layout)
+
+
+def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator,
+                  mesh=None, layout: str = "contiguous") -> torch.Tensor:
     """One categorical draw per row of ``logits`` (int64 ``[B]``), by
     Gumbel-max: no host sync, and a row of minimum or ``-inf`` entries
-    still yields an index (0 when the row is all ``-inf``)."""
-    u = torch.rand(logits.shape, generator=generator,
-                   device=logits.device)
+    still yields an index (0 when the row is all ``-inf``). On a
+    sharded ``mesh`` the rows are this rank's (:func:`draw_uniform`)."""
+    u = draw_uniform(logits.shape, generator, logits.device, mesh, layout)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -126,11 +147,14 @@ class Ply:
     ``incremental``: encode through ``caches``, the games' encode
     caches, carried from each :meth:`logits` call to the next (made cold
     on the states' device when None; a runner sets it to None at the
-    start of every run)."""
+    start of every run).
+
+    ``mesh``: ``batch`` is the global batch and the ply plays this
+    rank's ``halves`` rows of it (``self.batch`` is their count)."""
 
     def __init__(self, cfg: GoConfig, features: tuple, policy_a: Callable,
                  policy_b: Callable, batch: int, temperature: float,
-                 incremental: bool = False):
+                 incremental: bool = False, mesh=None):
         if batch % 2:
             raise ValueError(
                 f"batch must be even (half-and-half colour split), got "
@@ -139,7 +163,9 @@ class Ply:
         self.features = tuple(features)
         self.policy_a = policy_a
         self.policy_b = policy_b
-        self.batch = batch
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.batch = (batch if self.mesh is None
+                      else self.mesh.local_batch(batch, "halves"))
         self.temperature = temperature
         self.incremental = incremental
         self.caches = None
@@ -176,7 +202,7 @@ class Ply:
                generator: torch.Generator) -> torch.Tensor:
         """int32 ``[B]``: a draw from ``softmax(masked)``, pass where no
         move is sensible."""
-        board_action = gumbel_argmax(masked, generator)
+        board_action = gumbel_argmax(masked, generator, self.mesh, "halves")
         must_pass = ~sens.any(dim=-1)
         return torch.where(must_pass, self.cfg.num_points,
                            board_action).int()
@@ -230,21 +256,38 @@ def _incremental(incremental: bool | None) -> bool:
 def play_games(cfg: GoConfig, features: tuple, policy_a: Callable,
                policy_b: Callable, generator: torch.Generator, batch: int,
                max_moves: int = 500, temperature: float = 1.0,
-               device=None, incremental: bool | None = None
+               device=None, incremental: bool | None = None, mesh=None
                ) -> SelfplayResult:
     """Play ``batch`` lockstep games of net A against net B for
     ``max_moves`` plies. First half of the batch: A is Black; second
     half: B is Black. ``generator`` (on ``device``) drives the draws;
     ``device`` defaults to the card; ``incremental`` (default
-    :data:`INCREMENTAL_DEFAULT`) carries an encode cache per game."""
+    :data:`INCREMENTAL_DEFAULT`) carries an encode cache per game.
+    ``mesh``: this rank's games of the global ``batch`` (module
+    docstring)."""
     dev = resolve_device(device)
     ply = Ply(cfg, features, policy_a, policy_b, batch, temperature,
-              _incremental(incremental))
+              _incremental(incremental), mesh=mesh)
     final, acts, lives = _run_plies(
-        ply, new_states(cfg, batch, device=dev), generator,
+        ply, new_states(cfg, ply.batch, device=dev), generator,
         range(max_moves))
-    return _finish(cfg, final, _stack(acts, batch, torch.int32, dev),
-                   _stack(lives, batch, torch.bool, dev))
+    return _finish(cfg, final, _stack(acts, ply.batch, torch.int32, dev),
+                   _stack(lives, ply.batch, torch.bool, dev))
+
+
+def gather_result(mesh, result: SelfplayResult) -> SelfplayResult:
+    """The global :class:`SelfplayResult` on every rank from each
+    rank's share (the ``halves`` layout)."""
+    if mesh is None or not mesh.sharded:
+        return result
+
+    def gather(x, axis=0):
+        return mesh.gather(x, axis, "halves")
+
+    return SelfplayResult(
+        GoState(*(gather(x) for x in result.final)),
+        gather(result.actions, 1), gather(result.live, 1),
+        gather(result.winners), gather(result.num_moves))
 
 
 def make_selfplay(cfg: GoConfig, features: tuple, policy_a: Callable,
@@ -267,7 +310,8 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
                           policy_a: Callable, policy_b: Callable,
                           batch: int, max_moves: int = 500,
                           chunk: int = 100, temperature: float = 1.0,
-                          device=None, incremental: bool | None = None):
+                          device=None, incremental: bool | None = None,
+                          mesh=None):
     """:func:`make_selfplay` in segments of ``chunk`` plies, driven
     through a :class:`ChunkPipeline` (one segment in flight while the
     host queues the next). The same generator gives the same games as
@@ -295,19 +339,27 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
 
     ``incremental`` (default :data:`INCREMENTAL_DEFAULT`): the games'
     encode caches start cold with each run and ride across its
-    segments. ``run.ply`` is the :class:`Ply` the segments play."""
+    segments. ``run.ply`` is the :class:`Ply` the segments play.
+
+    ``mesh``: this rank's games of the global ``batch`` (module
+    docstring; ``batch`` a multiple of twice the width). The done flag
+    and the deadline are then agreed over the ranks at each segment's
+    dispatch (an ``all_reduce`` each), so every rank plays the same
+    segments; the result is this rank's share (:func:`gather_result`)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
     ply = Ply(cfg, features, policy_a, policy_b, batch, temperature,
-              _incremental(incremental))
+              _incremental(incremental), mesh=mesh)
+    mesh = ply.mesh
+    local = ply.batch
     seg_h = obs_registry.histogram("selfplay_segment_seconds")
     plies_c = obs_registry.counter("selfplay_plies_total")
 
     def run(generator: torch.Generator, initial_states: GoState | None = None,
             deadline: float | None = None, stop_when_done: bool = False,
             pipeline: ChunkPipeline | None = None) -> SelfplayResult:
-        states = (new_states(cfg, batch, device=dev)
+        states = (new_states(cfg, local, device=dev)
                   if initial_states is None else initial_states)
         ply.caches = None            # cold per run
         pipe = (pipeline if pipeline is not None
@@ -323,7 +375,11 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
             return None
 
         for offset in range(0, max_moves, chunk):
-            if deadline is not None and time.time() > deadline:
+            if deadline is not None and (
+                    time.time() > deadline if mesh is None
+                    else mesh.any_true(torch.tensor([time.time()
+                                                     > deadline],
+                                                    device=dev))):
                 break
             faults.barrier("selfplay.chunk", offset)
             length = min(chunk, max_moves - offset)
@@ -333,7 +389,12 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
             acts += a
             lives += lv
             plies_c.inc(length)
-            handle = states.done.all() if stop_when_done else None
+            handle = None
+            if stop_when_done:
+                # sharded: every rank's games, agreed now (a host read)
+                handle = (states.done.all() if mesh is None
+                          else torch.tensor(mesh.all_true(states.done),
+                                            device=dev))
             retired = pipe.push(handle, payload=offset + length)
             seg_h.observe(time.monotonic() - t0)
             if stop_when_done:
@@ -346,14 +407,14 @@ def make_selfplay_chunked(cfg: GoConfig, features: tuple,
                 done_plies = first_done(retired)
         else:
             pipe.finish()
-        actions = _stack(acts, batch, torch.int32, dev)
-        live = _stack(lives, batch, torch.bool, dev)
+        actions = _stack(acts, local, torch.int32, dev)
+        live = _stack(lives, local, torch.bool, dev)
         if done_plies is not None:
             pad = max_moves - done_plies
             actions = torch.cat([actions[:done_plies], torch.zeros(
-                (pad, batch), dtype=torch.int32, device=dev)])
+                (pad, local), dtype=torch.int32, device=dev)])
             live = torch.cat([live[:done_plies], torch.zeros(
-                (pad, batch), dtype=torch.bool, device=dev)])
+                (pad, local), dtype=torch.bool, device=dev)])
         return _finish(cfg, states, actions, live)
 
     run.ply = ply

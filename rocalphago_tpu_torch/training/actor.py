@@ -41,6 +41,7 @@ import json
 import os
 import threading
 import time
+import zlib
 
 from rocalphago_tpu_torch.data.replay import ZeroGames
 from rocalphago_tpu_torch.obs import registry, trace
@@ -92,15 +93,72 @@ class DispatchGang:
     card: one ``play`` or one learner step (dispatch to host read) at a
     time. What the split still buys is learner cadence decoupled from
     game cadence (sample mode) and host-side overlap (buffer and spill
-    I/O run outside the gang)."""
+    I/O run outside the gang).
 
-    def __init__(self):
+    Over a sharded ``mesh`` the sections hold collectives, which the
+    ranks must issue in one order. Rank 0 admits its sections as its
+    threads arrive and broadcasts each one's ``name`` before running it
+    (the ticket); every other rank receives the tickets in turn and
+    runs the section of the thread the ticket names, so every rank runs
+    the same sections in the same order. Every rank must therefore
+    reach the same named sections; a ticket is received only while no
+    section runs, so the tickets and the sections' collectives never
+    interleave."""
+
+    def __init__(self, mesh=None):
         self._lock = threading.Lock()
+        self._mesh = mesh if mesh is not None and mesh.sharded else None
+        self._cond = threading.Condition()
+        self._ticket = None       # guarded-by: self._cond
 
-    def run(self, fn, *args, **kwargs):
-        """Run ``fn``, a device section, holding the gang."""
-        with self._lock:
+    def run(self, fn, *args, name: str = "section", **kwargs):
+        """Run ``fn``, a device section named ``name``, holding the
+        gang."""
+        if self._mesh is None:
+            with self._lock:
+                return fn(*args, **kwargs)
+        import torch
+
+        code = zlib.crc32(name.encode())
+        if self._mesh.rank == 0:
+            with self._lock:
+                self._mesh.broadcast(torch.tensor(
+                    [code], dtype=torch.int64, device=self._mesh.device))
+                return fn(*args, **kwargs)
+        self._await_ticket(code)
+        try:
             return fn(*args, **kwargs)
+        finally:
+            self._lock.release()
+
+    def _await_ticket(self, code: int) -> None:
+        """Return holding the lock once rank 0's next ticket is
+        ``code`` (a rank other than 0)."""
+        import torch
+
+        while True:
+            self._lock.acquire()
+            with self._cond:
+                ticket = self._ticket
+            if ticket is None:
+                # no section runs: receive rank 0's next ticket
+                try:
+                    ticket = int(self._mesh.broadcast(torch.zeros(
+                        1, dtype=torch.int64, device=self._mesh.device)))
+                except BaseException:
+                    self._lock.release()
+                    raise
+            with self._cond:
+                if ticket == code:
+                    self._ticket = None
+                    self._cond.notify_all()
+                    return
+                # another thread's turn: leave the ticket for it
+                self._ticket = ticket
+                self._lock.release()
+                self._cond.notify_all()
+                self._cond.wait_for(lambda: self._ticket != ticket,
+                                    timeout=POLL_S)
 
 
 class ParamsPublisher:
@@ -273,8 +331,9 @@ class SelfplayActor:
                     raise exc
                 with trace.span("actor.play", actor=self.name,
                                 game=index):
-                    host = (self._gang.run(_play_synced) if self._gang
-                            else _play_synced())
+                    host = (self._gang.run(_play_synced,
+                                           name=f"play:{self.name}")
+                            if self._gang else _play_synced())
             except BaseException as e:  # noqa: BLE001 — park and report
                 self.error = e
                 if self._metrics is not None:

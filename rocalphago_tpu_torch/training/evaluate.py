@@ -15,7 +15,11 @@ Usage::
 With ``--shuffle-npz`` the persisted trainer split is honored, so the
 reported number is on exactly the positions the trainer never touched;
 otherwise the whole corpus is evaluated. Runs on the CUDA card unless
-``--device`` names another device.
+``--device`` names another device. Under ``torch.distributed.run``
+(``--num-devices``, default every rank) each rank evaluates its rows of
+every global minibatch (rounded down to a multiple of the width) and
+the sums and counts are reduced over the ranks before they divide;
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 
 from rocalphago_tpu_torch.data.pipeline import ShardedDataset
 from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
+from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.training.sl import (
     evaluate_batches,
     make_eval_step as make_policy_eval_step,
@@ -39,16 +44,25 @@ from rocalphago_tpu_torch.training.value import (
 
 def evaluate_model(net: NeuralNetBase, dataset: ShardedDataset,
                    indices: np.ndarray, minibatch: int = 256,
-                   max_batches: int | None = None) -> dict:
+                   max_batches: int | None = None,
+                   num_devices: int | None = None) -> dict:
     """Loss/top-1 (policy-shaped nets) or MSE (value nets, on an
     outcome corpus) over ``indices``, on the net's device; short
-    batches padded with zero weights."""
+    batches padded with zero weights. ``num_devices`` (default every
+    rank): the data width; the minibatch is rounded to a multiple of
+    it."""
+    mesh = meshlib.make_mesh(num_devices, net.device)
+    dwidth = mesh.shape[meshlib.DATA_AXIS]
+    if minibatch % dwidth:
+        minibatch = dwidth * max(minibatch // dwidth, 1)
+    mesh = mesh if mesh.sharded else None
     if dataset.manifest.get("targets") == "outcome":
-        eval_step = make_value_eval_step(net.module)
+        eval_step = make_value_eval_step(net.module, mesh=mesh)
     else:
-        eval_step = make_policy_eval_step(net.module, net.board * net.board)
+        eval_step = make_policy_eval_step(net.module, net.board * net.board,
+                                          mesh=mesh)
     out, count = evaluate_batches(eval_step, dataset, indices, minibatch,
-                                  net.device, max_batches)
+                                  net.device, max_batches, mesh=mesh)
     if not count:
         return {"positions": 0}
     out["positions"] = int(count)
@@ -78,11 +92,14 @@ def main(argv=None) -> dict:
                     help="trainer split file; restricts to --split")
     ap.add_argument("--minibatch", "-B", type=int, default=256)
     ap.add_argument("--max-batches", type=int, default=None)
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="data-parallel width (default: every rank)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     a = ap.parse_args(argv)
-
-    net = NeuralNetBase.load_model(a.model_json, device=a.device)
+    meshlib.distributed_init(device=a.device)
+    device = meshlib.make_mesh(a.num_devices, a.device).device
+    net = NeuralNetBase.load_model(a.model_json, device=device)
     dataset = ShardedDataset(a.corpus)
     if dataset.planes != net.preprocess.output_dim:
         raise ValueError(
@@ -91,9 +108,11 @@ def main(argv=None) -> dict:
     indices = pick_split(dataset, a.split, a.shuffle_npz)
     result = dict(evaluate_model(net, dataset, indices,
                                  minibatch=a.minibatch,
-                                 max_batches=a.max_batches),
+                                 max_batches=a.max_batches,
+                                 num_devices=a.num_devices),
                   model=a.model_json, split=a.split)
-    print(json.dumps(result))
+    if meshlib.is_coordinator():
+        print(json.dumps(result))
     return result
 
 

@@ -78,8 +78,8 @@ class ZeroLearner:
             return new_state, metrics_to_host(m)
 
         with trace.span("learner.step", version=entry.version):
-            new_state, m = (self._gang.run(_learn_synced) if self._gang
-                            else _learn_synced())
+            new_state, m = (self._gang.run(_learn_synced, name="learn")
+                            if self._gang else _learn_synced())
         t2 = time.monotonic()
         self._wait_s += t1 - t0
         self._busy_s += t2 - t1

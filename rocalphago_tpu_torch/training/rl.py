@@ -1,4 +1,5 @@
-"""REINFORCE policy training over self-play, on one card.
+"""REINFORCE policy training over self-play, on one card or
+data-parallel ranks.
 
 The port of ``training/rl.py`` (the reference's
 ``reinforcement_policy_trainer``: lockstep game batches of the learner
@@ -42,7 +43,16 @@ resumed run is bit-identical to a straight one); it cannot reproduce
 the reference's JAX streams, so the parity tests replay the
 reference's games (``tests/test_torch_rl.py``).
 
-Single card only: ``num_devices`` is ``None`` or 1.
+Data parallelism (``num_devices``, default every rank of the process
+group; :mod:`..parallel.mesh`): the games are sharded by global game
+index (self-play's ``halves`` layout, so each rank holds an equal share
+of the learner's Black and White games) with the one-rank run's draws;
+each rank replays its games with the loss over the *global* batch, the
+gradients are summed over the ranks before the update, and the win,
+draw and move statistics are computed on the gathered outcomes. Every
+rank reads the same opponent snapshot; only the coordinator writes the
+pool, the exports, ``metrics.jsonl``, ``metadata.json`` and the
+checkpoint files.
 """
 
 from __future__ import annotations
@@ -80,10 +90,12 @@ from rocalphago_tpu_torch.models.weights import (
 )
 from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults, retries
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.selfplay import (
     SelfplayResult,
+    gather_result,
     make_selfplay_chunked,
     play_games,
     sensible_mask,
@@ -104,7 +116,7 @@ class RLConfig:
     policy_temp: float = 0.67
     move_limit: int = 500
     seed: int = 0
-    num_devices: int | None = None
+    num_devices: int | None = None   # data width; None: every rank
     chunk: int = 0    # >0: plies per segment; 0 = one run
     komi: float | None = None   # None = board size's standard
     device: str | None = None   # None: the CUDA card
@@ -140,14 +152,18 @@ class ReplayPly:
     ``_make_replay_ply``): the learner's half of the batch re-encoded,
     its z-weighted log-likelihood loss back-propagated into the
     module's ``.grad``, and the whole batch stepped by the recorded
-    actions. ``module`` maps NHWC float32 planes to float32 logits."""
+    actions. ``module`` maps NHWC float32 planes to float32 logits.
+    ``batch`` is the games replayed here and ``divisor`` the loss's
+    divisor, the global batch (default ``batch``)."""
 
     def __init__(self, cfg: GoConfig, features: tuple,
-                 module: torch.nn.Module, batch: int, temperature: float):
+                 module: torch.nn.Module, batch: int, temperature: float,
+                 divisor: int | None = None):
         self.cfg = cfg
         self.features = tuple(features)
         self.module = module
         self.batch = batch
+        self.divisor = batch if divisor is None else divisor
         self.temperature = temperature
 
     def __call__(self, states: GoState, z: torch.Tensor,
@@ -172,7 +188,7 @@ class ReplayPly:
                              torch.finfo(logits.dtype).min)
         logp = torch.log_softmax(masked, dim=-1)
         lp = logp.gather(1, acts.clamp(max=n - 1).long()[:, None])[:, 0]
-        (-(w * lp).sum() / self.batch).backward()
+        (-(w * lp).sum() / self.divisor).backward()
         with torch.no_grad():
             return step(cfg, states, actions_t, gd)
 
@@ -209,16 +225,23 @@ class RLIteration:
 
     A call is safe to repeat after a failure: the game generator is
     copied from the state and written back only after the update, and
-    the replay starts from zeroed gradients."""
+    the replay starts from zeroed gradients.
+
+    ``mesh``: this rank plays and replays its ``halves`` share of the
+    global ``batch`` (a multiple of twice the width); the update is the
+    one-rank update (module docstring)."""
 
     def __init__(self, cfg: GoConfig, features: tuple,
                  module: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  batch: int, move_limit: int, temperature: float,
-                 chunk: int = 0, device=None):
+                 chunk: int = 0, device=None, mesh=None):
         if batch % 2:
             raise ValueError(f"game_batch must be even, got {batch}")
         if chunk < 0:
             raise ValueError(f"chunk must be >= 0, got {chunk}")
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.local = (batch if self.mesh is None
+                      else self.mesh.local_batch(batch, "halves"))
         self.cfg = cfg
         self.features = tuple(features)
         self.module = module
@@ -228,8 +251,8 @@ class RLIteration:
         self.temperature = temperature
         self.chunk = chunk
         self.device = resolve_device(device)
-        self.replay_ply = ReplayPly(cfg, features, module, batch,
-                                    temperature)
+        self.replay_ply = ReplayPly(cfg, features, module, self.local,
+                                    temperature, divisor=batch)
 
     def play(self, generator: torch.Generator,
              opponent: torch.nn.Module) -> SelfplayResult:
@@ -240,18 +263,19 @@ class RLIteration:
             if self.chunk:
                 return make_selfplay_chunked(
                     *args, self.batch, self.move_limit, chunk=self.chunk,
-                    temperature=self.temperature,
-                    device=self.device)(generator)
+                    temperature=self.temperature, device=self.device,
+                    mesh=self.mesh)(generator)
             return play_games(*args, generator, self.batch,
                               self.move_limit, self.temperature,
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)
 
     def replay(self, result: SelfplayResult) -> torch.Tensor:
         """Accumulate the iteration's gradient in the module's
-        ``.grad``; returns the learner's outcomes z (float32 ``[B]``)."""
-        z = _learner_z(result.winners, self.batch // 2)
+        ``.grad`` (summed over the ranks); returns the learner's outcomes
+        z (float32 ``[B]``, this rank's games)."""
+        z = _learner_z(result.winners, self.local // 2)
         live = result.live.float()
-        states = new_states(self.cfg, self.batch, device=self.device)
+        states = new_states(self.cfg, self.local, device=self.device)
         self.optimizer.zero_grad(set_to_none=True)
         plies = result.actions.shape[0]
         span = self.chunk or max(plies, 1)
@@ -266,6 +290,8 @@ class RLIteration:
                     pipe.push()
             if pipe is not None:
                 pipe.finish()
+        if self.mesh is not None:
+            self.mesh.all_reduce_grads([self.module])
         return z
 
     def update(self) -> None:
@@ -281,6 +307,10 @@ class RLIteration:
         self.update()
         state.generator.set_state(generator.get_state())
         state.iteration += 1
+        if self.mesh is not None:
+            # the statistics of the whole batch, as the one-rank run's
+            z = self.mesh.gather(z, 0, "halves")
+            result = gather_result(self.mesh, result)
         return _metrics(z, result.num_moves)
 
 
@@ -311,8 +341,11 @@ class OpponentPool:
     either package reads the other's pool), sampled uniformly each
     iteration."""
 
-    def __init__(self, directory: str, net: NeuralNetBase):
+    def __init__(self, directory: str, net: NeuralNetBase,
+                 write: bool = True):
         self.directory = directory
+        #: False on ranks that are not the coordinator: they only read
+        self.write = write
         os.makedirs(directory, exist_ok=True)
         if not self.snapshots():
             self.add(net.module.state_dict(), 0)
@@ -323,6 +356,8 @@ class OpponentPool:
 
     def add(self, params: dict, iteration: int) -> None:
         """Write the state dict ``params`` as snapshot ``iteration``."""
+        if not self.write:
+            return
         write_flax_msgpack(
             os.path.join(self.directory,
                          f"opponent.{iteration:05d}.flax.msgpack"),
@@ -366,15 +401,13 @@ class OpponentPool:
 class RLTrainer:
     """Wires the learner, the opponent pool and the iteration into the
     training loop on one device (CUDA unless ``cfg.device`` names
-    another)."""
+    another) or over data-parallel ranks (module docstring)."""
 
     def __init__(self, cfg: RLConfig, net: NeuralNetBase | None = None):
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
-        if cfg.num_devices not in (None, 1):
-            raise ValueError(
-                f"num_devices={cfg.num_devices}: this trainer runs on one "
-                "card (multi-GPU training is not ported)")
+        self.mesh = meshlib.make_mesh(cfg.num_devices, cfg.device)
+        self.device = self.mesh.device
+        self.mesh.local_batch(cfg.game_batch, "halves")   # raises unless
         self.net = net or NeuralNetBase.load_model(cfg.model_json,
                                                    device=self.device)
         if self.net.device.type != self.device.type:
@@ -394,6 +427,7 @@ class RLTrainer:
             else default_komi(self.net.cfg.size))
         cfg.komi = game_cfg.komi    # metadata records the resolved value
         module = self.net.module
+        self.mesh.replicate(module)
         optimizer = torch.optim.SGD(module.parameters(),
                                     lr=cfg.learning_rate)
         generator = torch.Generator(device=self.device)
@@ -403,13 +437,20 @@ class RLTrainer:
         self.iteration = RLIteration(
             game_cfg, self.net.feature_list, module, optimizer,
             cfg.game_batch, cfg.move_limit, cfg.policy_temp,
-            chunk=cfg.chunk, device=self.device)
+            chunk=cfg.chunk, device=self.device, mesh=self.mesh)
+        # artifact files are the coordinator's; the other ranks read the
+        # pool it writes (a barrier after each write) and restore its
+        # checkpoints
+        self.coord = meshlib.is_coordinator()
         self.pool = OpponentPool(os.path.join(cfg.out_dir, "opponents"),
-                                 self.net)
+                                 self.net, write=self.coord)
+        self.mesh.barrier()
         self.ckpt = TrainCheckpointer(
-            os.path.join(cfg.out_dir, "checkpoints"))
+            os.path.join(cfg.out_dir, "checkpoints"), write=self.coord,
+            mesh=self.mesh)
         self.metrics = MetricsLogger(
-            os.path.join(cfg.out_dir, "metrics.jsonl"))
+            os.path.join(cfg.out_dir, "metrics.jsonl")
+            if self.coord else None, echo=self.coord)
         # spans share the metrics stream (obs.trace)
         trace.configure(self.metrics)
         self.start_iteration = 0
@@ -428,7 +469,8 @@ class RLTrainer:
         meta = MetadataWriter(
             os.path.join(cfg.out_dir, "metadata.json"),
             header={"cmd": " ".join(sys.argv),
-                    "config": dataclasses.asdict(cfg)})
+                    "config": dataclasses.asdict(cfg)},
+            enabled=self.coord)
         final = {}
         # transient-failure re-dispatch of the segmented iteration: a
         # repeated call recomputes the identical result (RLIteration)
@@ -480,7 +522,9 @@ class RLTrainer:
     def _export_weights(self, iteration: int) -> None:
         """``weights.NNNNN.flax.msgpack`` plus ``model.json``, a spec
         always pointing at the latest weights (GTP-loadable by either
-        package)."""
+        package). The coordinator's alone."""
+        if not self.coord:
+            return
         weights = os.path.join(
             self.cfg.out_dir, f"weights.{iteration:05d}.flax.msgpack")
         self.net.save_model(
@@ -500,7 +544,9 @@ def run_training(argv=None) -> dict:
     ap.add_argument("--policy-temp", type=float, default=0.67)
     ap.add_argument("--move-limit", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--num-devices", type=int, default=None)
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="data-parallel width (default: every rank; "
+                         "launch ranks with torch.distributed.run)")
     ap.add_argument("--chunk", type=int, default=0,
                     help="plies per segment (0 = one run of the games "
                          "and one of the replay)")
@@ -510,6 +556,7 @@ def run_training(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     a = ap.parse_args(argv)
+    meshlib.distributed_init(device=a.device)
     cfg = RLConfig(
         model_json=a.model_json, out_dir=a.out_dir,
         learning_rate=a.learning_rate, game_batch=a.game_batch,

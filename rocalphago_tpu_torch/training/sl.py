@@ -1,4 +1,4 @@
-"""Supervised policy training on one card.
+"""Supervised policy training on one card or data-parallel ranks.
 
 The port of ``training/sl.py`` (the reference's
 ``supervised_policy_trainer``: SGD + categorical cross-entropy on
@@ -26,8 +26,18 @@ the prefix of the reference's spans (``sl.epoch`` with ``sl.train``,
 (``sl.pre_epoch``, ``sl.step_save``, ``sl.pre_save``, ``sl.post_save``)
 and the ``trainer`` label of ``train_data_wait_seconds`` (each batch's
 host wait, :func:`..obs.registry.timed`). Spans and the registry
-snapshot go to ``metrics.jsonl``. Single card only: ``num_devices`` is
-``None`` or 1.
+snapshot go to ``metrics.jsonl``.
+
+Data parallelism (``num_devices``, default every rank of the process
+group; :mod:`..parallel.mesh`): every rank draws the same global
+minibatch from the same ``SeedSequence([seed, epoch])`` iterator and
+the same per-row symmetry draws, then takes its contiguous rows. The
+loss sums its rows over the *global* valid count (one ``all_reduce``
+of the count before the backward), and the gradients are summed over
+the ranks, so a step is the one-rank step. Only the coordinator (rank
+0) writes ``metadata.json``, ``metrics.jsonl``, ``shuffle.npz``, the
+exports and the checkpoint files; every rank computes the split and
+takes part in each save (a barrier) and restore (the same files).
 """
 
 from __future__ import annotations
@@ -49,14 +59,17 @@ from rocalphago_tpu_torch.data.pipeline import (
     device_prefetch,
     split_indices,
 )
-from rocalphago_tpu_torch.device import resolve_device
 from rocalphago_tpu_torch.io.checkpoint import MetadataWriter, TrainCheckpointer
 from rocalphago_tpu_torch.io.metrics import MetricsLogger
 from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
 from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults
-from rocalphago_tpu_torch.training.symmetries import random_transform_batch
+from rocalphago_tpu_torch.training.symmetries import (
+    draw_elements,
+    random_transform_batch,
+)
 
 
 @dataclasses.dataclass
@@ -75,7 +88,7 @@ class SLConfig:
     train_val_test: tuple = (0.93, 0.05, 0.02)
     symmetries: bool = True
     seed: int = 0
-    num_devices: int | None = None
+    num_devices: int | None = None   # data width; None: every rank
     max_validation_batches: int = 200
     epoch_length: int | None = None   # steps per epoch; None = full pass
     save_every: int | None = None     # also checkpoint every N steps
@@ -128,16 +141,21 @@ def apply_update(optimizer, lr: float) -> None:
     optimizer.step()
 
 
-def policy_loss_fn(module, planes, actions, weights=None):
+def policy_loss_fn(module, planes, actions, weights=None, mesh=None):
     """(mean cross-entropy, top-1 accuracy) over the rows whose action
     is a board point; pass actions (``== N``, present when a corpus was
-    converted with passes) are masked out of both."""
+    converted with passes) are masked out of both. On a sharded
+    ``mesh`` both are this rank's share -- its rows summed over the
+    global count -- which the caller sums over the ranks."""
     logits = module(planes)
     n = logits.shape[-1]
     valid = (actions < n).float()
     if weights is not None:
         valid = valid * weights
-    denom = valid.sum().clamp(min=1.0)
+    count = valid.sum()
+    if mesh is not None and mesh.sharded:
+        count = mesh.all_reduce(count.reshape(1))[0]
+    denom = count.clamp(min=1.0)
     xent = F.cross_entropy(logits, actions.clamp(max=n - 1).long(),
                            reduction="none")
     loss = (xent * valid).sum() / denom
@@ -145,19 +163,34 @@ def policy_loss_fn(module, planes, actions, weights=None):
     return loss, acc
 
 
-def make_train_step(module, optimizer, lr_at, size: int, symmetries: bool):
+def draw_local_elements(generator, planes, mesh=None):
+    """The symmetry elements of this rank's rows: drawn for the global
+    batch on every rank, then sliced (a rank is never reseeded)."""
+    width = 1 if mesh is None else mesh.width
+    t = draw_elements(generator, planes.shape[0] * width, planes.device)
+    return t if mesh is None else mesh.take(t)
+
+
+def make_train_step(module, optimizer, lr_at, size: int, symmetries: bool,
+                    mesh=None):
     """``(state, planes, actions, t=None) → (state, metrics)``, updating
-    ``state`` in place. ``t`` (one group element per sample) replaces
-    the generator's draw when given."""
+    ``state`` in place. ``t`` (one group element per local sample)
+    replaces the generator's draw when given. On a sharded ``mesh`` the
+    planes are this rank's rows of the global minibatch, and the
+    gradients and metrics are summed over the ranks."""
 
     def train_step(state: TrainState, planes, actions, t=None):
         planes = planes.float()
         if symmetries:
+            if t is None:
+                t = draw_local_elements(state.generator, planes, mesh)
             planes, actions = random_transform_batch(
                 state.generator, planes, actions, size, t=t)
         optimizer.zero_grad(set_to_none=True)
-        loss, acc = policy_loss_fn(module, planes, actions)
+        loss, acc = policy_loss_fn(module, planes, actions, mesh=mesh)
         loss.backward()
+        if mesh is not None:
+            loss, acc = mesh.all_reduce_grads([module], (loss, acc))
         apply_update(optimizer, lr_at(state.step))
         state.step += 1
         return state, {"loss": loss.detach(), "accuracy": acc.detach()}
@@ -165,13 +198,17 @@ def make_train_step(module, optimizer, lr_at, size: int, symmetries: bool):
     return train_step
 
 
-def make_eval_step(module, num_points: int):
+def make_eval_step(module, num_points: int, mesh=None):
     @torch.no_grad()
     def eval_step(planes, actions, weights):
-        loss, acc = policy_loss_fn(module, planes.float(), actions, weights)
+        loss, acc = policy_loss_fn(module, planes.float(), actions, weights,
+                                   mesh=mesh)
         # effective sample count = the loss denominator (real rows
         # whose action is a board point)
         count = ((actions < num_points).float() * weights).sum()
+        if mesh is not None and mesh.sharded:
+            loss, acc, count = mesh.all_reduce(torch.stack([loss, acc,
+                                                            count]))
         return {"loss": loss, "accuracy": acc, "count": count}
     return eval_step
 
@@ -193,10 +230,13 @@ def pad_batch(planes, targets, batch_size: int):
 
 
 def evaluate_batches(eval_step, dataset, indices, minibatch: int, device,
-                     max_batches: int | None = None) -> tuple[dict, float]:
+                     max_batches: int | None = None,
+                     mesh=None) -> tuple[dict, float]:
     """``(means, count)``: the eval step's metrics averaged over
     ``indices`` weighted by each batch's count (``means`` empty when
-    the count is 0); short batches padded with zero weights."""
+    the count is 0); short batches padded with zero weights. With a
+    ``mesh`` each rank evaluates its rows of every padded global batch,
+    and the eval step sums over the ranks."""
     sums: dict[str, float] = {}
     count = 0.0
     rng = np.random.default_rng(0)
@@ -206,8 +246,9 @@ def evaluate_batches(eval_step, dataset, indices, minibatch: int, device,
         if max_batches is not None and i >= max_batches:
             break
         planes, targets, weights = (
-            torch.from_numpy(a).to(device)
-            for a in pad_batch(*batch, minibatch))
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in meshlib.shard_batch(mesh, pad_batch(*batch,
+                                                         minibatch)))
         m = eval_step(planes, targets, weights)
         c = float(m.pop("count"))
         for k, v in m.items():
@@ -231,11 +272,9 @@ class SLTrainer:
 
     def __init__(self, cfg, net: NeuralNetBase | None = None):
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
-        if cfg.num_devices not in (None, 1):
-            raise ValueError(
-                f"num_devices={cfg.num_devices}: this trainer runs on one "
-                "card (multi-GPU training is not ported)")
+        self.mesh = meshlib.make_mesh(cfg.num_devices, cfg.device)
+        self.device = self.mesh.device
+        self.mesh.local_batch(cfg.minibatch)   # raises unless it divides
         self.net = net or NeuralNetBase.load_model(cfg.model_json,
                                                    device=self.device)
         if self.net.device.type != self.device.type:
@@ -251,6 +290,7 @@ class SLTrainer:
             torch.backends.cudnn.benchmark = False
 
         module = self.net.module
+        self.mesh.replicate(module)
         optimizer, lr_at = make_optimizer(cfg, module.parameters())
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
@@ -258,15 +298,21 @@ class SLTrainer:
         self._train_step, self._eval_step = self.make_steps(
             module, optimizer, lr_at)
 
+        # artifact files are the coordinator's; every rank takes part in
+        # a checkpoint save (a barrier) and restore
+        self.coord = meshlib.is_coordinator()
         self.ckpt = TrainCheckpointer(
-            os.path.join(cfg.out_dir, "checkpoints"))
+            os.path.join(cfg.out_dir, "checkpoints"), write=self.coord,
+            mesh=self.mesh)
         self.metrics = MetricsLogger(
-            os.path.join(cfg.out_dir, "metrics.jsonl"))
+            os.path.join(cfg.out_dir, "metrics.jsonl")
+            if self.coord else None, echo=self.coord)
         # spans share the metrics stream (obs.trace)
         trace.configure(self.metrics)
         self.train_idx, self.val_idx, self.test_idx = split_indices(
             len(self.dataset), cfg.train_val_test, seed=cfg.seed,
-            path=os.path.join(cfg.out_dir, "shuffle.npz"))
+            path=os.path.join(cfg.out_dir, "shuffle.npz"),
+            write=self.coord)
         self.start_epoch = 0
         self._resume_skip = 0
         self._maybe_resume()
@@ -279,9 +325,10 @@ class SLTrainer:
 
     def make_steps(self, module, optimizer, lr_at):
         size = self.net.board
+        mesh = self.mesh if self.mesh.sharded else None
         return (make_train_step(module, optimizer, lr_at, size,
-                                self.cfg.symmetries),
-                make_eval_step(module, size * size))
+                                self.cfg.symmetries, mesh=mesh),
+                make_eval_step(module, size * size, mesh=mesh))
 
     # ----------------------------------------------------------- resume
 
@@ -311,7 +358,8 @@ class SLTrainer:
             os.path.join(cfg.out_dir, "metadata.json"),
             header={"cmd": " ".join(sys.argv),
                     "config": dataclasses.asdict(cfg),
-                    "dataset_positions": len(self.dataset)})
+                    "dataset_positions": len(self.dataset)},
+            enabled=self.coord)
         steps_per_epoch = self._steps_per_epoch()
         phase = self.PHASE
         # host wait per prefetched batch: the data-starvation probe
@@ -329,6 +377,9 @@ class SLTrainer:
                 it = batch_iterator(self.dataset, self.train_idx,
                                     cfg.minibatch, host_rng, epochs=1,
                                     skip=skip)
+                if self.mesh.sharded:
+                    # the global batch on every rank; each takes its rows
+                    it = (meshlib.shard_batch(self.mesh, b) for b in it)
                 t0 = time.time()
                 steps = []
                 with trace.span(f"{phase}.train"), contextlib.closing(
@@ -389,7 +440,8 @@ class SLTrainer:
     def evaluate(self, indices, max_batches: int | None = None) -> dict:
         means, _ = evaluate_batches(
             self._eval_step, self.dataset, indices, self.cfg.minibatch,
-            self.device, max_batches or self.cfg.max_validation_batches)
+            self.device, max_batches or self.cfg.max_validation_batches,
+            mesh=self.mesh if self.mesh.sharded else None)
         return {k: means.get(k, float("nan")) for k in self.METRICS}
 
     def _export_weights(self, epoch: int) -> None:
@@ -397,7 +449,9 @@ class SLTrainer:
         reference's format) plus ``model.json`` -- a loadable spec
         always pointing at the latest weights, so downstream stages
         (GTP, the evaluator, either package) can consume
-        ``out_dir/model.json`` directly."""
+        ``out_dir/model.json`` directly. The coordinator's alone."""
+        if not self.coord:
+            return
         weights = os.path.join(
             self.cfg.out_dir, f"weights.{epoch:05d}.flax.msgpack")
         self.net.save_model(
@@ -420,7 +474,9 @@ def training_parser(description: str, minibatch: int, data_help: str):
                     default=[0.93, 0.05, 0.02])
     ap.add_argument("--no-symmetries", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--num-devices", type=int, default=None)
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="data-parallel width (default: every rank; "
+                         "launch ranks with torch.distributed.run)")
     ap.add_argument("--epoch-length", type=int, default=None)
     ap.add_argument("--save-every", type=int, default=None,
                     help="extra checkpoint every N steps (mid-epoch "
@@ -445,6 +501,8 @@ def run_training(argv=None) -> dict:
     """CLI parity with the reference trainer."""
     a = training_parser("Supervised policy training on expert games", 16,
                         "npz shard prefix").parse_args(argv)
+    # the process group before any device work; a no-op for one process
+    meshlib.distributed_init(device=a.device)
     return SLTrainer(config_from_args(SLConfig, a)).run()
 
 

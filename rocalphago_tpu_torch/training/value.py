@@ -1,4 +1,5 @@
-"""Value-network regression training on one card.
+"""Value-network regression training on one card or data-parallel
+ranks.
 
 The port of ``training/value.py`` (the reference's
 ``reinforcement_value_trainer``: MSE + SGD over (state, outcome z)
@@ -12,7 +13,9 @@ trainer's (:class:`.sl.SLTrainer`), under the prefix ``value``
 (``value.epoch`` spans, ``value.step_save`` barriers,
 ``train_data_wait_seconds{trainer="value"}``); the augmentation
 transforms the planes only -- the scalar target is
-rotation-invariant.
+rotation-invariant. Data parallelism is the SL trainer's: the loss sums
+this rank's rows over the global batch (or the global weight sum), and
+the gradients are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -22,18 +25,17 @@ import sys
 
 import torch
 
+from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.training.sl import (
     SLConfig,
     SLTrainer,
     TrainState,
     apply_update,
     config_from_args,
+    draw_local_elements,
     training_parser,
 )
-from rocalphago_tpu_torch.training.symmetries import (
-    draw_elements,
-    transform_planes,
-)
+from rocalphago_tpu_torch.training.symmetries import transform_planes
 
 
 @dataclasses.dataclass
@@ -43,28 +45,39 @@ class ValueConfig(SLConfig):
     minibatch: int = 32
 
 
-def value_loss_fn(module, planes, outcomes, weights=None):
+def value_loss_fn(module, planes, outcomes, weights=None, mesh=None):
+    """The mean squared error; on a sharded ``mesh`` this rank's share
+    (its rows over the global batch or weight sum), which the caller
+    sums over the ranks."""
     pred = module(planes)
     sq = (pred - outcomes.float()) ** 2
+    sharded = mesh is not None and mesh.sharded
     if weights is None:
+        if sharded:
+            return sq.sum() / (sq.shape[0] * mesh.width)
         return sq.mean()
-    return (sq * weights).sum() / weights.sum().clamp(min=1.0)
+    total = weights.sum()
+    if sharded:
+        total = mesh.all_reduce(total.reshape(1))[0]
+    return (sq * weights).sum() / total.clamp(min=1.0)
 
 
-def make_train_step(module, optimizer, lr_at, symmetries: bool):
+def make_train_step(module, optimizer, lr_at, symmetries: bool, mesh=None):
     """``(state, planes, outcomes, t=None) → (state, metrics)``, updating
-    ``state`` in place; ``t`` replaces the generator's draw."""
+    ``state`` in place; ``t`` replaces the generator's draw (this rank's
+    rows of the global draw on a sharded ``mesh``)."""
 
     def train_step(state: TrainState, planes, outcomes, t=None):
         planes = planes.float()
         if symmetries:
             if t is None:
-                t = draw_elements(state.generator, planes.shape[0],
-                                  planes.device)
+                t = draw_local_elements(state.generator, planes, mesh)
             planes = transform_planes(planes, t)
         optimizer.zero_grad(set_to_none=True)
-        loss = value_loss_fn(module, planes, outcomes)
+        loss = value_loss_fn(module, planes, outcomes, mesh=mesh)
         loss.backward()
+        if mesh is not None:
+            loss, = mesh.all_reduce_grads([module], (loss,))
         apply_update(optimizer, lr_at(state.step))
         state.step += 1
         return state, {"mse": loss.detach()}
@@ -72,12 +85,15 @@ def make_train_step(module, optimizer, lr_at, symmetries: bool):
     return train_step
 
 
-def make_eval_step(module):
+def make_eval_step(module, mesh=None):
     @torch.no_grad()
     def eval_step(planes, outcomes, weights):
-        return {"mse": value_loss_fn(module, planes.float(), outcomes,
-                                     weights),
-                "count": weights.sum()}
+        mse = value_loss_fn(module, planes.float(), outcomes, weights,
+                            mesh=mesh)
+        count = weights.sum()
+        if mesh is not None and mesh.sharded:
+            mse, count = mesh.all_reduce(torch.stack([mse, count]))
+        return {"mse": mse, "count": count}
     return eval_step
 
 
@@ -95,9 +111,10 @@ class ValueTrainer(SLTrainer):
                 "(the layout training.selfplay_data writes)")
 
     def make_steps(self, module, optimizer, lr_at):
+        mesh = self.mesh if self.mesh.sharded else None
         return (make_train_step(module, optimizer, lr_at,
-                                self.cfg.symmetries),
-                make_eval_step(module))
+                                self.cfg.symmetries, mesh=mesh),
+                make_eval_step(module, mesh=mesh))
 
 
 def run_training(argv=None) -> dict:
@@ -105,6 +122,7 @@ def run_training(argv=None) -> dict:
     a = training_parser("Value network regression on self-play outcomes",
                         32, "npz shard prefix of an outcome corpus"
                         ).parse_args(argv)
+    meshlib.distributed_init(device=a.device)
     return ValueTrainer(config_from_args(ValueConfig, a)).run()
 
 

@@ -1,4 +1,5 @@
-"""AlphaZero-style training over the device search, on one card.
+"""AlphaZero-style training over the device search, on one card or
+data-parallel ranks.
 
 The port of ``training/zero.py``: self-play games in which every move
 comes from the batched device search (:func:`~..search.device_mcts.
@@ -63,7 +64,20 @@ pipeline as runner ``zero.replay``, the ``aux_loss{head=}`` gauges, and
 the registry's snapshot at the end. ``--profile-dir DIR`` wraps the run
 in a ``torch.profiler`` capture and writes its Chrome trace into DIR.
 
-Single card only: ``--num-devices`` is ``None`` or 1.
+Data parallelism (``--num-devices``, default every rank launched by
+``torch.distributed.run``; the largest width that divides
+``--game-batch``, as the reference picks it): each rank plays its
+contiguous block of the game batch with the one-rank run's draws
+(``search.device_mcts``), replays it with the losses over the global
+batch, and the gradients and the loss statistics are summed over the
+ranks before the update; the game statistics come from the gathered
+winners. The state is replicated (broadcast from rank 0 at the start,
+identical updates after), the gate's tally is rank 0's, and only the
+coordinator writes the pool, the exports, ``metrics.jsonl``,
+``metadata.json`` and the checkpoint files. With ``--actor-learner``
+the actor and learner threads of a rank issue collectives, so every
+section that does runs through the :class:`~.actor.DispatchGang`, which
+admits sections in rank 0's order on every rank.
 """
 
 from __future__ import annotations
@@ -100,6 +114,7 @@ from rocalphago_tpu_torch.features.pyfeatures import (
 from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.obs import trace
 from rocalphago_tpu_torch.ops.labels import terminal_labels
+from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
 from rocalphago_tpu_torch.search.device_mcts import make_mcts_selfplay
@@ -231,7 +246,11 @@ class ZeroIteration:
     ``aux_heads=("ownership", "score")``.
 
     A call is safe to repeat after a failure: the gradients are zeroed
-    at the start of a replay, and the state changes only at its end."""
+    at the start of a replay, and the state changes only at its end.
+
+    ``mesh``: ``batch`` is the global game batch; this rank plays and
+    replays its contiguous block and the update is the one-rank update
+    (module docstring)."""
 
     def __init__(self, cfg: GoConfig, policy_features: tuple,
                  value_features: tuple, batch: int, move_limit: int,
@@ -242,7 +261,7 @@ class ZeroIteration:
                  dirichlet_alpha: float = 0.0, noise_frac: float = 0.25,
                  cap_p: float = 0.0, cap_cheap: int | None = None,
                  cap_per_row: bool = False, forced_k: float = 0.0,
-                 aux_weight: float = 0.0, device=None):
+                 aux_weight: float = 0.0, device=None, mesh=None):
         if replay_chunk < 1:
             raise ValueError(f"replay_chunk must be >= 1, got "
                              f"{replay_chunk}")
@@ -250,6 +269,10 @@ class ZeroIteration:
         self.policy_features = tuple(policy_features)
         self.value_features = tuple(value_features)
         self.batch = batch
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        #: this rank's games of the batch
+        self.local = (batch if self.mesh is None
+                      else self.mesh.local_batch(batch))
         self.move_limit = move_limit
         self.n_sim = n_sim
         self.replay_chunk = replay_chunk
@@ -268,7 +291,7 @@ class ZeroIteration:
             m_root=m_root, gumbel_sample=gumbel_sample,
             dirichlet_alpha=dirichlet_alpha, noise_frac=noise_frac,
             forced_k=forced_k, cap_p=cap_p, cap_cheap=self.cheap,
-            cap_per_row=cap_per_row, device=self.device)
+            cap_per_row=cap_per_row, device=self.device, mesh=self.mesh)
         self.n_policy_planes = output_planes(self.policy_features)
         self.last_selfplay = None
 
@@ -397,7 +420,7 @@ class ZeroIteration:
         (actions, live_f, visits, winners, finished, full_f, aux_labels,
          num_moves) = self._record(games)
         wf = winners.float()
-        states = new_states(self.cfg, self.batch, device=self.device)
+        states = new_states(self.cfg, self.local, device=self.device)
         state.opt_policy.zero_grad(set_to_none=True)
         state.opt_value.zero_grad(set_to_none=True)
         stats = torch.zeros((7 if self.aux else 5,), dtype=torch.float32,
@@ -415,6 +438,13 @@ class ZeroIteration:
                     stats = stats + st
                 pipe.push()
             pipe.finish()
+        if self.mesh is not None:
+            # the one-rank gradients and loss sums; the game statistics
+            # of the whole batch
+            stats, = self.mesh.all_reduce_grads([state.policy, state.value],
+                                                (stats,))
+            winners, finished, num_moves = (
+                self.mesh.gather(x) for x in (winners, finished, num_moves))
         with trace.span("zero.update"):
             return self.apply_updates(state, stats, winners, finished,
                                       num_moves)
@@ -481,7 +511,7 @@ class ZeroGate:
     def __init__(self, cfg: GoConfig, features: tuple, pool_dir: str,
                  games: int, threshold: float, temperature: float,
                  move_limit: int, chunk: int = 20, write: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         if games % 2:
             raise ValueError(f"gate games must be even, got {games}")
         self.cfg = cfg
@@ -494,6 +524,10 @@ class ZeroGate:
         self.chunk = chunk
         self.write = write
         self.device = resolve_device(device)
+        #: a sharded mesh: every rank plays the whole match (replicated
+        #: nets), rank 0's tally counts, and a promotion waits for every
+        #: rank to see its files
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
 
     def match(self, policy_a, policy_b, generator: torch.Generator) -> dict:
         """N games of A against B (A is Black in the first half); A's
@@ -502,7 +536,10 @@ class ZeroGate:
             self.cfg, self.features, policy_a, policy_b, self.games,
             max_moves=self.move_limit, chunk=self.chunk,
             temperature=self.temperature, device=self.device)
-        w = run(generator, stop_when_done=True).winners.cpu().numpy()
+        w = run(generator, stop_when_done=True).winners
+        if self.mesh is not None:
+            w = self.mesh.broadcast(w)
+        w = w.cpu().numpy()
         half = self.games // 2
         wins_a = int((w[:half] > 0).sum() + (w[half:] < 0).sum())
         draws = int((w == 0).sum())
@@ -538,8 +575,10 @@ class ZeroGate:
 
     def promote(self, policy, value, iteration: int) -> None:
         """Write the pair as snapshot ``iteration``, then the spill
-        pointer."""
+        pointer (on the writing rank; then every rank waits)."""
         if not self.write:
+            if self.mesh is not None:
+                self.mesh.barrier()
             return
         from rocalphago_tpu_torch.models.weights import (
             params_to_flax,
@@ -562,6 +601,8 @@ class ZeroGate:
         write_pair()
         write_spill(self.pool_dir, version=iteration, policy_path=paths[0],
                     value_path=paths[1])
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, entry, policy_template, value_template) -> tuple:
         """The snapshot ``entry`` (a :meth:`snapshots` triple) as frozen
@@ -655,8 +696,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="weight of the auxiliary ownership/score losses "
                          "(the value net needs aux_heads; 0 = off)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="cards to train on: one (multi-card training "
-                         "is not ported)")
+                    help="data-parallel width (default: every rank "
+                         "launched by torch.distributed.run; reduced to "
+                         "the largest that divides --game-batch)")
     ap.add_argument("--komi", type=float, default=None,
                     help="area-scoring komi (default: the board size's "
                          "standard; engine.torchgo.default_komi)")
@@ -763,15 +805,33 @@ def run_training(argv=None) -> dict:
     if a.gumbel and a.forced_k:
         raise SystemExit("--forced-k is a PUCT-root knob; gumbel search "
                          "visits candidates by schedule")
-    if a.num_devices not in (None, 1):
-        raise SystemExit(f"--num-devices {a.num_devices}: this trainer "
-                         "runs on one card (multi-card training is not "
-                         "ported)")
     if a.gumbel and a.temperature != 1.0 and not a.gumbel_sample_moves:
         print("zero: --temperature is ignored with --gumbel (the per-ply "
               "gumbel draw is the exploration; with --gumbel-sample-moves "
               "it applies to the pi' draw)", file=sys.stderr)
-    dev = resolve_device(a.device)
+    # the process group before any device work (a no-op for one
+    # process); the game batch shards over the data axis -- the largest
+    # width that divides it
+    meshlib.distributed_init(device=a.device)
+    requested = a.num_devices or meshlib.world_size()
+    n_dev = requested
+    while a.game_batch % n_dev:
+        n_dev -= 1
+    if n_dev < requested:
+        print(f"zero: using {n_dev}/{requested} devices "
+              f"(--game-batch {a.game_batch} must divide evenly; "
+              "raise it to use the full mesh)", file=sys.stderr)
+    if 1 < n_dev < meshlib.world_size():
+        n_dev = 1       # a mesh spans one rank or all of them
+    try:
+        mesh = meshlib.make_mesh(n_dev, a.device)
+    except ValueError as e:     # a width above the ranks launched
+        raise SystemExit(f"--num-devices {a.num_devices}: {e}") from e
+    if mesh.sharded and a.replay_connect:
+        raise SystemExit("--replay-connect feeds one learner: it runs "
+                         "with one rank")
+    coord = meshlib.is_coordinator()
+    dev = mesh.device
     policy = NeuralNetBase.load_model(a.policy_json, device=dev)
     value = NeuralNetBase.load_model(a.value_json, device=dev)
     if policy.board != value.board:
@@ -805,13 +865,20 @@ def run_training(argv=None) -> dict:
         gumbel_sample=a.gumbel_sample_moves,
         dirichlet_alpha=a.dirichlet_alpha, noise_frac=a.noise_frac,
         cap_p=a.cap_p, cap_cheap=a.cap_cheap, cap_per_row=a.cap_per_row,
-        forced_k=a.forced_k, aux_weight=a.aux_weight, device=dev)
+        forced_k=a.forced_k, aux_weight=a.aux_weight, device=dev,
+        mesh=mesh)
+    mesh.replicate(policy.module, value.module)
     state = init_zero_state(policy.module, value.module, a.learning_rate,
                             seed=a.seed)
 
     os.makedirs(a.out_dir, exist_ok=True)
-    ckpt = TrainCheckpointer(os.path.join(a.out_dir, "checkpoints"))
-    metrics = MetricsLogger(os.path.join(a.out_dir, "metrics.jsonl"))
+    # artifact files are the coordinator's; every rank takes part in a
+    # checkpoint save (a barrier) and restores the same files
+    ckpt = TrainCheckpointer(os.path.join(a.out_dir, "checkpoints"),
+                             write=coord, mesh=mesh)
+    metrics = MetricsLogger(
+        os.path.join(a.out_dir, "metrics.jsonl") if coord else None,
+        echo=coord)
     # spans share the metrics stream; the opt-in capture brackets the run
     trace.configure(metrics)
     profiler = (start_profile(a.profile_dir, dev) if a.profile_dir
@@ -819,7 +886,8 @@ def run_training(argv=None) -> dict:
     meta = MetadataWriter(
         os.path.join(a.out_dir, "metadata.json"),
         header={"cmd": " ".join(sys.argv), "config": vars(a),
-                "ladder_free": ladder_free})
+                "ladder_free": ladder_free},
+        enabled=coord)
     start = 0
     restored, _ = ckpt.restore()
     if restored is not None:
@@ -837,11 +905,14 @@ def run_training(argv=None) -> dict:
                         os.path.join(a.out_dir, "pool"), games=a.gate_games,
                         threshold=a.gate_threshold,
                         temperature=a.gate_temperature,
-                        move_limit=a.move_limit, device=dev)
+                        move_limit=a.move_limit, write=coord, device=dev,
+                        mesh=mesh)
         # only snapshots at or before the restored checkpoint count: a
         # crash between a promotion and its save leaves a "future" entry,
         # which the re-run iteration rewrites with identical bytes
         snaps = [s for s in gate.snapshots() if s[0] <= start]
+        # every rank has listed the pool before rank 0 writes to it
+        mesh.barrier()
         if restored is not None and snaps:
             best_p, best_v = gate.load(snaps[-1], state.policy, state.value)
             metrics.log("gate_resume", incumbent=snaps[-1][0])
@@ -851,6 +922,8 @@ def run_training(argv=None) -> dict:
                 gate.promote(best_p, best_v, start)
 
     def export(it):
+        if not coord:
+            return
         for net, name in ((policy, "policy"), (value, "value")):
             net.save_model(os.path.join(a.out_dir, f"{name}.json"),
                            os.path.join(a.out_dir,
@@ -866,9 +939,12 @@ def run_training(argv=None) -> dict:
     last_done = {"state": None, "step": -1}
 
     def _stall_abort():
+        # the watchdog's thread: a write with no barrier (the ranks'
+        # threads may be anywhere)
         st = last_done["state"]
-        if st is not None and last_done["step"] != ckpt.latest_step():
-            ckpt.save(last_done["step"], st)
+        if (ckpt.write and st is not None
+                and last_done["step"] != ckpt.latest_step()):
+            ckpt.write_step(last_done["step"], st)
 
     watchdog = None
     if a.iteration_deadline > 0:
@@ -913,8 +989,11 @@ def run_training(argv=None) -> dict:
                     remote=a.replay_connect, sample=a.replay_sample,
                     supervised=True)
     elif a.actor_learner:
+        # each rank's buffer holds its block of every game batch
         buffer = ReplayBuffer(capacity=a.replay_capacity,
-                              spill_dir=os.path.join(a.out_dir, "replay"))
+                              spill_dir=os.path.join(
+                                  a.out_dir, "replay" if not mesh.sharded
+                                  else f"replay-rank{mesh.rank}"))
         # a drained or killed predecessor's spill: the lockstep actor
         # replays its games from the checkpointed chain, so leftovers
         # would be inserted twice -- discard; free-run restores them
@@ -923,8 +1002,9 @@ def run_training(argv=None) -> dict:
             metrics.log("replay_spill_discarded" if lockstep
                         else "replay_restored", entries=n_spill)
         publisher = ParamsPublisher()
-        # one gang for every device section of both threads
-        gang = DispatchGang()
+        # one gang for every device section of both threads, in rank 0's
+        # order on every rank
+        gang = DispatchGang(mesh)
         sup = superv.Supervisor(metrics=metrics)
         base_rng = state.rng.clone()
 
@@ -960,9 +1040,32 @@ def run_training(argv=None) -> dict:
                     capacity=buffer.capacity, sample=a.replay_sample,
                     supervised=True)
 
-    def section(fn, *args):
-        """A device section: under the gang when actors share the card."""
-        return gang.run(fn, *args) if gang is not None else fn(*args)
+    def section(name, fn, *args):
+        """A device section: under the gang when actors share the card
+        (every collective of a sharded run is in one)."""
+        return (gang.run(fn, *args, name=name) if gang is not None
+                else fn(*args))
+
+    def gate_step(it):
+        r = gate.match(state.policy, best_p,
+                       match_generator(a.seed, it, 0, dev))
+        promoted, wilson_lb = gate.decide(r)
+        promoted_pair = None
+        if promoted:
+            promoted_pair = (snapshot(state.policy), snapshot(state.value))
+            gate.promote(*promoted_pair, it + 1)
+        metrics.log("gate", iteration=it, promoted=promoted,
+                    wilson_lb=round(wilson_lb, 4), **r)
+        # the ladder probe: the incumbent (after a promotion, the new
+        # one) against a sampled past best
+        snap = gate.sample(a.seed, it)
+        if snap is not None:
+            lp, _ = gate.load(snap, state.policy, state.value)
+            incumbent = promoted_pair[0] if promoted_pair else best_p
+            lr = gate.match(incumbent, lp,
+                            match_generator(a.seed, it, 1, dev))
+            metrics.log("ladder", iteration=it, opponent=snap[0], **lr)
+        return promoted_pair
 
     def _learner_iteration(state, it):
         # finite waits, so a dead fleet surfaces as an error; a learner
@@ -1004,6 +1107,11 @@ def run_training(argv=None) -> dict:
     drained = False
     try:
         for it in range(start, a.iterations):
+            if sup is not None and mesh.sharded and section(
+                    "drain", mesh.any_true,
+                    torch.tensor([sup.draining], device=dev)):
+                # every rank drains at the same boundary
+                sup.request_drain("rank")
             if sup is not None and sup.draining:
                 metrics.log("drain", phase="loop_exit", iteration=it,
                             reason=sup.drain_reason)
@@ -1039,27 +1147,9 @@ def run_training(argv=None) -> dict:
                 if gate and ((it + 1) % gate_every == 0
                              or it + 1 == a.iterations):
                     with trace.span("zero.gate", iteration=it):
-                        r = section(gate.match, state.policy, best_p,
-                                    match_generator(a.seed, it, 0, dev))
-                        promoted, wilson_lb = gate.decide(r)
-                        if promoted:
-                            best_p, best_v = (snapshot(state.policy),
-                                              snapshot(state.value))
-                            gate.promote(best_p, best_v, it + 1)
-                        metrics.log("gate", iteration=it,
-                                    promoted=promoted,
-                                    wilson_lb=round(wilson_lb, 4), **r)
-                        # the ladder probe: the incumbent against a
-                        # sampled past best
-                        snap = gate.sample(a.seed, it)
-                        if snap is not None:
-                            lp, _ = gate.load(snap, state.policy,
-                                              state.value)
-                            lr = section(gate.match, best_p, lp,
-                                         match_generator(a.seed, it, 1,
-                                                         dev))
-                            metrics.log("ladder", iteration=it,
-                                        opponent=snap[0], **lr)
+                        promoted_pair = section("gate", gate_step, it)
+                        if promoted_pair is not None:
+                            best_p, best_v = promoted_pair
                         faults.barrier("zero.post_gate", it)
                 if publisher is not None:
                     # version it + 1: the pair the synchronous loop hands
@@ -1076,11 +1166,12 @@ def run_training(argv=None) -> dict:
                     # rewrites them identically, so a crash anywhere
                     # leaves what the straight run leaves
                     with trace.span("zero.export", iteration=it):
-                        section(export, it + 1)
+                        section("export", export, it + 1)
                         faults.barrier("zero.post_export", it)
                     with trace.span("zero.save", iteration=it):
                         faults.barrier("zero.pre_save", it)
-                        ckpt.save(it + 1, state.state_dict())
+                        section("save", ckpt.save, it + 1,
+                                state.state_dict())
                         faults.barrier("zero.post_save", it)
     finally:
         if rig is not None:
@@ -1104,10 +1195,18 @@ def run_training(argv=None) -> dict:
                     reason=sup.drain_reason)
     if watchdog is not None:
         watchdog.stop()
+    if mesh.sharded:
+        from rocalphago_tpu_torch.ops import chase, labels, tree
+
+        print(f"zero: rank {mesh.rank} of {mesh.width} on {dev} "
+              f"({mesh.backend}): kernel launches " + json.dumps(
+                  {"labels": labels.launches, "chase": chase.launches,
+                   "tree": tree.launches}), file=sys.stderr, flush=True)
     # the run's counter and histogram state, for obs_report
     obs_registry.log_to(metrics)
     metrics.close()
-    print(json.dumps(final))
+    if coord:
+        print(json.dumps(final))
     return final
 
 

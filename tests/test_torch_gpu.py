@@ -1292,3 +1292,115 @@ def test_selfplay_actor_ships_card_games(cuda_device, tmp_path):
         assert svc.stats()["requests"]["unhandled"] == 0
     finally:
         svc.close()
+
+
+# ---------------------------------------------------------- data parallel
+# Ranks are child processes (parallel.launch.spawn_ranks) that import
+# this module; the card machine has one card, so two ranks share it
+# (gloo on CUDA tensors) and NCCL runs as a one-rank group.
+
+
+def _card_sl_step(params, planes, actions, t, mesh=None) -> dict:
+    """One float32 SL step (TF32 off) of a 19×19 3 × 32 policy on the
+    mesh's rows of the global batch; its loss and params."""
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
+    from rocalphago_tpu_torch.training import sl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    net = CNNPolicy(board=19, layers=3, filters_per_layer=32,
+                    init_weights=False, device=dev, dtype=torch.float32)
+    net.module.load_state_dict(params)
+    opt, lr_at = sl.make_optimizer(sl.SLConfig(learning_rate=0.05),
+                                   net.module.parameters())
+    state = sl.TrainState(net.module, opt, torch.Generator(device=dev))
+    step = sl.make_train_step(net.module, opt, lr_at, 19, True, mesh=mesh)
+    planes, actions, t = meshlib.shard_batch(mesh, (planes, actions, t))
+    state, m = step(state, *(torch.from_numpy(x).to(dev)
+                             for x in (planes, actions)),
+                    t=torch.from_numpy(t).to(dev))
+    return {"loss": float(m["loss"]),
+            "backend": None if mesh is None else mesh.backend,
+            "params": {k: v.cpu() for k, v in
+                       net.module.state_dict().items()}}
+
+
+def _rank_card_sl_step(params, planes, actions, t) -> dict:
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
+
+    return _card_sl_step(params, planes, actions, t,
+                         meshlib.make_mesh(device="cuda"))
+
+
+def _rank_nccl(params, planes, actions, t) -> dict:
+    """A one-rank NCCL group: an all_reduce, a broadcast and one SL
+    step with its gradients all-reduced through the group."""
+    import torch.distributed as dist
+
+    from rocalphago_tpu_torch.parallel import mesh as meshlib
+
+    dev = torch.device("cuda", 0)
+    mesh = meshlib.Mesh(1, 0, dev, group=dist.group.WORLD)
+    x = torch.arange(6, dtype=torch.float32, device=dev)
+    y = mesh.all_reduce(x.clone())
+    z = mesh.broadcast(torch.arange(3, dtype=torch.int32, device=dev))
+    out = _card_sl_step(params, planes, actions, t, mesh)
+    out.update(all_reduce=torch.equal(x, y),
+               broadcast=z.cpu().tolist())
+    return out
+
+
+def card_step_inputs(seed: int = 7):
+    net = CNNPolicy(board=19, layers=3, filters_per_layer=32, seed=seed,
+                    device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(0, 2, (16, 19, 19, 48)).astype(np.uint8)
+    actions = rng.integers(0, 361, 16).astype(np.int32)
+    actions[:3] = 361                      # pass rows, all on rank 0
+    t = rng.integers(0, 8, 16).astype(np.int64)
+    return dict(params=net.module.state_dict(), planes=planes,
+                actions=actions, t=t)
+
+
+def test_sl_step_over_two_ranks_sharing_the_card(cuda_device, tmp_path):
+    """Two ranks on the one card (gloo on CUDA tensors) take the
+    one-rank float32 step within ``1e-4 + 1e-4·|x|`` (summation order),
+    and agree with each other bit for bit."""
+    import os
+
+    from rocalphago_tpu_torch.parallel.launch import spawn_ranks
+
+    inputs = card_step_inputs()
+    outs = spawn_ranks(f"{__name__}:_rank_card_sl_step", 2,
+                       str(tmp_path / "ranks"), inputs, device="cuda",
+                       paths=(os.path.dirname(os.path.abspath(__file__)),))
+    one = _card_sl_step(**inputs)
+    assert [o["backend"] for o in outs] == ["gloo", "gloo"]
+    assert outs[0]["loss"] == outs[1]["loss"]
+    assert outs[0]["loss"] == pytest.approx(one["loss"], rel=1e-5)
+    for k, v in one["params"].items():
+        assert torch.equal(outs[0]["params"][k], outs[1]["params"][k]), k
+        np.testing.assert_allclose(outs[0]["params"][k].numpy(), v.numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def test_one_rank_nccl_group_on_the_card(cuda_device, tmp_path):
+    """``init_process_group("nccl")`` with one rank: an all_reduce, a
+    broadcast, and an SL step through the group equal to the step
+    without one, bit for bit."""
+    import os
+
+    from rocalphago_tpu_torch.parallel.launch import spawn_ranks
+
+    inputs = card_step_inputs()
+    out, = spawn_ranks(f"{__name__}:_rank_nccl", 1, str(tmp_path / "ranks"),
+                       inputs, device="cuda",
+                       paths=(os.path.dirname(os.path.abspath(__file__)),))
+    one = _card_sl_step(**inputs)
+    assert out["backend"] == "nccl"
+    assert out["all_reduce"] and out["broadcast"] == [0, 1, 2]
+    assert out["loss"] == one["loss"]
+    for k, v in one["params"].items():
+        assert torch.equal(out["params"][k], v), k

@@ -345,7 +345,8 @@ def test_trainer_artifacts_and_split(corpus, tmp_path):
         sl.SLTrainer(small_cfg(corpus, tmp_path / "bad"), net=CNNPolicy(
             ("board",), board=SIZE, layers=2, filters_per_layer=4,
             device="cpu"))
-    with pytest.raises(ValueError, match="one card"):
+    # a width above the world size (one process here) is refused
+    with pytest.raises(ValueError, match="rank.*torch.distributed.run"):
         sl.SLTrainer(small_cfg(corpus, tmp_path / "bad", num_devices=2),
                      net=small_net())
 

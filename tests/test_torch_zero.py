@@ -586,7 +586,8 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path, specs):
     for extra, what in ((["--gumbel", "--dirichlet-alpha", "0.1"], "PUCT"),
                         (["--gumbel-sample-moves"], "requires --gumbel"),
                         (["--gumbel", "--forced-k", "1"], "PUCT-root"),
-                        (["--num-devices", "2"], "one card")):
+                        # a width above the ranks launched (one here)
+                        (["--num-devices", "2"], "rank.*torch.distributed")):
         with pytest.raises(SystemExit, match=what):
             cli(specs, out, 1, *extra)
     plain = str(tmp_path / "plain.json")
