@@ -62,7 +62,7 @@ Phases, in order; any failure exits non-zero before the result line:
     under ``set_sync_debug_mode("error")``; the timed run (games per
     minute under the reference's metric name, board-plies/s, mean game
     length, the pipeline's ``host_gap_frac``; chase and labels launched,
-    counts reset just before and read just after); its first 4 games
+    counts reset just before and read just after); its first 8 games
     replayed on the CPU port (every action sensible there, the same
     live rows, boards, done flags and winners); ``winner`` on the card
     against ``host_winners``; the chase kernel on the lanes of one of
@@ -76,17 +76,30 @@ Phases, in order; any failure exits non-zero before the result line:
     with forced playouts bit-exact against its plain version and timed
     on a grown batch-8 slab and on a batch-256 slab grown from phase
     11's positions (that one also with ``forced_k`` 0, the PUCT walk);
-13. the self-play CLI (``python -m
-    rocalphago_tpu_torch.interface.selfplay_cli``) on the committed 9×9
-    nets, policy mode and search mode, into ``build/smoke_selfplay``;
-    every SGF parses with the port's reader and replays legally;
+13. the CLIs on the committed 9×9 nets and GTP serving, all seven
+    child processes at once (their checks are timing-free): the self-play CLI (``python -m
+    rocalphago_tpu_torch.interface.selfplay_cli``) in policy mode,
+    search mode and Gumbel search mode (``--gumbel --m-root 4``), into
+    ``build/smoke_selfplay``, every SGF parsing with the port's reader
+    and replaying legally; the tournament CLI, ``gumbel-mcts`` against
+    ``device-mcts`` on the committed 9×9 gumbel nets (``TOURNEY_GAMES``
+    2, 8 playouts, move limit ``TOURNEY_MOVES`` 12, no forfeit, a log
+    line a game), and the Elo CLI over its log (finite ratings); the
+    tournament CLI, ``mcts`` with a seeded 9×9 rollout spec and
+    ``--device-rollout`` against ``greedy`` on the committed 9×9 nets
+    (2 games, 8 playouts, move limit ``TOURNEY_MOVES`` 12, no forfeit);
+    and two GTP subprocesses, ``--serve`` on the committed 9×9 nets
+    (genmove, komi, both probes) and ``--serve-sizes 9,13,19`` on fresh
+    seeded 19×19 12 × 128 FCN specs (phase 19's) re-routed by
+    ``boardsize 13``, both exiting 0 with no genmove degraded;
 14. the supervised training path at full width, in ``build/smoke_sl``:
     the converter's CLI entry (``rocalphago_tpu_torch.data.convert``)
     on the committed 19×19 games of ``results/sl19_r5/sgf`` (48 planes;
     the manifest counts every game and one position per non-pass move;
     labels and chase launched, counts reset just before and read just
-    after; positions/s), its first game converted again by the CPU
-    port, bit for bit; the SL trainer's CLI entry on a fresh seeded
+    after; positions/s), its first 2 games converted again by the
+    converter's CLI on the CPU (``--device cpu``, a child process beside
+    the resume runs), bit for bit; the SL trainer's CLI entry on a fresh seeded
     12 × 128 bf16 policy saved as a spec (minibatch 16, symmetries on,
     2 epochs of 50 steps: finite losses, every artifact, the ``sl.*``
     span paths and the data-wait histogram in its ``metrics.jsonl``,
@@ -112,7 +125,7 @@ Phases, in order; any failure exits non-zero before the result line:
     replay and update timed with a sync after each (games per minute
     under the reference's metric, ms per replay ply, the replay's MFU
     share), chase and labels launched (counts reset just before, read
-    just after), the params moved and finite, its first 4 games
+    just after), the params moved and finite, its first 8 games
     replayed on the CPU, the chase kernel on a mid-game replay ply's
     lanes and the labels kernel on its final region boards bit-exact and
     timed, a profile of 10 mid-game replay plies; the value-corpus
@@ -139,17 +152,13 @@ Phases, in order; any failure exits non-zero before the result line:
     and a Gumbel search of 100 simulations from one root timed in turns,
     and a profile of a Gumbel chunk; Gumbel search self-play (batch 8, 32 simulations, 4 plies playing the
     halving winner, then 2 sampling π′; every π′ row finite and summing
-    to 1; simulations/s; the three kernels launched); the self-play CLI
-    with ``--gumbel --m-root 4``; the tournament CLI, ``gumbel-mcts``
-    against ``device-mcts`` on the committed 9×9 gumbel nets
-    (``TOURNEY_GAMES`` 2, 8 playouts, move limit ``TOURNEY_MOVES`` 12,
-    no forfeit, a log line a game) and the
-    Elo CLI over its log (finite ratings);
+    to 1; simulations/s; the three kernels launched) (its CLIs run in
+    phase 13);
 17. the reference's own AlphaGo player, host APV-MCTS, in
     ``build/smoke_mcts``: fresh seeded specs written by the port's spec
     CLI (the 19×19 12 × 128 policy and FCN value nets, a 32-filter
-    rollout net, a 12 × 128 policy with two global-pooling blocks, a
-    9×9 rollout net); the main path, ``build_player("mcts", ...,
+    rollout net, a 12 × 128 policy with two global-pooling blocks); the
+    main path, ``build_player("mcts", ...,
     device_rollout=True)`` at ``MCTS_PLAYOUTS`` 16 playouts (the
     reference's default 100, cut), leaf batch 8, λ 0.5,
     rollouts to 500 plies, in a GTP session of ``MCTS_GENMOVES``
@@ -165,18 +174,19 @@ Phases, in order; any failure exits non-zero before the result line:
     one wave with host rollouts; symmetric policy distributions and
     values at batch 8 and the pooled policy's forward, card vs CPU at
     float32 within ``FORWARD_ATOL``/``FORWARD_RTOL``; a ``ValuePlayer``
-    move with a top-16 policy pre-filter; and the tournament CLI,
-    ``mcts`` with a rollout spec and ``--device-rollout`` against
-    ``greedy`` on the committed 9×9 nets (2 games, 8 playouts, move
-    limit ``TOURNEY_MOVES`` 12, no forfeit);
+    move with a top-16 policy pre-filter (its tournament CLI runs in
+    phase 13);
 18. the AlphaZero loop, in ``build/smoke_zero``: fresh seeded 19×19
     specs from the spec CLI (the 12 × 128 policy, 48 planes, and the
     12 × 128 FCN value net, 49 planes, with the auxiliary heads grafted
     on); the zero CLI (``rocalphago_tpu_torch.training.zero``) at game
     batch 8, 16 simulations, move limit ``ZERO_MOVES``,
     ``ZERO_ITERATIONS`` 2 iterations, a checkpoint every iteration, the
-    gate every 2 and after the last (8 games), Dir(0.03): straight,
-    killed after iteration 1 and resumed with the same command, and with ``--actor-learner --actors 1`` -- the last two
+    gate every 2 and after the last (8 games), Dir(0.03): straight and
+    with ``--actor-learner --actors 1`` as child processes, and killed
+    after iteration 1 and resumed with the same command in this process
+    meanwhile (its first play's record kept for phase 23; the runs'
+    checks are timing-free) -- the last two
     end on the straight run's checkpoint, exports, pool and metric rows
     (wall times aside) bit for bit; the straight run's ``metrics.jsonl``
     holds every ``zero.*`` span path of the reference with ``ok`` true
@@ -195,7 +205,8 @@ Phases, in order; any failure exits non-zero before the result line:
     its span and pushed to the replay's pipeline with the runner
     metrics on; a profile of 10 replay plies (kernels a ply, idle
     share); one more iteration's host reads under
-    ``set_sync_debug_mode("warn")``, equal to the count of the commit
+    ``set_sync_debug_mode("warn")`` (a fresh process beside the CLI
+    runs), equal to the count of the commit
     before the instrumentation (``ZERO_PARENT_HOST_READS``, counted by
     ``python3 chip_smoke.py --host-reads DIR`` on a checkout of it),
     and the instrumentation's cost (span records and registry writes
@@ -228,11 +239,8 @@ Phases, in order; any failure exits non-zero before the result line:
     pooled session (a fault plan, a real out-of-memory error, a hang
     abandoned by the watchdog, the fallback), every answer legal and
     counted by ``rocalphago-stats``, and a sticky CUDA error raised in
-    a child process, classified not transient; and two GTP
-    subprocesses, ``--serve`` on the committed 9×9 nets (genmove,
-    komi, both probes) and ``--serve-sizes 9,13,19`` on the 19×19
-    12 × 128 FCN specs re-routed by ``boardsize 13``, both exiting 0
-    with no genmove degraded;
+    a child process, classified not transient (its GTP subprocesses
+    run in phase 13);
 20. the incremental encode: three seeded 19×19 games of ``INCR_PLIES``
     plies (one from a ladder board, two from the empty board, with
     passes and captures), encoded one after another through one carried
@@ -261,7 +269,7 @@ Phases, in order; any failure exits non-zero before the result line:
     a warmed ``ServePool`` at 100 simulations behind a ``GatewayServer``
     (``GATEWAY_CONNS`` 4 connections) and its ``GatewayHTTP``, both on
     ephemeral ports. The main path: ``run_load`` with 4 connections of
-    ``GATEWAY_GENMOVES`` 2 genmoves from the empty board, every move
+    ``GATEWAY_GENMOVES`` 1 genmove from the empty board, every move
     replayed legally on ``pygo``, the three kernels launched (counts
     reset just before, read just after) as phase 19's threaded sessions
     launch them (a labels and a chase launch an evaluator batch, a
@@ -303,9 +311,10 @@ Phases, in order; any failure exits non-zero before the result line:
     in-process gateways (a 1-session pool sharing the searcher, and the
     pool), sticky with a spillover, every move legal, the three kernels
     launched as phase 21's load launches them (counts reset just before,
-    read just after), the routed p50 beside phase 21's wire p50 (PR 14's
-    control, the same load over the pool's replica alone, was cut for
-    phase 23's clock); a fleet-wide swap and ``await_convergence``; a game failed over
+    read just after), the routed p50 beside phase 21's wire p50 and
+    beside the same load through a router over the pool's replica alone
+    (the hop apart from the replica split); a
+    fleet-wide swap and ``await_convergence``; a game failed over
     mid-drain; (d) the CLIs: ``gateway.server --spill``,
     ``rollout.router --replica``, ``gtp --connect`` through the router,
     a spill showing on ``/healthz``, SIGTERM and exit 0 for each; (e)
@@ -317,37 +326,46 @@ Phases, in order; any failure exits non-zero before the result line:
     dedup window.
 
 23. data parallelism, in ``build/smoke_parallel``: two ranks sharing
-    the one card (gloo on CUDA tensors), each started by ``python -m
-    torch.distributed.run`` on the port's CLIs: (a) the SL trainer on
-    phase 14's spec and corpus, ``PAR_STEPS`` steps at global minibatch
+    the one card (gloo on CUDA tensors), each run started by ``python
+    -m torch.distributed.run``, the three CLI runs and the probe's
+    kernel checks at once: (a) the SL trainer's CLI on phase 14's spec
+    and corpus, ``PAR_STEPS`` steps at global minibatch
     ``PAR_MINIBATCH`` (16 a rank) against one rank's run of the same,
-    one epoch record
-    and the artifacts from rank 0 alone, each rank's backend; the first
-    step's update within ``PAR_UPDATE_L2`` and the train loss within
-    ``PAR_LOSS_RTOL`` of one rank's; (b) the
-    zero CLI at ``--num-devices 2`` on phase 18's specs, one iteration
-    against phase 18's straight run's first (the game statistics
-    equal, the updates within ``PAR_UPDATE_L2``), the labels, chase and
-    tree launches of each rank; (c) the self-play CLI with ``--shard``,
-    8 19×19 games, every SGF byte-equal to one rank's; (d) a probe
-    (``--ranks-probe``) in two ranks: the three kernels against their
-    plain versions in each rank, the zero CLI's first play over the
-    ranks equal to one rank's here bit for bit (actions, live rows,
-    visits, winners), the SL step timed with its gradient all-reduce
-    and each rank's card memory, and on rank 0 a one-rank NCCL group
-    (an all_reduce, a broadcast, an SL step through it equal to one
-    without it, the step and the all-reduce timed). Two ranks on one
-    card measure overhead, not scaling.
+    one epoch record and the artifacts from rank 0 alone, each rank's
+    backend; the first step's update within ``PAR_SPLIT_L2`` of the
+    same two halves in this process, the updates within
+    ``PAR_UPDATE_L2`` and the train loss within ``PAR_LOSS_RTOL`` of
+    one rank's; (b) the zero CLI's entry at ``--num-devices 2`` on
+    phase 18's specs (``--zero-ranks``: ``zero.run_training`` with its
+    first play's record gathered and kept), one iteration against
+    phase 18's one-rank run of the same command: the first play's
+    actions, live rows, visits and winners bit for bit, the game
+    statistics equal, the updates within ``PAR_ZERO_L2``, the labels,
+    chase and tree launches of each rank; (c) the self-play CLI with
+    ``--shard``, 8 19×19 games, every SGF byte-equal to one rank's; (d)
+    a probe (``--ranks-probe``) in two ranks: the three kernels against
+    their plain versions in each rank, then, once the CLI runs have
+    ended, the SL step timed with its gradient all-reduce and each
+    rank's card memory, and on rank 0 a one-rank NCCL group (an
+    all_reduce, a broadcast, an SL step through it equal to one without
+    it, the step and the all-reduce timed). Two ranks on one card
+    measure overhead, not scaling.
 
-Every phase's wall time is logged. Depth cut to keep the whole run
-well under 1,100 s of its 1,200 s clock with phase 23 in: phase 16's
-Gumbel self-play 4 + 2 plies (8 + 4), both tournaments' move limit 12
-(20), phase 17's mcts session at 16 playouts (32), phase 20's games 80
-plies (120) and its timed self-play 1 run a mode (2), phases 11 and 15
-replaying 4 games on the CPU (8), phase 14 re-converting 1 game (2),
-phase 22's routed
-load without its one-replica control, phase 23's SL runs a 1%
-validation and test split and its three CLI runs at once; with
+Every phase's wall time is logged. To keep the whole run well inside
+its 1,200 s clock with phase 23 in, timing-free child processes run at
+once: phase 13's seven CLIs (phase 16's Gumbel self-play CLI and
+tournament, phase 17's tournament and phase 19's two GTP runs until
+phase 23 came in), phase
+14's CPU conversion beside the SL resume runs, phase 18's straight,
+actor/learner and profiled zero CLI runs and its host-reads count
+beside the killed run, and phase 23's runs; and depth is cut: phase
+9's and 16's GTP sessions 3 genmoves before the timed ones (4), phase
+23's probe 10 timed SL steps (20), phase 21's load 1 genmove a
+connection (2); phase
+16's Gumbel self-play 4 + 2 plies (8 + 4), both tournaments' move
+limit 12 (20), phase 17's mcts session at 16 playouts (32), phase 20's
+games 80 plies (120) and its timed self-play 1 run a mode (2), phase
+23's SL runs a 1% validation and test split; with
 phase 21 in: phase 9's and
 16's GTP sessions 4 genmoves before the timed ones (6), both
 tournaments move limit 20 (40), phase 17's mcts session 2 + 1 genmoves
@@ -369,9 +387,8 @@ The kernel line's launches are phases 11, 12, 14's conversion, 15's RL
 iteration and generator, 16's GTP session and self-play, 17's GTP
 session, 18's zero iteration, 19's fleets and threaded sessions, 20's
 GTP session and self-play runs with the cache, 21's gateway load and
-22's routed load, and 23's runs in this process and in every rank
-(the zero CLI's and the probe's ranks, the one-rank play and self-play
-here) together,
+22's routed load, and 23's zero CLI's ranks and one-rank self-play
+here together,
 its times those at self-play's shapes (chase at 1,536 lanes, labels at
 256 region boards, the tree at batch 8). The last three lines are the
 card (as ``nvidia-smi`` prints it), the kernel table as JSON, and
@@ -382,7 +399,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import dataclasses
 import io
 import json
 import os
@@ -400,16 +416,16 @@ import torch
 SIZE = 19
 SEED = 20261017
 GENMOVES = 12            # per colour
-SEARCH_GENMOVES = 4      # device-search genmoves at 100 simulations (6
-                         # until the gateway phase came in)
+SEARCH_GENMOVES = 3      # device-search genmoves at 100 simulations (6
+                         # until the gateway phase came in, then 4 until
+                         # phase 23)
 TIMED_GENMOVES = 4       # then under time_settings 0 1 1
 SEARCH_CHECK_SIMS = 16   # simulations of the batched-vs-alone check
 CHUNK = 8                # simulations per chunk (the player's default)
 SP_BATCH = 256           # policy self-play: games in lockstep
 SP_MAX_MOVES = 300       # the reference's headline game length
 SP_CHUNK = 10            # plies per segment
-SP_REPLAY = 4            # games of the card run replayed on the CPU (8
-#                          until phase 23 came in)
+SP_REPLAY = 8            # games of the card run replayed on the CPU
 SS_BATCH, SS_SIMS, SS_PLIES = 8, 32, 8     # search self-play
 SS_ALPHA, SS_EPS, SS_FORCED_K = 0.03, 0.25, 2.0
 SS_TREE256_SIMS = 16     # simulations of the batch-256 tree timed
@@ -448,8 +464,7 @@ LABELS_OPS_PER_POINT_SWEEP = 6
 BF16_FLOPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16
 SL_DIR = os.path.join("build", "smoke_sl")
 SL_GAMES = os.path.join("results", "sl19_r5", "sgf")
-SL_CPU_GAMES = 1         # games the CPU port converts again (2 until
-#                          phase 23 came in)
+SL_CPU_GAMES = 2         # games the CPU port converts again
 SL_EPOCH_LENGTH = 50     # steps per epoch of the SL runs (2 epochs)
 SL_KILL_AFTER = 25       # steps before the mid-epoch kill
 SL_TIMED_BATCHES = (16, 256)
@@ -535,7 +550,8 @@ INCR_GENMOVES = 2        # per GTP session before its resets, both (4
 INCR_SP_RUNS = 1         # timed self-play runs per mode (cut from 3, then
 #                          2 until phase 23 came in)
 GATEWAY_CONNS = 4        # phase 21: connections of the load
-GATEWAY_GENMOVES = 2     # genmoves a connection
+GATEWAY_GENMOVES = 1     # genmoves a connection (2 until phase 23 came
+#                          in)
 GATEWAY_SLO_MS = 2000.0  # the SLO server's per-genmove deadline
 GATEWAY_DRAIN_S = 30.0   # the CLI's SIGTERM: drain and exit within this
 FLEET_DIR = os.path.join("build", "smoke_fleet")
@@ -551,13 +567,19 @@ PAR_DIR = os.path.join("build", "smoke_parallel")
 PAR_RANKS = 2            # phase 23: ranks sharing the one card (gloo)
 PAR_MINIBATCH = 32       # the SL runs' global minibatch (16 a rank)
 PAR_STEPS = 4            # SL steps of the two-rank and one-rank runs
-PAR_TIMED_STEPS = 20     # SL steps timed in each rank of the probe
+PAR_TIMED_STEPS = 10     # SL steps timed in each rank of the probe
 # two ranks against one, the relative L2 distance of a net's update
 # (every parameter). In bf16 cuDNN computes 16 rows and 32 with other
 # algorithms, so one process's gradient of the 12 x 128 policy from two
 # half-minibatches lies ~0.1 from the whole minibatch's (phase 23 logs
 # it), and the SL runs' updates drift further apart over their 4 steps
 PAR_UPDATE_L2 = 0.5
+# the zero CLI's learn over two ranks against one rank's, the same
+# relative L2 per net: the policy read 2.446e-03 (NVIDIA H100 80GB HBM3,
+# 700.00 W); plain SGD, so a gradient averaged where it is summed over
+# the ranks (off by the width) reads 0.5. No game of ZERO_MOVES plies
+# ends, so the value net moves in neither run and is held to that alone
+PAR_ZERO_L2 = 1e-2
 # the two ranks' first SL step against the same two halves in one
 # process: the same kernels on the same rows, float32 sums of two terms
 PAR_SPLIT_L2 = 1e-5
@@ -1973,56 +1995,83 @@ def phase_search_selfplay(torchgo, dev, card, counters, player, states256):
                 tree8=t8[:3], tree256=t256[:3])
 
 
-def phase_selfplay_cli(pygo, gumbel: bool = False):
-    """The self-play CLI as a user runs it, on the committed 9×9 nets:
-    policy mode and search mode (or, with ``gumbel``, Gumbel search
-    mode), into ``build/``; every SGF parses back with the port's reader
-    and replays legally on the rules oracle."""
-    from rocalphago_tpu_torch.data import sgf
-
+def selfplay_cli_start(mode: str):
+    """Start the self-play CLI as a user runs it, on the committed 9×9
+    nets, in ``mode`` (``policy``, ``search`` or Gumbel ``search``),
+    into ``build/``; ``(mode, games, out dir, the started child)``."""
     root = os.path.dirname(os.path.abspath(__file__))
     policy = os.path.join(root, PUCT_DIR, "policy.json")
     value = os.path.join(root, PUCT_DIR, "value.json")
-    modes = (("policy", 16, ["--chunk", "20"]),
-             ("search", 4, ["--search-sims", "16", "--value", value,
-                            "--max-moves", "20", "--dirichlet-alpha",
-                            "0.03"]))
-    if gumbel:
-        modes = (("gumbel", 4, ["--search-sims", "8", "--gumbel",
-                                "--m-root", "4", "--value", value,
-                                "--max-moves", "20"]),)
-    for mode, games, extra in modes:
-        out = os.path.join(root, "build", "smoke_selfplay", mode)
-        shutil.rmtree(out, ignore_errors=True)
-        cmd = [sys.executable, "-m",
-               "rocalphago_tpu_torch.interface.selfplay_cli", "--policy",
-               policy, "--games", str(games), "--out", out, "--seed",
-               str(SEED)] + extra
-        t0 = time.perf_counter()
-        proc = child_run(cmd, cwd=root, capture_output=True, text=True,
-                              timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0,
-              f"selfplay_cli ({mode}) exited {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
-        check(summary["sgf_files"] == games,
-              f"selfplay_cli ({mode}) wrote {summary.get('sgf_files')} SGFs")
-        lengths = []
-        for g in range(games):
-            with open(os.path.join(out, f"selfplay-{g:05d}.sgf")) as f:
-                game = sgf.parse(f.read())
-            st = pygo.GameState(size=game.size, komi=game.komi)
-            for color, move in game.moves:
-                check(st.is_legal(move), f"selfplay_cli ({mode}) game {g}: "
-                      f"illegal {move}")
-                st.do_move(move, color)
-            lengths.append(len(game.moves))
-        check(float(np.mean(lengths)) == summary["mean_moves"],
-              f"selfplay_cli ({mode}): SGF lengths {lengths} against "
-              f"mean_moves {summary['mean_moves']}")
-        log(f"selfplay_cli {mode}: {summary} ({wall:.1f} s with start-up); "
-            f"every SGF parses and replays legally")
+    games, extra = {
+        "policy": (16, ["--chunk", "20"]),
+        "search": (4, ["--search-sims", "16", "--value", value,
+                       "--max-moves", "20", "--dirichlet-alpha", "0.03"]),
+        "gumbel": (4, ["--search-sims", "8", "--gumbel", "--m-root", "4",
+                       "--value", value, "--max-moves", "20"])}[mode]
+    out = os.path.join(root, "build", "smoke_selfplay", mode)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cmd = [sys.executable, "-m",
+           "rocalphago_tpu_torch.interface.selfplay_cli", "--policy",
+           policy, "--games", str(games), "--out", out, "--seed",
+           str(SEED)] + extra
+    return mode, games, out, bg_start(cmd, out + "_run")
+
+
+def selfplay_cli_check(pygo, mode: str, games: int, out: str, started):
+    """Wait for a :func:`selfplay_cli_start`ed run: every SGF parses
+    back with the port's reader and replays legally on the rules
+    oracle."""
+    from rocalphago_tpu_torch.data import sgf
+
+    rc, stdout, stderr, wall = bg_wait(started)
+    check(rc == 0, f"selfplay_cli ({mode}) exited {rc}: {stderr[-2000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    check(summary["sgf_files"] == games,
+          f"selfplay_cli ({mode}) wrote {summary.get('sgf_files')} SGFs")
+    lengths = []
+    for g in range(games):
+        with open(os.path.join(out, f"selfplay-{g:05d}.sgf")) as f:
+            game = sgf.parse(f.read())
+        st = pygo.GameState(size=game.size, komi=game.komi)
+        for color, move in game.moves:
+            check(st.is_legal(move), f"selfplay_cli ({mode}) game {g}: "
+                  f"illegal {move}")
+            st.do_move(move, color)
+        lengths.append(len(game.moves))
+    check(float(np.mean(lengths)) == summary["mean_moves"],
+          f"selfplay_cli ({mode}): SGF lengths {lengths} against "
+          f"mean_moves {summary['mean_moves']}")
+    log(f"selfplay_cli {mode}: {summary} ({wall:.1f} s with start-up, "
+        f"beside phase 13's other CLI runs); every SGF parses and replays "
+        f"legally")
+
+
+def phase_clis_9x9(pygo, card):
+    """The CLIs on the committed 9×9 nets, and GTP serving, all at once
+    (their checks are timing-free): self-play in policy, search and
+    Gumbel search mode, the tournament of ``gumbel-mcts`` against
+    ``device-mcts`` and its Elo table, the tournament of ``mcts`` with
+    device rollouts against ``greedy``, and GTP ``--serve`` and
+    ``--serve-sizes`` (:func:`serve_gtp_start`)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    gtp_work = os.path.join(root, "build", "smoke_gtp")
+    shutil.rmtree(gtp_work, ignore_errors=True)
+    os.makedirs(gtp_work)
+    runs = [selfplay_cli_start(mode)
+            for mode in ("policy", "search", "gumbel")]
+    tourneys = [gumbel_tournament_start(), mcts_tournament_start()]
+    gtps = serve_gtp_start(gtp_work)
+    try:
+        for run in runs:
+            selfplay_cli_check(pygo, *run)
+        gumbel_tournament(card, *tourneys[0])
+        mcts_tournament(card, *tourneys[1])
+        for run, started in gtps:
+            serve_gtp_check(card, *run, started)
+    finally:
+        bg_stop([run[3] for run in runs] + [t[1] for t in tourneys]
+                + [started for _, started in gtps])
 
 
 # ------------------------------------------------------ supervised path
@@ -2047,10 +2096,8 @@ def same_params(a: dict, b: dict) -> bool:
 
 def sl_convert(root: str, work: str, counters):
     """The converter CLI on the committed 19×19 games, the launches of
-    both kernels counted from zero; its first games converted again by
-    the CPU port, bit for bit."""
+    both kernels counted from zero."""
     from rocalphago_tpu_torch.data import convert, sgf
-    from rocalphago_tpu_torch.data.pipeline import ShardedDataset
 
     games = os.path.join(root, SL_GAMES)
     files = sorted(f for f in os.listdir(games) if f.endswith(".sgf"))
@@ -2087,22 +2134,44 @@ def sl_convert(root: str, work: str, counters):
         f"writes, {manifest['num_positions'] / wall:.1f} positions/s; "
         f"launches {launches}")
 
-    cpu = convert.GameConverter(device="cpu")
-    ds = ShardedDataset(corpus)
-    row = 0
-    t0 = time.perf_counter()
-    for f in files[:SL_CPU_GAMES]:
-        with open(os.path.join(games, f)) as fh:
-            states, actions = cpu.convert_game(fh.read())
-        got = ds.gather(np.arange(row, row + len(actions)))
-        check(np.array_equal(got[0], states) and np.array_equal(
-            got[1], actions), f"{f}: the card's planes differ from the CPU's")
-        row += len(actions)
-    log(f"convert: the first {SL_CPU_GAMES} games ({row} positions) "
-        f"converted on the CPU equal the card's bit for bit "
-        f"({time.perf_counter() - t0:.1f} s)")
     sl_kernels(games, files[0])
     return corpus, launches, manifest["num_positions"] / wall
+
+
+def cpu_convert_start(root: str, work: str):
+    """Start the converter CLI on the CPU (``--device cpu``) over the
+    first ``SL_CPU_GAMES`` committed games; ``(out corpus, the started
+    child)``."""
+    games = os.path.join(root, SL_GAMES)
+    files = sorted(f for f in os.listdir(games) if f.endswith(".sgf"))
+    first = os.path.join(work, "cpu_games")
+    os.makedirs(first)
+    for f in files[:SL_CPU_GAMES]:
+        shutil.copy(os.path.join(games, f), first)
+    corpus = os.path.join(work, "cpu_corpus")
+    return corpus, bg_start(
+        [sys.executable, "-m", "rocalphago_tpu_torch.data.convert",
+         "--directory", first, "--outfile", corpus, "--device", "cpu"],
+        corpus + "_run")
+
+
+def cpu_convert_check(corpus: str, cpu_corpus: str, started):
+    """Wait for the :func:`cpu_convert_start`ed CLI: the CPU port's
+    planes and actions of the first games equal the card's bit for
+    bit."""
+    from rocalphago_tpu_torch.data.pipeline import ShardedDataset
+
+    rc, _, stderr, wall = bg_wait(started)
+    check(rc == 0, f"convert --device cpu: rc {rc}\n{stderr[-2000:]}")
+    cpu = ShardedDataset(cpu_corpus)
+    rows = np.arange(len(cpu))
+    got, want = ShardedDataset(corpus).gather(rows), cpu.gather(rows)
+    check(len(rows) > 0 and np.array_equal(got[0], want[0])
+          and np.array_equal(got[1], want[1]),
+          "the card's planes or actions differ from the CPU's")
+    log(f"convert: the first {SL_CPU_GAMES} games ({len(rows)} positions) "
+        f"converted by the CLI on the CPU equal the card's bit for bit "
+        f"({wall:.1f} s with the process start, beside the SL resume runs)")
 
 
 def sl_kernels(games: str, first: str):
@@ -2448,9 +2517,15 @@ def phase_supervised(dev, card, counters):
     t0 = time.perf_counter()
     corpus, launches, rate = sl_convert(root, work, counters)
     spec, straight, meta = sl_train(dev, work, corpus)
-    sl_resume(work, spec, corpus, straight)
-    sl_evaluate(corpus, straight, meta)
-    sl_value(dev, work)
+    # the CPU conversion (timing-free) beside the untimed runs
+    cpu = cpu_convert_start(root, work)
+    try:
+        sl_resume(work, spec, corpus, straight)
+        sl_evaluate(corpus, straight, meta)
+        sl_value(dev, work)
+        cpu_convert_check(corpus, *cpu)
+    finally:
+        bg_stop([cpu[1]])
     timings = sl_timings(dev, card)
     log(f"supervised phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "positions_per_s": rate,
@@ -2970,10 +3045,10 @@ def gumbel_selfplay(torchgo, dev, card, counters, pol, val):
     return launches, rates[0]
 
 
-def gumbel_tournament(card):
-    """The tournament CLI as a user runs it: ``gumbel-mcts`` against
-    ``device-mcts`` on the committed 9×9 gumbel nets, its log in
-    ``build/``, then the Elo CLI over that log."""
+def gumbel_tournament_start():
+    """Start the tournament CLI as a user runs it: ``gumbel-mcts``
+    against ``device-mcts`` on the committed 9×9 gumbel nets, its log
+    in ``build/``; ``(log path, the started child)``."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, "build", "smoke_tournament")
     shutil.rmtree(out, ignore_errors=True)
@@ -2986,13 +3061,16 @@ def gumbel_tournament(card):
            str(TOURNEY_GAMES), "--board", "9", "--playouts",
            str(TOURNEY_PLAYOUTS), "--move-limit", str(TOURNEY_MOVES),
            "--log", log_path]
-    t0 = time.perf_counter()
-    proc = child_run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=CLI_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"tournament exited {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
-    tally = json.loads(proc.stdout.strip().splitlines()[-1])
+    return log_path, bg_start(cmd, os.path.join(out, "run"))
+
+
+def gumbel_tournament(card, log_path: str, started):
+    """Wait for the :func:`gumbel_tournament_start`ed tournament, then
+    run the Elo CLI over its log."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    rc, stdout, stderr, wall = bg_wait(started)
+    check(rc == 0, f"tournament exited {rc}: {stderr[-2000:]}")
+    tally = json.loads(stdout.strip().splitlines()[-1])
     with open(log_path) as f:
         games = [json.loads(line) for line in f]
     check(sum(tally["wins"].values()) == TOURNEY_GAMES
@@ -3015,8 +3093,8 @@ def gumbel_tournament(card):
         f"limit {TOURNEY_MOVES}: {tally['wins']}, gumbel win rate "
         f"{tally['win_rate_a']:.3f} (not a gate; not comparable with "
         f"results/gumbel_demo, another evaluator at 7x7), no forfeit, "
-        f"{wall:.1f} s with start-up; elo cli: A {table['A']['elo']}, "
-        f"B {table['B']['elo']}")
+        f"{wall:.1f} s with start-up, beside phase 13's other CLI runs; elo "
+        f"cli: A {table['A']['elo']}, B {table['B']['elo']}")
 
 
 def gumbel_vs_puct(torchgo, dev, card, puct_player, player, state):
@@ -3074,8 +3152,6 @@ def phase_gumbel(pygo, torchgo, dev, card, counters, phase8, specs, puct):
     gumbel_vs_puct(torchgo, dev, card, puct["player"], player, main["state"])
     sp_launches, sp_rate = gumbel_selfplay(torchgo, dev, card, counters,
                                            player.policy, player.value)
-    phase_selfplay_cli(pygo, gumbel=True)
-    gumbel_tournament(card)
     log(f"gumbel phase: {time.perf_counter() - t0:.1f} s")
     return dict(main=main, sp_launches=sp_launches, sp_rate=sp_rate)
 
@@ -3087,8 +3163,8 @@ def mcts_specs():
     """The nets of phase 17, written by the port's spec CLI (its
     ``main``) with fresh seeded weights: the 19×19 12 × 128 policy (48
     planes) and FCN value net (49), a 32-filter 19×19 rollout net, a
-    12 × 128 policy with two global-pooling blocks, and a 9×9 rollout
-    net for the tournament."""
+    12 × 128 policy with two global-pooling blocks (phase 13 writes the
+    tournament's 9×9 rollout net)."""
     from rocalphago_tpu_torch.models import specs
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3101,9 +3177,7 @@ def mcts_specs():
             ("value", ["value", "--seed", str(SEED + 31)]),
             ("rollout", ["rollout", "--seed", str(SEED + 32)]),
             ("pooled", ["policy", "--trunk-pool", "2", "--seed",
-                        str(SEED + 33)]),
-            ("rollout9", ["rollout", "--board", "9", "--seed",
-                          str(SEED + 34)])):
+                        str(SEED + 33)])):
         paths[name] = os.path.join(out, f"{name}.json")
         with contextlib.redirect_stdout(io.StringIO()):
             specs.main(argv + ["--out", paths[name]])
@@ -3375,25 +3449,36 @@ def mcts_card_vs_cpu(pygo, dev, pooled_spec):
         f"policy logits {lerr:.3g}")
 
 
-def mcts_tournament(card, paths):
-    """The tournament CLI with a rollout spec: ``mcts`` (device
-    rollouts) against ``greedy`` on the committed 9×9 gumbel nets."""
+def mcts_tournament_start():
+    """Start the tournament CLI with a rollout spec: ``mcts`` (device
+    rollouts, a seeded 9×9 rollout net written by the port's spec CLI)
+    against ``greedy`` on the committed 9×9 gumbel nets; ``(log path,
+    the started child)``."""
+    from rocalphago_tpu_torch.models import specs
+
     root = os.path.dirname(os.path.abspath(__file__))
-    log_path = os.path.join(root, MCTS_DIR, "games.jsonl")
+    out = os.path.join(root, "build", "smoke_tournament")
+    rollout9 = os.path.join(out, "rollout9.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        specs.main(["rollout", "--board", "9", "--seed", str(SEED + 34),
+                    "--out", rollout9])
+    log_path = os.path.join(out, "mcts_games.jsonl")
     pol = os.path.join(root, GUMBEL_DIR, "policy.json")
     val = os.path.join(root, GUMBEL_DIR, "value.json")
     cmd = [sys.executable, "-m", "rocalphago_tpu_torch.interface.tournament",
-           f"mcts:{pol}:{val}:{paths['rollout9']}", f"greedy:{pol}",
+           f"mcts:{pol}:{val}:{rollout9}", f"greedy:{pol}",
            "--games", str(MCTS_TOURNEY_GAMES), "--board", "9", "--playouts",
            str(TOURNEY_PLAYOUTS), "--move-limit", str(TOURNEY_MOVES),
            "--device-rollout", "--log", log_path]
-    t0 = time.perf_counter()
-    proc = child_run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=CLI_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"tournament exited {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
-    tally = json.loads(proc.stdout.strip().splitlines()[-1])
+    return log_path, bg_start(cmd, os.path.join(out, "mcts_run"))
+
+
+def mcts_tournament(card, log_path: str, started):
+    """Wait for the :func:`mcts_tournament_start`ed tournament: both
+    games played, no forfeit."""
+    rc, stdout, stderr, wall = bg_wait(started)
+    check(rc == 0, f"tournament exited {rc}: {stderr[-2000:]}")
+    tally = json.loads(stdout.strip().splitlines()[-1])
     with open(log_path) as f:
         games = [json.loads(line) for line in f]
     check(sum(tally["wins"].values()) == MCTS_TOURNEY_GAMES
@@ -3404,7 +3489,8 @@ def mcts_tournament(card, paths):
     log(f"tournament cli [{card}]: mcts (A, device rollouts, seeded 9x9 "
         f"rollout spec) vs greedy (B), committed 9x9 gumbel nets, "
         f"{TOURNEY_PLAYOUTS} playouts, move limit {TOURNEY_MOVES}: "
-        f"{tally['wins']}, no forfeit, {wall:.1f} s with start-up")
+        f"{tally['wins']}, no forfeit, {wall:.1f} s with start-up, beside "
+        f"phase 13's other CLI runs")
 
 
 def phase_mcts(pygo, torchgo, dev, card, counters):
@@ -3445,7 +3531,6 @@ def phase_mcts(pygo, torchgo, dev, card, counters):
     log(f"value player [{card}]: top-{VALUE_TOP_K} policy pre-filter, one "
         f"batched value call, legal, "
         f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
-    mcts_tournament(card, paths)
     log(f"mcts phase: {time.perf_counter() - t0:.1f} s")
     return main
 
@@ -3558,36 +3643,74 @@ def same_tree(a, b) -> bool:
 
 
 def zero_cli(work: str, paths, card: str):
-    """The zero CLI three ways: straight, killed after its next-to-last
-    iteration and resumed with the same command, and with one lockstep
-    actor; the last two end on the straight run's checkpoint, exports,
-    pool and metric rows bit for bit."""
+    """The zero CLI four ways: straight, with one lockstep actor, and
+    a ``--profile-dir`` capture of a cut run, each a child process, with
+    the ``--host-reads`` count beside them (all timing-free); meanwhile
+    in this process the run killed after its next-to-last iteration
+    and resumed with the same command, its first play's record kept for
+    phase 23. The killed and the actor runs end on the straight run's
+    checkpoint, exports, pool and metric rows bit for bit. Returns the
+    walls, the host-reads count and the record's path."""
     from rocalphago_tpu_torch.io.checkpoint import TrainCheckpointer
-    from rocalphago_tpu_torch.obs import registry
     from rocalphago_tpu_torch.training import zero
 
-    walls = {}
-    sims_before = registry.snapshot()["counters"].get(
-        "device_mcts_sims_total", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    prof_dir = os.path.join(work, "profile")
+    outs = {name: os.path.join(work, name) for name in (
+        "straight", "actor_learner", "profiled", "killed")}
+    cmds = {
+        "straight": zero_argv(paths, outs["straight"]),
+        "actor_learner": zero_argv(paths, outs["actor_learner"],
+                                   ZERO_ITERATIONS, "--actor-learner",
+                                   "--actors", "1"),
+        "profiled": zero_argv(paths, outs["profiled"], 1,
+                              *ZERO_PROFILE_ARGS, "--profile-dir", prof_dir)}
+    record = os.path.join(work, "play0.pt")
+    started, ran, walls = {}, {}, {}
+    try:
+        for name, argv in cmds.items():
+            started[name] = bg_start(
+                [sys.executable, "-m", "rocalphago_tpu_torch.training.zero",
+                 *argv], outs[name] + "_run")
+        started["host_reads"] = bg_start(
+            [sys.executable, os.path.abspath(__file__), "--host-reads",
+             root], os.path.join(work, "host_reads_run"))
+        last = ZERO_ITERATIONS - 1
+        real = TrainCheckpointer.save
 
-    def run(name, iterations=ZERO_ITERATIONS, *extra):
-        out = os.path.join(work, name)
+        def killing_save(self, step, state):
+            real(self, step, state)
+            if step == last:
+                raise KeyboardInterrupt(f"killed after iteration {last}")
+
         t0 = time.perf_counter()
+        undo = record_first_play(record)
+        TrainCheckpointer.save = killing_save
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                zero.run_training(zero_argv(paths, outs["killed"]))
+            raise SmokeFailure("the zero run was not killed")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            TrainCheckpointer.save = real
+            undo()
+        check(torch.backends.cudnn.deterministic
+              and not torch.backends.cudnn.benchmark,
+              "the zero trainer left cuDNN non-deterministic")
         with contextlib.redirect_stdout(io.StringIO()):
-            final = zero.run_training(zero_argv(paths, out, iterations,
-                                                *extra))
-        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
-        return out, final
-
-    straight, final = run("straight")
-    check(torch.backends.cudnn.deterministic
-          and not torch.backends.cudnn.benchmark,
-          "the zero trainer left cuDNN non-deterministic")
-    last = ZERO_ITERATIONS - 1
+            zero.run_training(zero_argv(paths, outs["killed"]))
+        walls["killed"] = time.perf_counter() - t0
+        for name, run in started.items():
+            rc, stdout, stderr, walls[name] = ran[name] = bg_wait(run)
+            check(rc == 0, f"zero {name}: rc {rc}\n{stderr[-3000:]}")
+    finally:
+        bg_stop(started.values())
+    final = json.loads(ran["straight"][1].strip().splitlines()[-1])
     check(final["iteration"] == last and all(
         np.isfinite(final[k]) for k in zero.METRICS),
         f"zero final row {final}")
-    want = zero_artifacts(straight)
+    want = zero_artifacts(outs["straight"])
     for name in ("policy.json", "value.json",
                  f"policy.{ZERO_ITERATIONS:05d}.flax.msgpack",
                  f"value.{ZERO_ITERATIONS:05d}.flax.msgpack",
@@ -3600,7 +3723,7 @@ def zero_cli(work: str, paths, card: str):
     check(len(gates) == n_gates,
           f"zero: {len(gates)} gate matches, not {n_gates}")
     # the reference's instrumentation in the run's metrics.jsonl
-    events = run_events(straight)
+    events = run_events(outs["straight"])
     spans = check_span_paths(events, ZERO_SPAN_PATHS, "zero straight run")
     check(len(spans["zero.iteration"]) == ZERO_ITERATIONS
           and all(r["plies"] == ZERO_MOVES
@@ -3609,41 +3732,22 @@ def zero_cli(work: str, paths, card: str):
           "off")
     snap = last_registry(events, "zero straight run")
     occupancy = snap["gauges"].get('device_occupancy{runner="zero.replay"}')
-    check(snap["counters"].get("device_mcts_sims_total", 0) > sims_before
+    check(snap["counters"].get("device_mcts_sims_total", 0) > 0
           and occupancy is not None and 0.0 < occupancy <= 1.0,
           "zero straight run: the registry record lacks the search's "
           "simulations or the replay's occupancy")
-
-    real = TrainCheckpointer.save
-
-    def killing_save(self, step, state):
-        real(self, step, state)
-        if step == last:
-            raise KeyboardInterrupt(f"killed after iteration {last}")
-
-    TrainCheckpointer.save = killing_save
-    try:
-        run("killed")
-        raise SmokeFailure("the zero run was not killed")
-    except KeyboardInterrupt:
-        pass
-    finally:
-        TrainCheckpointer.save = real
-    killed, _ = run("killed")
-    got = zero_artifacts(killed)
+    got = zero_artifacts(outs["killed"])
     check(same_tree(got[0], want[0]) and got[1] == want[1]
           and got[2] == want[2],
           f"zero killed after iteration {last} and resumed: the "
           "checkpoint, exports, pool or metric rows differ from the "
           "straight run's")
-    al, _ = run("actor_learner", ZERO_ITERATIONS, "--actor-learner",
-                "--actors", "1")
-    got = zero_artifacts(al)
+    got = zero_artifacts(outs["actor_learner"])
     check(same_tree(got[0], want[0]) and got[1] == want[1]
           and got[2] == want[2],
           "zero --actor-learner --actors 1: the checkpoint, exports, pool "
           "or metric rows differ from the synchronous run's")
-    events = run_events(al)
+    events = run_events(outs["actor_learner"])
     check_span_paths(events, ("zero.iteration/learner.step",
                               "zero.iteration/learner.step/zero.replay",
                               "actor.play", "actor.play/zero.selfplay"),
@@ -3661,19 +3765,17 @@ def zero_cli(work: str, paths, card: str):
           f"{[k for k in split if k not in flat]}")
 
     # --profile-dir: a torch.profiler capture of a cut run
-    prof_dir = os.path.join(work, "profile")
-    prof_run, _ = run("profiled", 1, *ZERO_PROFILE_ARGS, "--profile-dir",
-                      prof_dir)
     trace_path = os.path.join(prof_dir, zero.PROFILE_TRACE)
     traced = trace_kernel_counts(trace_path)
-    events = run_events(prof_run)
+    events = run_events(outs["profiled"])
     check([e["action"] for e in events if e["event"] == "profiler"]
           == ["start", "stop"], "zero --profile-dir: no profiler events")
     check(all(traced.values()), f"zero --profile-dir: the trace misses a "
           f"kernel: {traced}")
+    hr = json.loads(ran["host_reads"][1].strip().splitlines()[-1])
     log(f"zero --profile-dir [{card}]: 1 iteration "
         f"({' '.join(ZERO_PROFILE_ARGS)}) in {walls['profiled']:.1f} s "
-        "with the capture and its export; "
+        "with the process start, the capture and its export; "
         f"{os.path.getsize(trace_path) / 2**20:.1f} MiB Chrome trace, kernel "
         f"records: chase {traced['chase']}, labels {traced['labels']}, tree "
         f"{traced['tree']}")
@@ -3681,16 +3783,17 @@ def zero_cli(work: str, paths, card: str):
         f"{ZERO_BATCH}, "
         f"{ZERO_SIMS} simulations, move limit {ZERO_MOVES}, Dir("
         f"{ZERO_ALPHA}), gate every 2 ({ZERO_GATE_GAMES} games), 19x19 "
-        f"12x128 bf16: straight {walls['straight']:.1f} s (last row: policy "
-        f"loss {final['policy_loss']:.3f}, {final['games_per_min']:.2f} "
-        f"games/min; gates "
+        f"12x128 bf16, the four runs and the host-reads count at once: "
+        f"straight {walls['straight']:.1f} s with the process start (last "
+        f"row: policy loss {final['policy_loss']:.3f}, "
+        f"{final['games_per_min']:.2f} games/min; gates "
         + ", ".join(f"{g['wins_a']}-{g['wins_b']}-{g['draws']} "
                     f"promoted={g['promoted']}" for g in gates)
-        + f"); killed after iteration {last} and resumed "
+        + f"); killed after iteration {last} and resumed in process "
         f"({walls['killed']:.1f} "
         f"s) and --actor-learner --actors 1 ({walls['actor_learner']:.1f} "
         "s): checkpoint, exports, pool and rows bit-identical")
-    return walls
+    return walls, hr, record
 
 
 def zero_timed(torchgo, dev, card, counters, paths):
@@ -3948,21 +4051,15 @@ def instrumentation_cost(work: str) -> tuple:
     return per_span, per_write
 
 
-def zero_instrumentation(card, paths, timed, straight):
+def zero_instrumentation(card, paths, timed, straight, hr):
     """The instrumentation's gate: one iteration's host reads, counted
-    as the parent commit's were (``--host-reads``, a fresh process),
-    equal to the parent's; and its spans and registry writes, at their
-    cost on this host, under ``OVERHEAD_LIMIT`` of the timed
-    iteration's wall. (Counted inside this process, after phase 18's
-    other runs, the same iteration once read one time fewer; the cause
-    was not traced, so both counts come from fresh processes.)"""
-    root = os.path.dirname(os.path.abspath(__file__))
-    proc = child_run(
-        [sys.executable, os.path.abspath(__file__), "--host-reads", root],
-        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-    check(proc.returncode == 0, f"--host-reads: rc {proc.returncode}\n"
-          f"{proc.stderr[-2000:]}")
-    hr = json.loads(proc.stdout.strip().splitlines()[-1])
+    as the parent commit's were (``--host-reads``, a fresh process,
+    ``hr``, run beside phase 18's CLI runs), equal to the parent's; and
+    its spans and registry writes, at their cost on this host, under
+    ``OVERHEAD_LIMIT`` of the timed iteration's wall. (Counted inside
+    this process, after phase 18's other runs, the same iteration once
+    read one time fewer; the cause was not traced, so both counts come
+    from fresh processes.)"""
     check(hr["spans"] >= 3 and hr["writes"] > 0,
           f"the zero iteration emitted {hr['spans']} spans and "
           f"{hr['writes']} registry writes")
@@ -3985,7 +4082,7 @@ def zero_instrumentation(card, paths, timed, straight):
         f"{per_write * 1e6:.2f} us a write: {cost * 1e3:.3f} ms, "
         f"{share:.5%} of the timed iteration's {timed['wall']:.2f} s "
         f"(limit {OVERHEAD_LIMIT:.0%}); the counted iteration "
-        f"{hr['wall']:.2f} s under the sync warnings")
+        f"{hr['wall']:.2f} s under the sync warnings, beside the CLI runs")
     return dict(hr, per_span=per_span, per_write=per_write, share=share)
 
 
@@ -4125,18 +4222,20 @@ def phase_zero(torchgo, dev, card, counters):
     os.makedirs(work)
     t0 = time.perf_counter()
     paths = zero_specs(work)
-    walls = zero_cli(work, paths, card)
+    walls, hr, record = zero_cli(work, paths, card)
     t1 = time.perf_counter()
     out = zero_timed(torchgo, dev, card, counters, paths)
     out["instrumentation"] = zero_instrumentation(
-        card, paths, out, os.path.join(work, "straight"))
+        card, paths, out, os.path.join(work, "straight"), hr)
     t2 = time.perf_counter()
     zero_card_vs_cpu(dev, paths, out["games"])
     zero_pool(dev, work, card)
     out["phase_s"] = time.perf_counter() - t0
     out["cli_walls"] = walls
     out["paths"] = paths
-    log(f"zero phase: {out['phase_s']:.1f} s (specs and the four CLI runs "
+    out["record"] = record
+    log(f"zero phase: {out['phase_s']:.1f} s (specs, the four CLI runs and "
+        f"the host-reads count "
         f"{t1 - t0:.1f} s, the timed iteration and its checks "
         f"{t2 - t1:.1f} s, card vs CPU and the pool "
         f"{time.perf_counter() - t2:.1f} s)")
@@ -4621,13 +4720,15 @@ def join_abandoned() -> None:
             t.join(timeout=300)
 
 
-def serve_gtp(card, paths) -> dict:
-    """The GTP entry as a user runs it, two subprocesses over stdin
-    scripts: ``--serve`` on the committed 9×9 gumbel nets (genmove,
-    komi, both probes), and ``--serve-sizes 9,13,19`` on the fresh 19×19
-    12 × 128 FCN specs, re-routed by ``boardsize 13``. Every genmove of
-    both is served by the search rung."""
+def serve_gtp_start(work: str) -> list:
+    """Start the GTP entry as a user runs it, two subprocesses over
+    stdin scripts: ``--serve`` on the committed 9×9 gumbel nets
+    (genmove, komi, both probes), and ``--serve-sizes 9,13,19`` on fresh
+    19×19 12 × 128 FCN specs (:func:`serve_specs`, written to ``work``),
+    re-routed by ``boardsize 13``; ``[(run, the started child)]`` for
+    :func:`serve_gtp_check`."""
     root = os.path.dirname(os.path.abspath(__file__))
+    paths = serve_specs(work)
     runs = (
         ("serve", ["--serve", "--policy",
                    os.path.join(root, GUMBEL_DIR, "policy.json"), "--value",
@@ -4638,57 +4739,62 @@ def serve_gtp(card, paths) -> dict:
                          paths["policy19"], "--value", paths["value19"]],
          ["boardsize 13", "komi 6.5", "genmove b", "genmove w",
           "rocalphago-health", "rocalphago-stats", "quit"], 13))
-    out = {}
+    out = []
     for name, argv, script, size in runs:
-        metrics = os.path.join(root, SERVE_DIR, f"{name}.jsonl")
-        t0 = time.perf_counter()
-        proc = child_run(
+        out.append(((work, name, script, size), bg_start(
             [sys.executable, "-m", "rocalphago_tpu_torch.interface.gtp",
-             *argv, "--metrics", metrics], cwd=root,
-            input="\n".join(script) + "\n", capture_output=True,
-            text=True, timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, f"gtp {name} exited {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
-        replies = [r for r in proc.stdout.split("\n\n") if r.strip()]
-        check(len(replies) == len(script) and all(
-            r.startswith("=") for r in replies),
-              f"gtp {name}: {replies}")
-        for cmd, reply in zip(script, replies):
-            if cmd.startswith("genmove"):
-                from rocalphago_tpu_torch.interface.gtp import vertex_to_move
-
-                check(vertex_to_move(reply[1:].strip(), size) is not None,
-                      f"gtp {name}: {cmd} -> {reply!r}")
-        health = json.loads(replies[script.index("rocalphago-health")][2:])
-        stats = json.loads(replies[script.index("rocalphago-stats")][2:])
-        check(health["status"] == "ok" and health["genmoves"] == 2
-              and stats["game"]["size"] == size
-              and stats["game"]["komi"] == 6.5,
-              f"gtp {name}: health {health}, game {stats['game']}")
-        check(stats["ladder"]["degraded_total"] == 0
-              and not stats["ladder"]["rung_failures"]["search"],
-              f"gtp {name}: a genmove degraded: {stats['ladder']}")
-        serve = health["serve"]
-        if name == "serve-sizes":
-            check(serve["multisize"] and set(serve["boards"]) ==
-                  {"9", "13", "19"} and serve["boards"]["13"]["sessions"][
-                      "live"] == 1 and serve["boards"]["9"]["sessions"][
-                          "live"] == 0,
-                  f"gtp {name}: the session was not re-routed: {serve}")
-        else:
-            check(serve["evaluator"]["komi_batches"] >= 1,
-                  f"gtp {name}: komi did not reach the session: {serve}")
-        with open(metrics) as f:
-            last = json.loads(f.read().strip().splitlines()[-1])
-        check(last["event"] == "registry",
-              f"gtp {name}: the metrics file ends with {last['event']}")
-        out[name] = wall
-        log(f"gtp {name} [{card}]: exit 0 in {wall:.1f} s with start-up; "
-            f"replies {[r[:12] for r in replies if not r.startswith('= {')]}"
-            f"; health status {health['status']}, latency "
-            f"{health['latency_s']}")
+             *argv, "--metrics", os.path.join(work, f"{name}.jsonl")],
+            os.path.join(work, f"{name}_run"),
+            stdin="\n".join(script) + "\n")))
     return out
+
+
+def serve_gtp_check(card, work, name, script, size, started) -> float:
+    """Wait for one of :func:`serve_gtp_start`'s GTP runs and check its
+    replies, probes and metrics file (every genmove served by the
+    search rung); its wall."""
+    metrics = os.path.join(work, f"{name}.jsonl")
+    rc, stdout, stderr, wall = bg_wait(started)
+    check(rc == 0, f"gtp {name} exited {rc}: {stderr[-2000:]}")
+    replies = [r for r in stdout.split("\n\n") if r.strip()]
+    check(len(replies) == len(script) and all(
+        r.startswith("=") for r in replies),
+          f"gtp {name}: {replies}")
+    for cmd, reply in zip(script, replies):
+        if cmd.startswith("genmove"):
+            from rocalphago_tpu_torch.interface.gtp import vertex_to_move
+
+            check(vertex_to_move(reply[1:].strip(), size) is not None,
+                  f"gtp {name}: {cmd} -> {reply!r}")
+    health = json.loads(replies[script.index("rocalphago-health")][2:])
+    stats = json.loads(replies[script.index("rocalphago-stats")][2:])
+    check(health["status"] == "ok" and health["genmoves"] == 2
+          and stats["game"]["size"] == size
+          and stats["game"]["komi"] == 6.5,
+          f"gtp {name}: health {health}, game {stats['game']}")
+    check(stats["ladder"]["degraded_total"] == 0
+          and not stats["ladder"]["rung_failures"]["search"],
+          f"gtp {name}: a genmove degraded: {stats['ladder']}")
+    serve = health["serve"]
+    if name == "serve-sizes":
+        check(serve["multisize"] and set(serve["boards"]) ==
+              {"9", "13", "19"} and serve["boards"]["13"]["sessions"][
+                  "live"] == 1 and serve["boards"]["9"]["sessions"][
+                      "live"] == 0,
+              f"gtp {name}: the session was not re-routed: {serve}")
+    else:
+        check(serve["evaluator"]["komi_batches"] >= 1,
+              f"gtp {name}: komi did not reach the session: {serve}")
+    with open(metrics) as f:
+        last = json.loads(f.read().strip().splitlines()[-1])
+    check(last["event"] == "registry",
+          f"gtp {name}: the metrics file ends with {last['event']}")
+    log(f"gtp {name} [{card}]: exit 0 in {wall:.1f} s with start-up, "
+        f"beside phase 13's other CLI runs; replies "
+        f"{[r[:12] for r in replies if not r.startswith('= {')]}"
+        f"; health status {health['status']}, latency "
+        f"{health['latency_s']}")
+    return wall
 
 
 def phase_serve(pygo, torchgo, dev, card, counters) -> dict:
@@ -4725,7 +4831,6 @@ def phase_serve(pygo, torchgo, dev, card, counters) -> dict:
     finally:
         join_abandoned()
         pool.close()
-    out["gtp"] = serve_gtp(card, paths)
     out["paths"] = paths
     out["launches"] = {
         k: sum(out["fleet"][n]["launches"][k] for n in SERVE_FLEETS)
@@ -5900,6 +6005,18 @@ def fleet_router(pygo, pool, counters, card, gw21) -> dict:
               f"router after the load: {rst}")
         lat = sorted(load["latencies_s"])
         p50, p99 = percentile(lat, 0.5), percentile(lat, 0.99)
+        # the control: the same load through a router over ``b`` alone,
+        # one pool as phase 21's, so its p50 less phase 21's is the
+        # router's hop and the main path's less it the replica split
+        for srv in (a, b):
+            gateway_settle(srv)
+        with RolloutRouter([Replica("127.0.0.1", b.port, gateway=b,
+                                    name="b")], max_conns=8).start() as one:
+            ctl = gw.run_load("127.0.0.1", one.port, conns=GATEWAY_CONNS,
+                              moves=ROUTER_GENMOVES, board=SIZE, timeout=600)
+        check(ctl["moves"] == genmoves and ctl["errors"] == ctl["sheds"]
+              == ctl["disconnects"] == 0, f"one-replica routed load: {ctl}")
+        p50_one = percentile(sorted(ctl["latencies_s"]), 0.5)
         # a fleet-wide swap: one version number on both replicas
         target = max(small.params_version, pool.params_version) + 1
         pair = [n.module.state_dict() for n in (pool.policy, pool.value)]
@@ -5947,7 +6064,10 @@ def fleet_router(pygo, pool, counters, card, gw21) -> dict:
             f"replicas in {load['elapsed_s']:.2f} s: routed shares {shares}, "
             f"spillovers {rst['spillovers']}; genmove p50 {p50:.3f} s, p99 "
             f"{p99:.3f} s beside phase 21's wire p50 {wire['p50']:.3f} s "
-            f"(the router's tax {p50 - wire['p50']:+.3f} s at p50); every "
+            f"(the router's tax {p50 - wire['p50']:+.3f} s at p50); the same "
+            f"load through a router over b alone: p50 {p50_one:.3f} s (the "
+            f"hop {p50_one - wire['p50']:+.3f} s, the replica split "
+            f"{p50 - p50_one:+.3f} s); every "
             f"move legal; launches {launches} ({per_genmove} a genmove, "
             f"{batches} evaluator batches); a fleet-wide swap to version "
             f"{target} converged in {conv_s:.3f} s; a game failed over "
@@ -5955,7 +6075,7 @@ def fleet_router(pygo, pool, counters, card, gw21) -> dict:
             f"the load's {rst['failovers']}), its next genmove legal; "
             f"replicas' "
             "requests.unhandled 0, no routed conversation answered an error")
-        return dict(p50=p50, p99=p99, launches=launches,
+        return dict(p50=p50, p99=p99, p50_one=p50_one, launches=launches,
                     per_genmove=per_genmove, conv_s=conv_s,
                     spillovers=rst["spillovers"], elapsed=load["elapsed_s"])
     finally:
@@ -6285,36 +6405,39 @@ def phase_fleet(pygo, torchgo, card, counters, serve, zero, gw21) -> dict:
 # ---------------------------------------------------- data parallelism
 
 
-def torchrun_start(args: list, log_path: str):
-    """Start ``python -m torch.distributed.run --standalone
-    --nproc-per-node PAR_RANKS ARGS``, its output into ``log_path``.out
-    and .err (runs at once fill no pipe); ``(process, log path, start
-    time)``. The launcher gets a SIGTERM when this script ends however
-    it ends, and stops its workers (which run in sessions of their
-    own)."""
+def bg_start(cmd: list, log_path: str, stdin: str | None = None,
+             term: bool = False):
+    """Start ``cmd`` from the repository's root, its output into
+    ``log_path``.out and .err (children run at once fill no pipe), and
+    ``stdin``, if given, from ``log_path``.in; ``(process, log path,
+    start time)``. The child gets a SIGKILL when this script ends
+    however it ends (a SIGTERM with ``term``: a launcher then stops its
+    workers, which run in sessions of their own)."""
     parent = os.getpid()
+    sig = signal.SIGTERM if term else signal.SIGKILL
 
     def pre():
-        _PRCTL(_PR_SET_PDEATHSIG, signal.SIGTERM)
+        _PRCTL(_PR_SET_PDEATHSIG, sig)
         if os.getppid() != parent:
             os._exit(1)
 
+    if stdin is not None:
+        with open(log_path + ".in", "w") as f:
+            f.write(stdin)
     with open(log_path + ".out", "w") as out, \
-            open(log_path + ".err", "w") as err:
-        p = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             f"--nproc-per-node={PAR_RANKS}", *args],
-            stdout=out, stderr=err, preexec_fn=pre)
+            open(log_path + ".err", "w") as err, \
+            open(log_path + ".in" if stdin is not None else os.devnull) as i:
+        p = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), stdin=i, stdout=out, stderr=err, preexec_fn=pre)
     return p, log_path, time.perf_counter()
 
 
-def torchrun_wait(started, timeout: float = PAR_TIMEOUT_S):
-    """``(rc, stdout, stderr, seconds)`` of a :func:`torchrun_start`ed
-    run; at the time limit, or on an error here, the launcher gets a
-    SIGTERM."""
+def bg_wait(started, timeout: float = CLI_TIMEOUT_S):
+    """``(rc, stdout, stderr, seconds)`` of a :func:`bg_start`ed child;
+    at the time limit, or on an error here, it gets a SIGTERM."""
     p, log_path, t0 = started
     try:
-        p.wait(timeout=timeout)
+        p.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
     except BaseException:
         p.terminate()
         p.wait(timeout=120)
@@ -6325,8 +6448,25 @@ def torchrun_wait(started, timeout: float = PAR_TIMEOUT_S):
             with open(log_path + ext) as f:
                 texts.append(f.read())
     if p.returncode is None:
-        raise SmokeFailure(f"torchrun {log_path} did not end")
+        raise SmokeFailure(f"{log_path}: the child did not end")
     return p.returncode, texts[0], texts[1], time.perf_counter() - t0
+
+
+def bg_stop(started) -> None:
+    """Stop whatever of ``started`` (:func:`bg_start` tuples) still
+    runs."""
+    for p, _, _ in started:
+        if p.poll() is None:
+            p.terminate()
+            p.wait(timeout=120)
+
+
+def torchrun_start(args: list, log_path: str):
+    """:func:`bg_start` of ``python -m torch.distributed.run --standalone
+    --nproc-per-node PAR_RANKS ARGS``."""
+    return bg_start([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", f"--nproc-per-node={PAR_RANKS}", *args],
+                    log_path, term=True)
 
 
 def rank_backends(err: str) -> dict:
@@ -6428,7 +6568,7 @@ def par_sl(work: str, spec: str, corpus: str, ran) -> dict:
     whole-minibatch run the updates are within ``PAR_UPDATE_L2`` (bf16:
     cuDNN computes 16 rows and 32 with other algorithms) and the train
     loss within ``PAR_LOSS_RTOL``; the artifacts are rank 0's alone.
-    ``ran`` is the two-rank run's :func:`torchrun_wait`."""
+    ``ran`` is the two-rank run's :func:`bg_wait`."""
     from rocalphago_tpu_torch.models import NeuralNetBase
     from rocalphago_tpu_torch.training import sl
 
@@ -6485,13 +6625,56 @@ def par_sl(work: str, spec: str, corpus: str, ran) -> dict:
             "loss": (loss2, loss1), "walls": (wall_two, wall_one)}
 
 
-def par_zero_cli(work: str, paths, straight: str, ran) -> dict:
+def record_first_play(path: str):
+    """Hook ``ZeroIteration.play``, as phase 18 hooks the checkpointer:
+    the first play's record (actions, live rows, visits, winners),
+    gathered over the ranks, goes to ``path`` from rank 0. Returns the
+    undo."""
+    from rocalphago_tpu_torch.training import zero
+
+    real = zero.ZeroIteration.play
+    done = []
+
+    def play(self, *a, **kw):
+        games = real(self, *a, **kw)
+        if not done:
+            done.append(path)
+            rec = {}
+            for k, axis in (("actions", 1), ("live", 1), ("visits", 1),
+                            ("winners", 0)):
+                x = getattr(games, k)
+                rec[k] = (x if self.mesh is None
+                          else self.mesh.gather(x, axis)).cpu()
+            if self.mesh is None or self.mesh.rank == 0:
+                torch.save(rec, path)
+        return games
+
+    zero.ZeroIteration.play = play
+    return lambda: setattr(zero.ZeroIteration, "play", real)
+
+
+def zero_ranks_main(record: str, argv: list) -> int:
+    """``--zero-ranks RECORD ARGV...``: one rank of phase 23's zero run
+    under ``torch.distributed.run``, the zero CLI's entry
+    (``zero.run_training``) on ARGV with its first play's record
+    written to RECORD (:func:`record_first_play`)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rocalphago_tpu_torch.training import zero
+
+    record_first_play(record)
+    zero.run_training(argv)
+    return 0
+
+
+def par_zero_cli(work: str, paths, straight: str, record: str,
+                 ran) -> dict:
     """(b) The zero CLI at ``--num-devices 2`` over two ranks
     (``zero_argv(paths, work/zero_two, 1, "--num-devices", "2")``, its
-    :func:`torchrun_wait` ``ran``): one iteration against the one-rank
-    run's first (phase 18's straight run, the same command but the
-    width): the game statistics equal, the updates within
-    ``PAR_UPDATE_L2``, every rank launching the three kernels."""
+    :func:`bg_wait` ``ran``) against phase 18's one-rank run of the same
+    command but the width: the first play's record (``record``, from
+    phase 18's killed run, whose first iteration is the straight run's)
+    bit for bit, the game statistics equal, the updates within
+    ``PAR_ZERO_L2``, every rank launching the three kernels."""
     from rocalphago_tpu_torch.models import NeuralNetBase
 
     two = os.path.join(work, "zero_two")
@@ -6503,27 +6686,37 @@ def par_zero_cli(work: str, paths, straight: str, ran) -> dict:
     check(sorted(launches) == list(range(PAR_RANKS)) and all(
         n > 0 for per in launches.values() for n in per.values()),
         f"zero ranks' launches {launches}")
-    got = zero_artifacts(two, 1)
-    want = zero_artifacts(straight, 1)
+    got = torch.load(os.path.join(work, "zero_two_play.pt"),
+                     weights_only=True)
+    want = torch.load(record, weights_only=True)
+    for k in ("actions", "winners", "live", "visits"):
+        check(torch.equal(got[k], want[k]), f"zero play over two ranks: "
+              f"{k} differ from one rank's")
+    art = zero_artifacts(two, 1)
+    one = zero_artifacts(straight, 1)
     rows = [[r for r in x[1] if r["event"] == "iteration"][0]
-            for x in (got, want)]
+            for x in (art, one)]
     for k in ("black_win_rate", "draw_rate", "mean_moves", "finished_rate"):
         check(rows[0][k] == rows[1][k], f"zero: {k} {rows[0][k]} over two "
               f"ranks, {rows[1][k]} over one")
     l2 = {}
     for name, path in zip(("policy", "value"), paths):
-        l2[name] = update_l2(got[0][name], want[0][name], host_state(
+        l2[name] = update_l2(art[0][name], one[0][name], host_state(
             NeuralNetBase.load_model(path, device="cpu").module))
-        check(l2[name] <= PAR_UPDATE_L2, f"zero {name}: update {l2[name]:.3e}"
-              f" from one rank's (limit {PAR_UPDATE_L2})")
+        check(l2[name] <= PAR_ZERO_L2, f"zero {name}: update {l2[name]:.3e}"
+              f" from one rank's (limit {PAR_ZERO_L2})")
     check(len(run_events(two)) and os.path.exists(
         os.path.join(two, "policy.json")), "zero two ranks: no artifacts")
     log(f"parallel zero CLI: one iteration at game batch {ZERO_BATCH} "
         f"({ZERO_BATCH // PAR_RANKS} a rank), {ZERO_SIMS} simulations, move "
-        f"limit {ZERO_MOVES}: game statistics equal to one rank's "
-        f"(mean moves {rows[0]['mean_moves']}); update relative L2 policy "
+        f"limit {ZERO_MOVES}: the first play's actions, live rows, visits "
+        f"and winners bit for bit phase 18's one-rank run's, the game "
+        f"statistics equal (mean moves {rows[0]['mean_moves']}, finished "
+        f"{rows[0]['finished_rate']}); update relative L2 policy "
         f"{l2['policy']:.3e}, value {l2['value']:.3e} (limit "
-        f"{PAR_UPDATE_L2}); launches per rank " + ", ".join(
+        f"{PAR_ZERO_L2}" + ("; no game ended, so the value net moved in "
+                            "neither run" if not rows[1]["finished_rate"]
+                            else "") + "); launches per rank " + ", ".join(
             f"rank {r} {per}" for r, per in sorted(launches.items()))
         + f"; {wall:.1f} s")
     return {"launches": launches, "update_l2": l2, "wall": wall}
@@ -6539,7 +6732,7 @@ def par_sp_argv(spec: str, out: str) -> list:
 
 def par_selfplay(work: str, spec: str, counters, ran) -> dict:
     """(c) The self-play CLI with ``--shard`` over two ranks (its
-    :func:`torchrun_wait` ``ran``) against one rank: every SGF byte for
+    :func:`bg_wait` ``ran``) against one rank: every SGF byte for
     byte (moves, results), the same summary counts."""
     from rocalphago_tpu_torch.interface import selfplay_cli
 
@@ -6570,35 +6763,6 @@ def par_selfplay(work: str, spec: str, counters, ran) -> dict:
         f"{summary['mean_moves']}; {wall:.1f} s over two ranks; one-rank "
         f"launches {launches}")
     return {"launches": launches, "wall": wall}
-
-
-def zero_play(dev, paths, mesh=None) -> tuple:
-    """The zero CLI's first iteration's play (its nets, command line and
-    game seed) on ``mesh``'s rows: the gathered record's actions,
-    live rows, visits and winners on the host, and the seconds."""
-    from rocalphago_tpu_torch.engine.torchgo import default_komi
-    from rocalphago_tpu_torch.models import NeuralNetBase
-    from rocalphago_tpu_torch.training import zero
-
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    pol, val = (NeuralNetBase.load_model(p, device=dev) for p in paths)
-    cfg = dataclasses.replace(pol.cfg, komi=default_komi(pol.board))
-    it = zero.ZeroIteration(cfg, pol.feature_list, val.feature_list,
-                            batch=ZERO_BATCH, move_limit=ZERO_MOVES,
-                            n_sim=ZERO_SIMS, dirichlet_alpha=ZERO_ALPHA,
-                            device=dev, mesh=mesh)
-    seed = zero.next_keys(torch.Generator().manual_seed(SEED).get_state())[1]
-    t0 = time.perf_counter()
-    games = it.play(pol.module, val.module, seed)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    out = {}
-    for k, axis in (("actions", 1), ("live", 1), ("visits", 1),
-                    ("winners", 0)):
-        x = getattr(games, k)
-        out[k] = (x if mesh is None else mesh.gather(x, axis)).cpu()
-    return out, seconds
 
 
 def sl_step_timing(dev, mesh=None, batch: int = PAR_MINIBATCH) -> dict:
@@ -6678,20 +6842,17 @@ def nccl_probe(dev, group) -> dict:
             "plain_max_memory_bytes": plain["max_memory_bytes"]}
 
 
-def ranks_probe(out_dir: str, policy_json: str, value_json: str) -> int:
-    """``--ranks-probe DIR POLICY VALUE``, one rank of phase 23 under
+def ranks_probe(out_dir: str, go: str) -> int:
+    """``--ranks-probe DIR GO``, one rank of phase 23's probe under
     ``torch.distributed.run``: the three kernels against their plain
-    versions in this rank, the zero CLI's first play over the ranks
-    (launches counted), the SL step timed with its all-reduce, and on
-    rank 0 a one-rank NCCL group (:func:`nccl_probe`); writes
-    ``DIR/rank<r>.json`` (and rank 0's gathered play record)."""
+    versions in this rank; then, once the file GO exists (the CLI runs
+    that share the card meanwhile have ended), the SL step timed with
+    its all-reduce, and on rank 0 a one-rank NCCL group
+    (:func:`nccl_probe`); writes ``DIR/rank<r>.json``."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.distributed as dist
 
     from rocalphago_tpu_torch.engine import pygo, torchgo
-    from rocalphago_tpu_torch.ops import chase as C
-    from rocalphago_tpu_torch.ops import labels as L
-    from rocalphago_tpu_torch.ops import tree as T
     from rocalphago_tpu_torch.parallel import mesh as meshlib
 
     backend = meshlib.distributed_init()
@@ -6706,13 +6867,11 @@ def ranks_probe(out_dir: str, policy_json: str, value_json: str) -> int:
             "tree": float(phase_tree(dev)),
             "labels": float(phase_labels(pygo, dev)),
             "chase": float(phase_chase(pygo, torchgo, dev))}
-    for c in (L, C, T):
-        c.launches = 0
-    record, res["play_s"] = zero_play(dev, (policy_json, value_json), mesh)
-    res["play_launches"] = {"labels": L.launches, "chase": C.launches,
-                            "tree": T.launches}
-    if mesh.rank == 0:
-        torch.save(record, os.path.join(out_dir, "play.pt"))
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    while not os.path.exists(go):
+        check(time.monotonic() < deadline, "the probe's go file never came")
+        time.sleep(0.2)
+    mesh.barrier()
     res["sl"] = sl_step_timing(dev, mesh)
     group = dist.new_group([0], backend="nccl")
     if mesh.rank == 0:
@@ -6724,14 +6883,11 @@ def ranks_probe(out_dir: str, policy_json: str, value_json: str) -> int:
     return 0
 
 
-def par_probe(work: str, paths, counters) -> dict:
-    """(d) and the numbers: :func:`ranks_probe` over two ranks, and the
-    zero play on one rank here against the ranks' gathered record,
-    actions and winners bit for bit."""
+def par_probe(work: str, ran) -> dict:
+    """(d) and the numbers: the :func:`ranks_probe` over two ranks (its
+    :func:`bg_wait` ``ran``)."""
     probe = os.path.join(work, "probe")
-    rc, _, err, wall = torchrun_wait(torchrun_start(
-        [os.path.abspath(__file__), "--ranks-probe", probe, *paths],
-        os.path.join(work, "probe_run")))
+    rc, _, err, wall = ran
     check(rc == 0, f"ranks probe: rc {rc}\n{err[-4000:]}")
     ranks = []
     for r in range(PAR_RANKS):
@@ -6744,27 +6900,13 @@ def par_probe(work: str, paths, counters) -> dict:
         check(all(e == 0 for e in res["max_abs_err"].values()),
               f"probe rank {res['rank']}: a kernel disagrees with its plain "
               f"version {res['max_abs_err']}")
-        check(all(n > 0 for n in res["play_launches"].values()),
-              f"probe rank {res['rank']}: launches {res['play_launches']}")
     nccl = ranks[0]["nccl"]
     check(nccl["backend"] == "nccl" and nccl["collectives_ok"]
           and nccl["step_equal"], f"one-rank NCCL group: {nccl}")
-    got = torch.load(os.path.join(probe, "play.pt"), weights_only=True)
-    for c in counters:
-        c.launches = 0
-    want, one_s = zero_play(torch.device("cuda", 0), paths)
-    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
-    for k in ("actions", "winners", "live", "visits"):
-        check(torch.equal(got[k], want[k]), f"zero play over two ranks: "
-              f"{k} differ from one rank's")
     sl2, mib = ranks[0]["sl"], 2.0 ** 20
-    log(f"parallel probe ({wall:.1f} s): the three kernels bit-exact "
-        f"against their plain versions in each rank; zero play over two "
-        f"ranks = one rank's (actions, live, visits, winners bit for "
-        f"bit), {ranks[0]['play_s']:.2f} s against {one_s:.2f} s, "
-        f"launches per rank " + ", ".join(
-            f"rank {x['rank']} {x['play_launches']}" for x in ranks) +
-        f", one rank {launches}")
+    log(f"parallel probe ({wall:.1f} s, the kernel checks beside the CLI "
+        f"runs, the timings after them): the three kernels bit-exact "
+        f"against their plain versions in each rank")
     log(f"parallel SL step of the 19x19 12x128 bf16 policy at global "
         f"minibatch {PAR_MINIBATCH}: one rank {nccl['plain_step_ms']:.2f} "
         f"ms ({nccl['plain_max_memory_bytes'] / mib:.0f} MiB); two ranks "
@@ -6778,11 +6920,11 @@ def par_probe(work: str, paths, counters) -> dict:
         f"{nccl['step_ms']:.2f} ms, all-reduce {nccl['allreduce_ms']:.3f} ms "
         f"({nccl['allreduce_ms'] / nccl['step_ms']:.4f} of a step); two "
         f"ranks on one card measure overhead, not scaling")
-    return {"ranks": ranks, "launches": launches, "wall": wall,
-            "sl": sl2, "nccl": nccl}
+    return {"ranks": ranks, "wall": wall, "sl": sl2, "nccl": nccl}
 
 
-def phase_parallel(card, counters, sl_paths, zero_paths, zero_straight):
+def phase_parallel(card, counters, sl_paths, zero_paths, zero_straight,
+                   zero_record):
     """Data parallelism over ranks (phase 23): two ranks sharing the
     card, started by ``torch.distributed.run`` on the port's CLIs."""
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6791,41 +6933,44 @@ def phase_parallel(card, counters, sl_paths, zero_paths, zero_straight):
     os.makedirs(work)
     t0 = time.perf_counter()
     spec, corpus = sl_paths
-    # the three CLI runs at once (their checks are timing-free); the
-    # probe's timings alone after them
+    go = os.path.join(work, "probe.go")
+    # the three CLI runs and the probe's kernel checks at once (their
+    # checks are timing-free); the probe's timings alone after them
     cmds = {
         "sl": ["-m", "rocalphago_tpu_torch.training.sl",
                *par_sl_argv(spec, corpus, os.path.join(work, "sl_two")),
                "--num-devices", str(PAR_RANKS)],
-        "zero": ["-m", "rocalphago_tpu_torch.training.zero",
+        "zero": [os.path.abspath(__file__), "--zero-ranks",
+                 os.path.join(work, "zero_two_play.pt"),
                  *zero_argv(zero_paths, os.path.join(work, "zero_two"), 1,
                             "--num-devices", str(PAR_RANKS))],
         "selfplay": ["-m", "rocalphago_tpu_torch.interface.selfplay_cli",
                      *par_sp_argv(spec, os.path.join(work, "sp_two")),
-                     "--shard"]}
+                     "--shard"],
+        "probe": [os.path.abspath(__file__), "--ranks-probe",
+                  os.path.join(work, "probe"), go]}
     started, ran = {}, {}
     try:
         for name, args in cmds.items():
             started[name] = torchrun_start(
                 args, os.path.join(work, f"{name}_run"))
-        for name, run in started.items():
-            ran[name] = torchrun_wait(run)
+        for name in ("sl", "zero", "selfplay"):
+            ran[name] = bg_wait(started[name], PAR_TIMEOUT_S)
+        log(f"parallel: the three CLI runs over {PAR_RANKS} ranks at once "
+            f"in {time.perf_counter() - t0:.1f} s")
+        with open(go, "w"):
+            pass
+        ran["probe"] = bg_wait(started["probe"], PAR_TIMEOUT_S)
     finally:
-        for p, _, _ in started.values():
-            if p.poll() is None:
-                p.terminate()
-                p.wait(timeout=120)
-    log(f"parallel: the three CLI runs over {PAR_RANKS} ranks at once in "
-        f"{time.perf_counter() - t0:.1f} s")
+        bg_stop(started.values())
     out = {"sl": par_sl(work, spec, corpus, ran["sl"])}
-    out["zero"] = par_zero_cli(work, zero_paths, zero_straight, ran["zero"])
+    out["zero"] = par_zero_cli(work, zero_paths, zero_straight, zero_record,
+                               ran["zero"])
     out["selfplay"] = par_selfplay(work, spec, counters[:2], ran["selfplay"])
-    out["probe"] = par_probe(work, zero_paths, counters)
+    out["probe"] = par_probe(work, ran["probe"])
     out["phase_s"] = time.perf_counter() - t0
-    launches = {k: out["probe"]["launches"][k] + sum(
-        x["play_launches"][k] for x in out["probe"]["ranks"]) + sum(
-        per[k] for per in out["zero"]["launches"].values())
-        for k in out["probe"]["launches"]}
+    launches = {k: sum(per[k] for per in out["zero"]["launches"].values())
+                for k in ("labels", "chase", "tree")}
     for k, n in out["selfplay"]["launches"].items():
         launches[k] += n
     out["launches"] = launches
@@ -6864,8 +7009,10 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--host-reads":
         return host_reads_main(sys.argv[2])
-    if len(sys.argv) == 5 and sys.argv[1] == "--ranks-probe":
+    if len(sys.argv) == 4 and sys.argv[1] == "--ranks-probe":
         return ranks_probe(*sys.argv[2:])
+    if len(sys.argv) > 3 and sys.argv[1] == "--zero-ranks":
+        return zero_ranks_main(sys.argv[2], sys.argv[3:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from rocalphago_tpu_torch.engine import pygo, torchgo
@@ -6922,7 +7069,7 @@ def main() -> int:
     sp = phase(11, phase_policy_selfplay, torchgo, dev, card, (L, C))
     ss = phase(12, phase_search_selfplay, torchgo, dev, card, (L, C, T),
                player, sp["final"])
-    phase(13, phase_selfplay_cli, pygo)
+    phase(13, phase_clis_9x9, pygo, card)
     sv = phase(14, phase_supervised, dev, card, (L, C))
     rf = phase(15, phase_reinforcement, torchgo, dev, card, (L, C),
                sv["export"])
@@ -6939,7 +7086,7 @@ def main() -> int:
     par = phase(23, phase_parallel, card, (L, C, T), (sv["spec"],
                                                       sv["corpus"]),
                 zr["paths"], os.path.join(os.path.dirname(os.path.abspath(
-                    __file__)), ZERO_DIR, "straight"))
+                    __file__)), ZERO_DIR, "straight"), zr["record"])
     # the launches of phases 11-22's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
@@ -7041,7 +7188,9 @@ def main() -> int:
     log(f"fleet: hot swap {fl22['swap']['swap_s']:.4f} s a swap (mean of "
         f"{fl22['swap']['swaps']}); routed genmove p50 {rt['p50']:.3f} s, p99 "
         f"{rt['p99']:.3f} s (the router's tax {rt['p50'] - load['p50']:+.3f} "
-        f"s at p50 against phase 21's wire), convergence "
+        f"s at p50 against phase 21's wire; over one replica "
+        f"{rt['p50_one']:.3f} s, {rt['p50_one'] - load['p50']:+.3f} s), "
+        f"convergence "
         f"{rt['conv_s']:.3f} s, launches a routed genmove "
         f"{rt['per_genmove']}; a self-play actor's batch of 2 games "
         f"{fl22['replay']['actor_launches']}; wire ingest "

@@ -7,7 +7,8 @@ for the CPU. ``dryrun_multichip(n)`` runs one data-parallel SL train
 step over ``n`` gloo ranks on the CPU, each a child process
 (:func:`.parallel.launch.spawn_ranks`), as the reference runs its step
 over ``n`` virtual devices: every rank must end on the same params and
-loss, equal to one rank's step on the whole batch.
+loss, equal within a stated tolerance to one rank's step on the whole
+batch, run in the calling process.
 """
 
 from __future__ import annotations
@@ -71,10 +72,17 @@ def _sl_step(num_devices: int | None = None,
                        net.module.state_dict().items()}}
 
 
+#: the ranks' step against one rank's on the whole batch: float32, the
+#: gradient summed over the ranks in another order (summation order only)
+_RTOL, _ATOL = 1e-4, 1e-5
+
+
 def dryrun_multichip(n_devices: int, workdir: str | None = None) -> dict:
     """One data-parallel SL step over ``n_devices`` gloo CPU ranks.
-    Raises unless every rank stepped, agrees on the loss and the params
-    bit for bit, and the loss is finite; returns rank 0's result."""
+    Raises unless every rank stepped and agrees on the loss and the
+    params bit for bit, and rank 0 equals one rank's step on the whole
+    global batch, run in this process, within ``_RTOL``/``_ATOL`` (a
+    divisor off by the width fails it); returns rank 0's result."""
     from rocalphago_tpu_torch.parallel.launch import spawn_ranks
 
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
@@ -91,6 +99,14 @@ def dryrun_multichip(n_devices: int, workdir: str | None = None) -> dict:
             raise RuntimeError(f"rank {out['rank']} disagrees with rank 0")
     if not np.isfinite(first["loss"]):
         raise RuntimeError(f"non-finite loss {first['loss']}")
+    one = _sl_step(None, batch=2 * n_devices)
+    off = [k for k, v in one["params"].items() if not np.allclose(
+        first["params"][k].numpy(), v.numpy(), rtol=_RTOL, atol=_ATOL)]
+    if off or not np.isclose(first["loss"], one["loss"], rtol=_RTOL,
+                             atol=_ATOL):
+        raise RuntimeError(
+            f"{n_devices} ranks' step differs from one rank's on the whole "
+            f"batch: loss {first['loss']} vs {one['loss']}, params {off}")
     print(f"dryrun_multichip({n_devices}): SL step ok over "
           f"{n_devices} {first['backend']} ranks, "
           f"loss={first['loss']:.4f}")

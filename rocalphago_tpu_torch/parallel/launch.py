@@ -28,13 +28,17 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def spawn_ranks(target: str, n: int, workdir: str, kwargs: dict | None = None,
-                device: str = "cpu", timeout: float = 300.0,
+                device: str | None = None, timeout: float = 300.0,
                 paths: tuple = ()) -> list:
     """Run ``target(**kwargs)`` in ``n`` ranks; their return values.
     ``paths`` go on the ranks' ``sys.path`` (before the repository's
-    root); ``device`` picks the backend (``distributed_init``)."""
+    root); ``device`` is where the ranks compute (default the card,
+    ``resolve_device``) and picks the backend (``distributed_init``)."""
     import torch
 
+    from rocalphago_tpu_torch.device import resolve_device
+
+    device = resolve_device(device).type
     os.makedirs(workdir, exist_ok=True)
     store = os.path.join(workdir, "store")
     if os.path.exists(store):

@@ -298,17 +298,13 @@ class Mesh:
                     self.broadcast(t)
 
 
-def make_mesh(num_devices: int | None = None, device=None,
-              model_parallel: int = 1) -> Mesh:
+def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
     """This rank's mesh over ``num_devices`` ranks (default: every rank
     of the group; 1 without one). One rank holds one device: on the
     card rank *r* computes on ``cuda:(local_rank % device_count)``, so
     ranks beyond the cards share them. ``device`` names the device type
     (default the card; ``resolve_device``). A mesh spans one rank or
     all of them; a width above the world size raises."""
-    if model_parallel != 1:
-        raise ValueError(f"model_parallel={model_parallel}: the port "
-                         "shards the data axis only")
     world = world_size()
     width = world if num_devices is None else int(num_devices)
     if width < 1:

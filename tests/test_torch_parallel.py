@@ -62,7 +62,7 @@ def ranks(target: str, tmp_path, n: int = 2, **kwargs) -> list:
     """``target(**kwargs)`` in ``n`` gloo CPU ranks; their results."""
     return spawn_ranks(f"{__name__}:{target}", n,
                        str(tmp_path / f"ranks-{target}"), kwargs,
-                       paths=(HERE,), timeout=240)
+                       device="cpu", paths=(HERE,), timeout=240)
 
 
 # ---------------------------------------------------------------- data
@@ -227,8 +227,6 @@ def test_a_mesh_of_one_and_its_width_errors():
         meshlib.make_mesh(2, "cpu")
     with pytest.raises(ValueError, match=">= 1"):
         meshlib.make_mesh(0, "cpu")
-    with pytest.raises(ValueError, match="data axis only"):
-        meshlib.make_mesh(1, "cpu", model_parallel=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         meshlib.make_mesh()     # the card by default
 

@@ -86,7 +86,7 @@ def one_torch_thread():
 def ranks(target: str, tmp_path, n: int = 2, **kwargs) -> list:
     return spawn_ranks(f"{__name__}:{target}", n,
                        str(tmp_path / f"ranks-{target}"), kwargs,
-                       paths=(HERE,), timeout=240)
+                       device="cpu", paths=(HERE,), timeout=240)
 
 
 def ref_policies(feats=FEATS, seeds=(11, 12)):
