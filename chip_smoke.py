@@ -97,13 +97,21 @@ Phases, in order; any failure exits non-zero before the result line:
     on the committed 19×19 games of ``results/sl19_r5/sgf`` (48 planes;
     the manifest counts every game and one position per non-pass move;
     labels and chase launched, counts reset just before and read just
-    after; positions/s), its first 2 games converted again by the
-    converter's CLI on the CPU (``--device cpu``, a child process beside
-    the resume runs), bit for bit; the SL trainer's CLI entry on a fresh seeded
-    12 × 128 bf16 policy saved as a spec (minibatch 16, symmetries on,
+    after, and ``kernel_launches_total`` grown by the same counts, every
+    chase launch in ``encode.batch``; positions/s with the native
+    replayer, built by ``g++`` just before and timed apart), the native
+    replay of every game equal to pygo's on the host (boards, turns,
+    kos, steps, ages, actions) and the first game's shard rows equal to
+    the card encode of pygo's replay, both replays' host rates; its
+    first 2 games converted again by the converter's CLI on the CPU
+    (``--device cpu``, a child process beside the resume runs), bit for
+    bit; the SL trainer's CLI entry on a fresh seeded 12 × 128 bf16
+    policy saved as a spec (minibatch 16, symmetries on,
     2 epochs of 50 steps: finite losses, every artifact, the ``sl.*``
-    span paths and the data-wait histogram in its ``metrics.jsonl``,
-    the exported ``model.json`` answering GTP genmoves legally); exact
+    span paths, the data-wait histogram and ``sl.train_step``'s
+    ``kernel_launches_total`` at 0 for every kernel in its
+    ``metrics.jsonl``, the exported ``model.json`` answering GTP
+    genmoves legally); exact
     resume (killed
     after epoch 0, and after step 25 with a checkpoint every 10, both
     resumed through the CLI to the straight run's params bit for bit);
@@ -190,8 +198,12 @@ Phases, in order; any failure exits non-zero before the result line:
     end on the straight run's checkpoint, exports, pool and metric rows
     (wall times aside) bit for bit; the straight run's ``metrics.jsonl``
     holds every ``zero.*`` span path of the reference with ``ok`` true
-    and a registry record with the search's simulations and
-    ``device_occupancy{runner="zero.replay"}``, the actor/learner run's
+    and a registry record with the search's simulations,
+    ``device_occupancy{runner="zero.replay"}`` and the
+    ``kernel_launches_total`` series of the ``zero.*`` and
+    ``device_mcts.*`` entries and ``untracked`` (the killed and resumed
+    runs in process: the series grown by the process's launches, the
+    tracked entries' share within them), the actor/learner run's
     the ``learner_*``, ``replay_*`` and ``actor_*`` metrics; a cut run
     (1 iteration, 2 simulations, move limit 4, a 2-game gate) with
     ``--profile-dir``, whose Chrome trace holds chase, labels and tree
@@ -341,7 +353,9 @@ Phases, in order; any failure exits non-zero before the result line:
     phase 18's one-rank run of the same command: the first play's
     actions, live rows, visits and winners bit for bit, the game
     statistics equal, the updates within ``PAR_ZERO_L2``, the labels,
-    chase and tree launches of each rank; (c) the self-play CLI with
+    chase and tree launches of each rank, read from its registry's
+    ``kernel_launches_total`` and equal to its process totals; (c) the
+    self-play CLI with
     ``--shard``, 8 19×19 games, every SGF byte-equal to one rank's; (d)
     a probe (``--ranks-probe``) in two ranks: the three kernels against
     their plain versions in each rank, then, once the CLI runs have
@@ -2108,6 +2122,15 @@ def sl_convert(root: str, work: str, counters):
         moves += len(g.moves)
         non_pass += sum(m is not None for _, m in g.moves)
     corpus = os.path.join(work, "corpus")
+    from rocalphago_tpu_torch.data import native
+    from rocalphago_tpu_torch.obs import torchobs
+
+    # the native replayer's build at its first use, timed apart
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    torchobs.flush_untracked()
+    before = launch_series()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -2116,6 +2139,13 @@ def sl_convert(root: str, work: str, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    # the registry's series over the conversion: every launch counted
+    # once, every chase launch inside the encoder's tracked batch
+    series = launches_since(before)
+    check(by_kernel(series) == {"tree": 0, **launches}
+          and series.get(("encode.batch", "chase")) == launches["chase"],
+          f"convert: kernel_launches_total grew by {series}, the process "
+          f"by {launches}")
     with open(f"{corpus}-manifest.json") as f:
         manifest = json.load(f)
     check(manifest["num_games"] == len(files) and not manifest["errors"],
@@ -2131,11 +2161,57 @@ def sl_convert(root: str, work: str, counters):
     log(f"convert: {len(files)} games, {moves} moves ({moves - non_pass} "
         f"passes), {manifest['num_positions']} positions in "
         f"{manifest['num_shards']} shards, {wall:.2f} s with the shard "
-        f"writes, {manifest['num_positions'] / wall:.1f} positions/s; "
-        f"launches {launches}")
-
+        f"writes, {manifest['num_positions'] / wall:.1f} positions/s (the "
+        f"native replayer built by g++ before it in {build_s:.2f} s); "
+        f"launches "
+        f"{launches}, kernel_launches_total "
+        + ", ".join(f"{e}/{k} {v}" for (e, k), v in sorted(series.items())))
+    replay = sl_replays(games, files, corpus)
     sl_kernels(games, files[0])
-    return corpus, launches, manifest["num_positions"] / wall
+    return corpus, launches, manifest["num_positions"] / wall, replay
+
+
+def sl_replays(games: str, files: list, corpus: str) -> dict:
+    """The conversion's native replay against the pygo replay of the
+    same games on the host: every game's encoder inputs (boards, turn,
+    ko, step, ages) and actions bit for bit, and the first game's shard
+    rows equal to the card encode of pygo's replay; the host rates of
+    both replays (positions/s)."""
+    from rocalphago_tpu_torch.data import convert, sgf
+    from rocalphago_tpu_torch.data.pipeline import ShardedDataset
+
+    parsed = []
+    for f in files:
+        with open(os.path.join(games, f)) as fh:
+            parsed.append(sgf.parse(fh.read()))
+    conv = convert.GameConverter()
+    t0 = time.perf_counter()
+    native = [conv._replay_native(g, False) for g in parsed]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [conv._replay_pygo(g, False) for g in parsed]
+    t_pygo = time.perf_counter() - t0
+    for f, (nf, na), (pf, pa) in zip(files, native, plain):
+        check(na == pa and len(nf) == len(pf) and all(
+            np.array_equal(x, y) and np.asarray(x).dtype ==
+            np.asarray(y).dtype for a, b in zip(nf, pf)
+            for x, y in zip(a, b)),
+            f"convert: the native replay of {f} differs from pygo's")
+    rows = len(plain[0][1])
+    got = ShardedDataset(corpus).gather(np.arange(rows))
+    check(np.array_equal(got[0], conv._encode_fields(plain[0][0]))
+          and np.array_equal(got[1], np.asarray(plain[0][1], np.int32)),
+          "convert: the first game's shard rows differ from the card "
+          "encode of pygo's replay")
+    n = sum(len(a) for _, a in native)
+    rates = {"native": n / t_native, "pygo": n / t_pygo}
+    log(f"convert: the native replay of the {len(files)} games ({n} "
+        f"positions) equals pygo's, field for field; the first game's "
+        f"{rows} shard rows equal the card encode of pygo's replay bit "
+        f"for bit; host replay alone {rates['native']:.1f} positions/s "
+        f"native, {rates['pygo']:.1f} pygo ({t_native:.3f} s, "
+        f"{t_pygo:.3f} s)")
+    return rates
 
 
 def cpu_convert_start(root: str, work: str):
@@ -2242,8 +2318,13 @@ def sl_train(dev, work: str, corpus: str):
     spans = check_span_paths(events, ("sl.epoch", "sl.epoch/sl.train",
                                       "sl.epoch/sl.eval", "sl.epoch/sl.export",
                                       "sl.epoch/sl.save"), "sl straight run")
-    waits = last_registry(events, "sl straight run")["histograms"][
-        'train_data_wait_seconds{trainer="sl"}']
+    snap = last_registry(events, "sl straight run")
+    waits = snap["histograms"]['train_data_wait_seconds{trainer="sl"}']
+    steps = {k: v for (e, k), v in launch_series(snap).items()
+             if e == "sl.train_step"}
+    check(steps == {"labels": 0, "chase": 0, "tree": 0},
+          f"sl: kernel_launches_total of sl.train_step {steps} (training "
+          "reads stored planes)")
     check(len(spans["sl.epoch"]) == 2
           and waits["count"] >= 2 * SL_EPOCH_LENGTH,
           f"sl: {len(spans['sl.epoch'])} epoch spans, {waits['count']} "
@@ -2515,7 +2596,7 @@ def phase_supervised(dev, card, counters):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t0 = time.perf_counter()
-    corpus, launches, rate = sl_convert(root, work, counters)
+    corpus, launches, rate, replay = sl_convert(root, work, counters)
     spec, straight, meta = sl_train(dev, work, corpus)
     # the CPU conversion (timing-free) beside the untimed runs
     cpu = cpu_convert_start(root, work)
@@ -2529,7 +2610,7 @@ def phase_supervised(dev, card, counters):
     timings = sl_timings(dev, card)
     log(f"supervised phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "positions_per_s": rate,
-            "timings": timings, "export": os.path.join(straight, "model.json"),
+            "replay_per_s": replay, "timings": timings, "export": os.path.join(straight, "model.json"),
             "spec": spec, "corpus": corpus}
 
 
@@ -3620,6 +3701,41 @@ def last_registry(events, what: str) -> dict:
     return snaps[-1]
 
 
+def launch_series(snapshot: dict | None = None) -> dict:
+    """``{(entry, kernel): launches}`` of the ``kernel_launches_total``
+    series in a registry snapshot (default: this process's registry)."""
+    from rocalphago_tpu_torch.obs import registry
+
+    counters = (snapshot or registry.snapshot())["counters"]
+    out = {}
+    for key, v in counters.items():
+        m = re.fullmatch(r'kernel_launches_total\{entry="([^"]*)",'
+                         r'kernel="([^"]*)"\}', key)
+        if m:
+            out[m.groups()] = v
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """The series that grew since ``before`` (:func:`launch_series`),
+    by how much, the untracked remainder brought up to date first."""
+    from rocalphago_tpu_torch.obs import torchobs
+
+    torchobs.flush_untracked()
+    return {k: v - before.get(k, 0) for k, v in launch_series().items()
+            if v != before.get(k, 0)}
+
+
+def by_kernel(series: dict, tracked_only: bool = False) -> dict:
+    """Per-kernel sums of :func:`launch_series`-shaped ``series``, with or
+    without the ``untracked`` entry."""
+    out = dict.fromkeys(("labels", "chase", "tree"), 0)
+    for (entry, kernel), v in series.items():
+        if not (tracked_only and entry == "untracked"):
+            out[kernel] += v
+    return out
+
+
 def trace_kernel_counts(path: str) -> dict:
     """Kernel records per kernel of the port in a Chrome trace that
     ``torch.profiler`` exported, by the kernels' symbols."""
@@ -3684,6 +3800,11 @@ def zero_cli(work: str, paths, card: str):
                 raise KeyboardInterrupt(f"killed after iteration {last}")
 
         t0 = time.perf_counter()
+        from rocalphago_tpu_torch.obs import torchobs
+
+        torchobs.flush_untracked()
+        series0 = launch_series()
+        process0 = torchobs.process_launches()
         undo = record_first_play(record)
         TrainCheckpointer.save = killing_save
         try:
@@ -3701,6 +3822,16 @@ def zero_cli(work: str, paths, card: str):
         with contextlib.redirect_stdout(io.StringIO()):
             zero.run_training(zero_argv(paths, outs["killed"]))
         walls["killed"] = time.perf_counter() - t0
+        # the killed and resumed runs' launches: each counted once in
+        # the registry, the tracked entries' within the process's
+        grown = launches_since(series0)
+        process = {k: v - process0[k]
+                   for k, v in torchobs.process_launches().items()}
+        tracked = by_kernel(grown, tracked_only=True)
+        check(by_kernel(grown) == process and all(
+            0 < tracked[k] <= process[k] for k in process),
+            f"zero killed and resumed: kernel_launches_total grew by "
+            f"{grown}, the process by {process}")
         for name, run in started.items():
             rc, stdout, stderr, walls[name] = ran[name] = bg_wait(run)
             check(rc == 0, f"zero {name}: rc {rc}\n{stderr[-3000:]}")
@@ -3731,6 +3862,14 @@ def zero_cli(work: str, paths, card: str):
           "zero: an iteration span missing, or a selfplay span's plies tag "
           "off")
     snap = last_registry(events, "zero straight run")
+    series = launch_series(snap)
+    entries = {e for e, _ in series}
+    check({"zero.replay_segment", "zero.apply_updates", "device_mcts.init",
+           "device_mcts.run_sims", "untracked"} <= entries
+          and len(series) == 3 * len(entries)
+          and series[("device_mcts.run_sims", "tree")] > 0
+          and series[("zero.apply_updates", "chase")] == 0,
+          f"zero straight run: kernel_launches_total {series}")
     occupancy = snap["gauges"].get('device_occupancy{runner="zero.replay"}')
     check(snap["counters"].get("device_mcts_sims_total", 0) > 0
           and occupancy is not None and 0.0 < occupancy <= 1.0,
@@ -3779,6 +3918,12 @@ def zero_cli(work: str, paths, card: str):
         f"{os.path.getsize(trace_path) / 2**20:.1f} MiB Chrome trace, kernel "
         f"records: chase {traced['chase']}, labels {traced['labels']}, tree "
         f"{traced['tree']}")
+    per_entry = {e: {k: series[(e, k)] for k in ("labels", "chase", "tree")}
+                 for e in sorted(entries)}
+    log(f"zero cli: kernel_launches_total of the straight run by entry "
+        + ", ".join(f"{e} {v}" for e, v in per_entry.items())
+        + f"; the killed and resumed runs in process: {tracked} in tracked "
+        f"entries of the process's {process}")
     log(f"zero cli [{card}]: {ZERO_ITERATIONS} iterations at game batch "
         f"{ZERO_BATCH}, "
         f"{ZERO_SIMS} simulations, move limit {ZERO_MOVES}, Dir("
@@ -6680,12 +6825,17 @@ def par_zero_cli(work: str, paths, straight: str, record: str,
     two = os.path.join(work, "zero_two")
     rc, _, err, wall = ran
     check(rc == 0, f"zero over {PAR_RANKS} ranks: rc {rc}\n{err[-4000:]}")
-    launches = {int(r): json.loads(d) for r, d in re.findall(
-        rf"zero: rank (\d+) of {PAR_RANKS} on \S+ \(\w+\): kernel launches "
-        r"(\{[^}]*\})", err)}
+    # each rank's line: the launches its registry counted (every entry's
+    # series and the untracked rest), then its wrappers' process totals
+    lines = {int(r): (json.loads(reg), json.loads(proc))
+             for r, reg, proc in re.findall(
+                 rf"zero: rank (\d+) of {PAR_RANKS} on \S+ \(\w+\): kernel "
+                 r"launches (\{[^}]*\}) process (\{[^}]*\})", err)}
+    launches = {r: reg for r, (reg, _) in lines.items()}
     check(sorted(launches) == list(range(PAR_RANKS)) and all(
-        n > 0 for per in launches.values() for n in per.values()),
-        f"zero ranks' launches {launches}")
+        n > 0 for per in launches.values() for n in per.values())
+        and all(reg == proc for reg, proc in lines.values()),
+        f"zero ranks' launches, registry and process: {lines}")
     got = torch.load(os.path.join(work, "zero_two_play.pt"),
                      weights_only=True)
     want = torch.load(record, weights_only=True)
@@ -6716,8 +6866,9 @@ def par_zero_cli(work: str, paths, straight: str, record: str,
         f"{l2['policy']:.3e}, value {l2['value']:.3e} (limit "
         f"{PAR_ZERO_L2}" + ("; no game ended, so the value net moved in "
                             "neither run" if not rows[1]["finished_rate"]
-                            else "") + "); launches per rank " + ", ".join(
-            f"rank {r} {per}" for r, per in sorted(launches.items()))
+                            else "") + "); launches per rank, from its "
+        "registry's kernel_launches_total and equal to its process totals: "
+        + ", ".join(f"rank {r} {per}" for r, per in sorted(launches.items()))
         + f"; {wall:.1f} s")
     return {"launches": launches, "update_l2": l2, "wall": wall}
 
@@ -7151,7 +7302,9 @@ def main() -> int:
         f"replay MFU share {rf['mfu']:.5f}; generator "
         f"{rf['positions_per_s']:.2f} valid positions/s, yield "
         f"{rf['yield_']:.4f} on {card}")
-    log(f"SGF conversion {sv['positions_per_s']:.1f} positions/s; SL train "
+    log(f"SGF conversion {sv['positions_per_s']:.1f} positions/s (host "
+        f"replay alone {sv['replay_per_s']['native']:.1f} native, "
+        f"{sv['replay_per_s']['pygo']:.1f} pygo); SL train "
         "step " + ", ".join(
             f"{t['ms']:.3f} ms at minibatch {b} ({b / t['ms'] * 1e3:.1f} "
             f"positions/s, MFU share {t['mfu']:.4f})"

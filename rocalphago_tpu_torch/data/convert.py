@@ -2,17 +2,19 @@
 
 The port of ``data/convert.py`` (the reference's ``GameConverter``:
 ``convert_game``, ``sgfs_to_shards``, ``sgfs_to_hdf5`` and the
-``run_game_converter`` CLI). Games are replayed on the host through
-:func:`..data.sgf.replay` on the rules oracle; the positions of a game
-are encoded together on the device: one labels-kernel launch seeds the
+``run_game_converter`` CLI). Games are replayed on the host by the C++
+replayer (:mod:`.native`, built at first use; a failed build raises,
+where the reference falls back to pygo); the positions of a game are
+encoded together on the device: one labels-kernel launch seeds the
 carried labels of an encode batch (:func:`pack_states`), and the two
-ladder planes run the chase kernel.
+ladder planes run the chase kernel. The pygo replay through
+:func:`..data.sgf.replay` stays as the plain version the tests hold the
+native one to (``GameConverter._replay_pygo``).
 
 Output is sharded ``.npz`` (uint8 NHWC states, int32 flat actions, a
 JSON manifest) in the reference's file names and manifest format, so
 each package reads the other's corpora; the HDF5 writer keeps the
-reference's layout (uint8 NCHW) and needs ``h5py``. The reference's
-native C++ replayer is not ported: the rules replay is pygo's.
+reference's layout (uint8 NCHW) and needs ``h5py``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import warnings
 import numpy as np
 import torch
 
+from rocalphago_tpu_torch.data import native
 from rocalphago_tpu_torch.data import sgf as sgflib
 from rocalphago_tpu_torch.device import resolve_device
 from rocalphago_tpu_torch.engine import pygo, torchgo
@@ -115,6 +118,39 @@ class GameConverter:
             raise sgflib.SGFError(
                 f"board size {game.size} != converter size "
                 f"{self.board_size}")
+        fields, actions = self._replay_native(game, include_passes)
+        if not fields:
+            return (np.zeros((0, game.size, game.size,
+                              self.pre.output_dim), np.uint8),
+                    np.zeros((0,), np.int32))
+        return (self._encode_fields(fields),
+                np.asarray(actions, np.int32))
+
+    def _replay_native(self, game, include_passes: bool):
+        """The positions of ``game`` to encode, ``(fields, actions)``,
+        replayed by the C++ library (:func:`.native.replay_arrays`)."""
+        size = game.size
+        n = self.cfg.num_points
+
+        def flat(p):
+            return p[0] * size + p[1]
+
+        moves = np.asarray([n if mv is None else flat(mv)
+                            for _, mv in game.moves], np.int32)
+        colors = np.asarray([c for c, _ in game.moves], np.int8)
+        boards, to_move, kos, steps, ages = native.replay_arrays(
+            size, [flat(p) for p in game.setup_black],
+            [flat(p) for p in game.setup_white], moves, colors)
+        keep = [t for t in range(len(moves))
+                if (include_passes or moves[t] != n)
+                and colors[t] == to_move[t]]
+        fields = [(boards[t], np.int8(to_move[t]), np.int32(kos[t]),
+                   np.int32(steps[t]), ages[t]) for t in keep]
+        return fields, [int(moves[t]) for t in keep]
+
+    def _replay_pygo(self, game, include_passes: bool):
+        """:meth:`_replay_native` on the rules oracle (pygo): the plain
+        version the tests hold the native replayer to."""
         n = self.cfg.num_points
         fields, actions = [], []
         for st, move, player in sgflib.replay(game):
@@ -136,12 +172,7 @@ class GameConverter:
             ))
             actions.append(n if move is None
                            else move[0] * game.size + move[1])
-        if not fields:
-            return (np.zeros((0, game.size, game.size,
-                              self.pre.output_dim), np.uint8),
-                    np.zeros((0,), np.int32))
-        return (self._encode_fields(fields),
-                np.asarray(actions, np.int32))
+        return fields, actions
 
     # ------------------------------------------------------------- corpora
 

@@ -180,6 +180,11 @@ def record_to_games(rec: dict) -> tuple[ZeroGames, int]:
 _INCARNATIONS = itertools.count()
 
 
+def _games_in(entries: list) -> int:
+    """The games held by ``entries`` (a ring the caller has locked)."""
+    return sum(int(e.games.winners.shape[0]) for e in entries)
+
+
 def _as_host(games: ZeroGames) -> ZeroGames:
     return ZeroGames(*(None if x is None else np.asarray(x)
                        for x in games))
@@ -275,7 +280,7 @@ class ReplayBuffer:
             self._ingested += n_games
             if self._t_first is None:
                 self._t_first = time.monotonic()
-            fill = self._fill_games()
+            fill = _games_in(self._entries)
             total, t_first = self._ingested, self._t_first
             self._cond.notify_all()
         if self.spill_dir:
@@ -305,27 +310,12 @@ class ReplayBuffer:
                     games_to_record(entry.games, entry.version, entry.seq),
                     indent=None)
             self._entries.insert(0, entry)
-            fill = self._fill_games()
+            fill = _games_in(self._entries)
             self._cond.notify_all()
         registry.gauge("replay_fill_games").set(fill)
         return True
 
     # ------------------------------------------------------- consumers
-
-    def _fill_games(self) -> int:
-        """Under the lock: the games in the ring."""
-        return sum(int(e.games.winners.shape[0]) for e in self._entries)
-
-    def _wait_nonempty(self, deadline) -> bool:
-        """Under the lock: wait for an entry; False on timeout or when
-        closed and empty."""
-        while not self._entries and not self._closed:
-            rem = (None if deadline is None
-                   else deadline - time.monotonic())
-            if rem is not None and rem <= 0:
-                return False
-            self._cond.wait(rem)
-        return bool(self._entries)
 
     def next_batch(self, timeout: float | None = None) \
             -> ReplayEntry | None:
@@ -336,10 +326,16 @@ class ReplayBuffer:
                     else time.monotonic() + timeout)
         with watchdog.waiting_on("replay_fill"):
             with self._cond:
-                if not self._wait_nonempty(deadline):
+                while not self._entries and not self._closed:
+                    rem = (None if deadline is None
+                           else deadline - time.monotonic())
+                    if rem is not None and rem <= 0:
+                        return None
+                    self._cond.wait(rem)
+                if not self._entries:
                     return None
                 entry = self._entries.pop(0)
-                fill = self._fill_games()
+                fill = _games_in(self._entries)
                 self._cond.notify_all()   # room for paced producers
         if self.spill_dir:
             self._unspill(entry.seq)      # consumed: not restored
@@ -355,13 +351,19 @@ class ReplayBuffer:
                     else time.monotonic() + timeout)
         with watchdog.waiting_on("replay_fill"):
             with self._cond:
-                if not self._wait_nonempty(deadline):
+                while not self._entries and not self._closed:
+                    rem = (None if deadline is None
+                           else deadline - time.monotonic())
+                    if rem is not None and rem <= 0:
+                        return None
+                    self._cond.wait(rem)
+                if not self._entries:
                     return None
                 n = len(self._entries)
                 back = min(int(self._rng.geometric(self.sample_p)) - 1,
                            n - 1)
                 entry = self._entries[n - 1 - back]
-                fill = self._fill_games()
+                fill = _games_in(self._entries)
         self._observe_out(entry, fill)
         return entry
 
@@ -432,7 +434,7 @@ class ReplayBuffer:
                 new_entries.append(entry)
             if new_entries and self._t_first is None:
                 self._t_first = time.monotonic()
-            fill = self._fill_games()
+            fill = _games_in(self._entries)
             self._cond.notify_all()
         # file I/O outside the lock: drop the old files, then re-spill
         # only the entries still in the buffer

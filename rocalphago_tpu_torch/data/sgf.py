@@ -1,8 +1,9 @@
 """Minimal SGF (Smart Game Format) reader/writer, host-side.
 
-A copy of what the self-play CLI and the converter need from the
-reference package's ``data/sgf.py``: :class:`SGFGame`, :func:`parse`,
-:func:`replay`, :func:`render` and :func:`from_moves`. Only the subset of SGF needed for Go game records
+A copy of the reference package's ``data/sgf.py``: :class:`SGFGame`,
+:func:`parse`, :func:`replay`, :func:`render`, :func:`from_moves` and
+the writers of a host game, :func:`from_gamestate` and
+:func:`save_gamestate`. Only the subset of SGF needed for Go game records
 is implemented: one gametree, ``SZ/KM/HA/RE`` headers, ``AB/AW`` setup
 stones, ``B/W`` move nodes, pass as ``[]`` or ``[tt]`` (boards ≤ 19).
 
@@ -213,3 +214,36 @@ def from_moves(size: int, komi: float, moves, result: str = "") -> SGFGame:
     """Build an SGFGame from engine-style (color, (x,y)|None) moves —
     used by self-play to persist games."""
     return SGFGame(size=size, komi=komi, moves=list(moves), result=result)
+
+
+def from_gamestate(state) -> SGFGame:
+    """Snapshot a host ``pygo.GameState`` (history, handicaps and, for a
+    finished game, the area score) into an SGFGame: the reference's
+    ``save_gamestate_to_sgf`` utility."""
+    moves = []
+    color = pygo.BLACK if not state.handicaps else pygo.WHITE
+    for mv in state.history:
+        moves.append((color, mv))
+        color = -color
+    result = ""
+    if state.is_end_of_game:
+        black, white = state.get_scores()
+        if black > white:
+            result = f"B+{black - white:g}"
+        elif white > black:
+            result = f"W+{white - black:g}"
+        else:
+            result = "0"
+    game = SGFGame(size=state.size, komi=state.komi,
+                   setup_black=list(state.handicaps), moves=moves,
+                   result=result)
+    if state.handicaps:
+        game.handicap = len(state.handicaps)
+        game.properties["HA"] = str(len(state.handicaps))
+    return game
+
+
+def save_gamestate(state, path: str) -> None:
+    """Write a game in progress (or finished) to an SGF file."""
+    with open(path, "w") as f:
+        f.write(render(from_gamestate(state)))

@@ -13,7 +13,11 @@ scratch encodes count ``encode_full_total``, delta encodes
 ``encode_delta_total`` and ``encode_incr_<field>_total``
 (:func:`observe_incremental`), cache resets
 ``encode_cache_resets_total{reason=}`` (:func:`count_cache_reset`), and
-each encoder built ``encode_encoders_total{planes=}``. The public calls
+each encoder built ``encode_encoders_total{planes=}``; the kernel
+launches of each call land in ``kernel_launches_total{entry=,kernel=}``
+under the reference's entry names ``encode.one``, ``encode.batch``,
+``encode.signature`` and ``encode.delta`` (:mod:`..obs.torchobs`). The
+public calls
 are host boundaries (GTP players, the host MCTS wave, the converter,
 the value-corpus generator; no chunk, segment or fleet round goes
 through them), so on the card they synchronise before the clock is
@@ -41,6 +45,7 @@ from rocalphago_tpu_torch.features.pyfeatures import (
 )
 from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.obs.torchobs import track
 
 #: per-position encode cost edges, microseconds
 ENCODE_US_EDGES = (10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0,
@@ -108,6 +113,15 @@ class Preprocess:
                             ladder_chase_slots=ladder_chase_slots)
         self._encode = functools.partial(
             encode, cfg, features=self.feature_list, **self._lad_kw)
+        # the reference's tracked entries (obs.torchobs): one wrapper
+        # per public encode, each counting its own kernel launches
+        self._one = track("encode.one", self._encode)
+        self._batch = track("encode.batch", self._encode)
+        self._sig = track("encode.signature", functools.partial(
+            torchgo.eval_signature, cfg))
+        self._delta_step = track("encode.delta", functools.partial(
+            _incr.encode_step, cfg, features=self.feature_list,
+            **self._lad_kw))
         board = str(cfg.size)
         self._pos_us = obs_registry.histogram(
             "encode_pos_us", edges=ENCODE_US_EDGES, board=board)
@@ -137,25 +151,27 @@ class Preprocess:
         return out
 
     @torch.no_grad()
-    def states_to_tensor(self, states: GoState) -> torch.Tensor:
-        """Batched states → ``[B, size, size, F]`` on this device."""
+    def _scratch(self, fn, states: GoState) -> torch.Tensor:
         batch = int(states.board.shape[0])
         self._full.inc(batch)
-        return self._timed(lambda: self._encode(self._on_device(states)),
-                           batch)
+        return self._timed(lambda: fn(self._on_device(states)), batch)
+
+    def states_to_tensor(self, states: GoState) -> torch.Tensor:
+        """Batched states → ``[B, size, size, F]`` on this device."""
+        return self._scratch(self._batch, states)
 
     def state_to_tensor(self, state: GoState) -> torch.Tensor:
         """A batch of one state → ``[1, size, size, F]``."""
         if state.board.shape[0] != 1:
             raise ValueError("state_to_tensor takes a batch of one state")
-        return self.states_to_tensor(state)
+        return self._scratch(self._one, state)
 
     def state_signature(self, states: GoState) -> torch.Tensor:
         """Eval signatures (int64 ``[B, 2]`` holding uint32 words) of
         batched states: the transposition key under which these planes,
         and an evaluation of them, may be reused
         (:func:`~..engine.torchgo.eval_signature`)."""
-        return torchgo.eval_signature(self.cfg, self._on_device(states))
+        return self._sig(self._on_device(states))
 
     # ------------------------------------------------- incremental API
 
@@ -189,9 +205,7 @@ class Preprocess:
             self._cache = _incr.init_cache(self.cfg, device=self.device)
 
         def run():
-            planes, self._cache = _incr.encode_step(
-                self.cfg, state, self._cache, features=self.feature_list,
-                **self._lad_kw)
+            planes, self._cache = self._delta_step(state, self._cache)
             return planes
 
         planes = self._timed(run, 1, delta=True)

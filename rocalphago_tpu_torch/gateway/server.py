@@ -72,6 +72,7 @@ from rocalphago_tpu_torch.interface.gtp import (
 from rocalphago_tpu_torch.interface.resilient import percentile
 from rocalphago_tpu_torch.net.server import LineServerCore
 from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs import torchobs
 from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.deadline import Deadline
 from rocalphago_tpu_torch.serve.admission import AdmissionError
@@ -636,6 +637,7 @@ def main(argv=None) -> int:
         http.close()
     pool.close()
     if metrics is not None:
+        torchobs.flush_untracked()
         obs_registry.log_to(metrics)
         metrics.close()
     return 0

@@ -62,7 +62,7 @@ import time
 
 from rocalphago_tpu_torch.engine import pygo
 from rocalphago_tpu_torch.obs import registry as obs_registry
-from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.obs import torchobs, trace
 from rocalphago_tpu_torch.runtime import faults
 
 COLS = "ABCDEFGHJKLMNOPQRSTUVWXYZ"  # GTP skips I
@@ -933,6 +933,7 @@ def main(argv=None):
         if pool is not None:
             pool.close()
         # the end-of-session registry snapshot, as the trainers write it
+        torchobs.flush_untracked()
         obs_registry.log_to(metrics)
         if metrics is not None:
             trace.configure(None)

@@ -196,7 +196,7 @@ class ResilientPlayer:
         # bring back the hang the ladder exists to escape; the daemon
         # worker's result is discarded. It holds no evaluator lock
         # while it runs on (each submit takes the lock only to queue)
-        worker = threading.Thread(
+        worker = threading.Thread(  # jaxlint: disable=thread-no-join
             target=work, daemon=True, name=f"genmove-{rung}")
         with wd:
             worker.start()

@@ -62,7 +62,10 @@ class MetricsLogger:
         line = json.dumps(rec, allow_nan=False) + "\n"
         with self._lock:
             if self._f:
-                self._f.write(line)
+                # deliberate: the lock exists to serialize exactly this
+                # line-buffered write (tear/close-race guard);
+                # serialization already happens outside it
+                self._f.write(line)  # jaxlint: disable=blocking-call-under-lock
 
     def log(self, event: str, **fields) -> None:
         fields = sanitize(fields)

@@ -1,8 +1,8 @@
-"""Observability: tracing spans and the metric registry.
+"""Observability: tracing spans, the metric registry and launch
+tracking.
 
-The port of the reference package's ``obs/`` (its ``jaxobs`` compile
-tracking has no counterpart yet). Both pieces are standard library only
-and share one output channel, the ``metrics.jsonl`` stream of
+The port of the reference package's ``obs/``. The pieces share one
+output channel, the ``metrics.jsonl`` stream of
 :class:`~rocalphago_tpu_torch.io.metrics.MetricsLogger`:
 
 * :mod:`.trace` -- nested ``span(name)`` context managers emitting
@@ -10,7 +10,12 @@ and share one output channel, the ``metrics.jsonl`` stream of
 * :mod:`.registry` -- process-wide counters, gauges and bounded
   histograms with a deterministic snapshot and Prometheus-style text;
   the serving ladder and pool record here, and the GTP
-  ``rocalphago-stats`` probe returns the live snapshot.
+  ``rocalphago-stats`` probe returns the live snapshot;
+* :mod:`.torchobs` -- the counterpart of the reference's ``jaxobs``:
+  ``track(entry, fn)`` counts each call's kernel launches into
+  ``kernel_launches_total{entry=,kernel=}``, and the opt-in
+  ``torch.profiler`` capture. Not imported here: the first two are
+  standard library only.
 """
 
 from rocalphago_tpu_torch.obs import registry, trace  # noqa: F401

@@ -7,6 +7,14 @@ PyTorch headers: a build takes seconds, not minutes). Libraries go to
 source, so an edited kernel is rebuilt and an unchanged one is reused.
 All sources build at once, one ``nvcc`` process each, on the first
 request for any of them; nothing is built when a module is imported.
+
+Launch accounting: each kernel wrapper keeps its process total (the
+module's ``launches``) and calls :func:`count_launch` where it
+launches, which counts the launch on the calling thread
+(:data:`THREAD`) and, when no tracked entry is open on that thread, in
+:data:`UNTRACKED`. :mod:`..obs.torchobs` reads the thread's counts
+around each tracked call, so a launch on one thread is never another
+thread's, and nothing here syncs with the card.
 """
 
 from __future__ import annotations
@@ -25,6 +33,33 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("labels", "chase", "tree")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class ThreadLaunches(threading.local):
+    """The calling thread's launch counts: ``counts[i]``, the launches
+    of kernel ``SOURCES[i]`` made on this thread, and ``frames``, one
+    list of nested launches per tracked entry open on it
+    (:class:`~..obs.torchobs.TrackedFunction`). Each thread sees its
+    own, from zero."""
+
+    def __init__(self):
+        self.counts = [0] * len(SOURCES)
+        self.frames: list[list[int]] = []
+
+
+#: the launch counts of the calling thread
+THREAD = ThreadLaunches()
+#: launches made on a thread with no tracked entry open, by kernel
+#: (``SOURCES`` order), in this process
+UNTRACKED = [0] * len(SOURCES)
+
+
+def count_launch(kernel: int) -> None:
+    """Count one launch of kernel ``SOURCES[kernel]`` on this thread."""
+    thread = THREAD
+    thread.counts[kernel] += 1
+    if not thread.frames:
+        UNTRACKED[kernel] += 1
 
 
 class KernelLibraries:

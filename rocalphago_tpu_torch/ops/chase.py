@@ -31,6 +31,8 @@ from rocalphago_tpu_torch.ops import _build
 
 #: launches of the CUDA kernel in this process (plain runs not counted)
 launches = 0
+#: this kernel's index in the per-thread launch counts
+KERNEL = _build.SOURCES.index("chase")
 
 # per-option ladder outcomes, ordered so the chaser minimises
 _CAPTURED, _CONTINUE, _ESCAPED = 0, 1, 2
@@ -182,4 +184,5 @@ def chase(boards: torch.Tensor, labels: torch.Tensor, prey: torch.Tensor,
             raise RuntimeError(
                 f"chase kernel launch failed: CUDA error {err}")
         launches += 1
+        _build.count_launch(KERNEL)
     return (captured, core) if collect_core else captured

@@ -31,6 +31,8 @@ from rocalphago_tpu_torch.ops import _build
 
 #: launches of the CUDA kernel in this process (plain runs not counted)
 launches = 0
+#: this kernel's index in the per-thread launch counts
+KERNEL = _build.SOURCES.index("labels")
 
 
 def labels_plain(boards: torch.Tensor, size: int) -> torch.Tensor:
@@ -113,4 +115,5 @@ def labels(boards: torch.Tensor, size: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"labels kernel launch failed: CUDA error {err}")
     launches += 1
+    _build.count_launch(KERNEL)
     return out

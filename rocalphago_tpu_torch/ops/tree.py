@@ -44,6 +44,8 @@ from rocalphago_tpu_torch.ops import _build
 #: launches of the CUDA kernels (descend and backup) in this process;
 #: plain runs are not counted
 launches = 0
+#: this kernel's index in the per-thread launch counts
+KERNEL = _build.SOURCES.index("tree")
 
 
 def select_plain(prior: torch.Tensor, visits: torch.Tensor,
@@ -165,6 +167,7 @@ def _launch(fn_name: str, argtypes, args) -> None:
         raise RuntimeError(f"tree kernel {fn_name} launch failed: "
                            f"CUDA error {err}")
     launches += 1
+    _build.count_launch(KERNEL)
 
 
 def descend(prior, visits, value_sum, child, done, root, root_action,

@@ -126,8 +126,11 @@ def distributed_init(coordinator: str | None = None,
         init = f"tcp://{coordinator}"
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank)
-    print(f"parallel: rank {rank} of {world}, backend {backend} ({why})",
-          file=sys.stderr, flush=True)
+    # one write, newline included: ranks share the launcher's stderr, and
+    # print's separate end write could land after another rank's line
+    sys.stderr.write(f"parallel: rank {rank} of {world}, backend {backend} "
+                     f"({why})\n")
+    sys.stderr.flush()
     return backend
 
 

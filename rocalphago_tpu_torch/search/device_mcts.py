@@ -69,6 +69,16 @@ Telemetry, the reference's names: ``device_mcts_chunk_seconds``,
 Rates and margins are read only where the loop already waits for the
 card (a deadline drains the pipeline; a get_move reads the visits).
 
+The reference's tracked entries (:mod:`..obs.torchobs`) count each
+call's kernel launches in ``kernel_launches_total{entry=,kernel=}``:
+``device_mcts.init``, ``.init_cached``, ``.eval_batch``,
+``.eval_batch_komi`` and ``.eval_key`` as called from outside (the
+serve pool tracks its evaluator's calls under the two eval names), and
+each chunk of the chunk loops as ``device_mcts.run_sims`` /
+``.run_phase``, or ``.run_sims_budget`` / ``.run_phase_budget`` under
+the playout caps. Inside the searcher an evaluation is part of the
+entry that runs it, as it is part of the reference's program.
+
 Search self-play sharded over data-parallel ranks
 (``make_mcts_selfplay(mesh=)``, :mod:`..parallel.mesh`): the tree slabs
 are per game, so sharding is placement. Rank *r* plays the contiguous
@@ -110,6 +120,7 @@ from rocalphago_tpu_torch.features.incremental import (
 from rocalphago_tpu_torch.features.planes import encode
 from rocalphago_tpu_torch.features.pyfeatures import output_planes
 from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs.torchobs import track
 from rocalphago_tpu_torch.ops import tree as tree_ops
 from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.runtime.deadline import Deadline
@@ -278,16 +289,19 @@ class DeviceMCTS:
         return self._eval_from(states, gd, planes, policy_fn, value_fn,
                                komi)
 
+    @track("device_mcts.eval_batch")
     def eval_batch(self, states: GoState):
         """:meth:`eval_with` on the searcher's own nets."""
         return self.eval_with(self.policy_fn, self.value_fn, states)
 
+    @track("device_mcts.eval_batch_komi")
     def eval_batch_komi(self, states: GoState, komi: torch.Tensor):
         """:meth:`eval_batch` with a komi per row (f32 ``[B]``):
         terminal rows score as if played under ``komi[i]``; rows at
         ``cfg.komi`` score as :meth:`eval_batch`'s bit for bit."""
         return self.eval_with(self.policy_fn, self.value_fn, states, komi)
 
+    @track("device_mcts.eval_key")
     def eval_key(self, states: GoState) -> torch.Tensor:
         """The eval signatures of a batch of states (int64 ``[B, 2]``,
         :func:`~rocalphago_tpu_torch.engine.torchgo.eval_signature`):
@@ -320,11 +334,13 @@ class DeviceMCTS:
             n_nodes=torch.ones((b,), dtype=torch.int32, device=dev),
             root=torch.zeros((b,), dtype=torch.int32, device=dev))
 
+    @track("device_mcts.init")
     @torch.no_grad()
     def init(self, roots: GoState) -> DeviceTree:
-        root_priors, _ = self.eval_batch(roots)
+        root_priors, _ = self.eval_with(self.policy_fn, self.value_fn, roots)
         return self.assemble_tree(roots, root_priors)
 
+    @track("device_mcts.init_cached")
     @torch.no_grad()
     def init_cached(self, roots: GoState, caches):
         """:meth:`init` with the root planes through the incremental
@@ -363,8 +379,9 @@ class DeviceMCTS:
         eval_states = torchgo.where_rows(expanding, stepped, parent_states)
         return SimStep(node=node, safe_action=safe_action.int(),
                        expanding=expanding, eval_states=eval_states,
-                       eval_keys=(self.eval_key(eval_states) if keys
-                                  else None))
+                       eval_keys=(torchgo.eval_signature(self.cfg,
+                                                         eval_states)
+                                  if keys else None))
 
     @torch.no_grad()
     def apply_sim(self, tree: DeviceTree, ctx: SimStep, priors: torch.Tensor,
@@ -423,23 +440,46 @@ class DeviceMCTS:
                  root_actions: torch.Tensor | None = None,
                  active: torch.Tensor | None = None) -> DeviceTree:
         """One lockstep simulation of every game, in place:
-        :meth:`prepare_sim` → :meth:`eval_batch` → :meth:`apply_sim`
+        :meth:`prepare_sim` → :meth:`eval_with` → :meth:`apply_sim`
         (``active`` as there)."""
         if root_actions is None:
             root_actions = self._free(tree)
         ctx = self.prepare_sim(tree, root_actions)
-        priors, values = self.eval_batch(ctx.eval_states)
+        priors, values = self.eval_with(self.policy_fn, self.value_fn,
+                                        ctx.eval_states)
         return self.apply_sim(tree, ctx, priors, values, active)
 
     # ------------------------------------------------------ driving
 
     @torch.no_grad()
+    def _sims(self, tree: DeviceTree, root_actions: torch.Tensor, j0: int,
+              k: int, budget: torch.Tensor | None = None) -> DeviceTree:
+        """Simulations ``j0 .. j0 + k - 1`` in place; with ``budget``
+        (i32 ``[B]``) simulation ``j`` runs only on the rows whose budget
+        exceeds ``j``."""
+        for j in range(j0, j0 + k):
+            self.simulate(tree, root_actions,
+                          None if budget is None else budget > j)
+        return tree
+
+    # the chunk loop's program, one call a chunk: the reference's
+    # run_sims_donated, and under the playout caps its
+    # run_sims_budget_donated
+    @track("device_mcts.run_sims")
+    def _chunk(self, tree: DeviceTree, root_actions: torch.Tensor, j0: int,
+               k: int) -> DeviceTree:
+        return self._sims(tree, root_actions, j0, k)
+
+    @track("device_mcts.run_sims_budget")
+    def _chunk_budget(self, tree: DeviceTree, root_actions: torch.Tensor,
+                      j0: int, k: int, budget: torch.Tensor) -> DeviceTree:
+        return self._sims(tree, root_actions, j0, k, budget)
+
+    @track("device_mcts.run_sims")
+    @torch.no_grad()
     def run_sims(self, tree: DeviceTree, k: int) -> DeviceTree:
         """``k`` simulations on a copy of ``tree``."""
-        tree = copy_tree(tree)
-        for _ in range(k):
-            self.simulate(tree)
-        return tree
+        return self._sims(copy_tree(tree), self._free(tree), 0, k)
 
     @torch.no_grad()
     def run_sims_chunked(self, tree: DeviceTree, chunk: int,
@@ -473,9 +513,10 @@ class DeviceMCTS:
                 break
             faults.barrier("search.chunk", done // chunk)
             k = min(chunk, n - done)
-            for i in range(k):
-                self.simulate(tree, free, None if budget is None
-                              else budget > done + i)
+            if budget is None:
+                self._chunk(tree, free, done, k)
+            else:
+                self._chunk_budget(tree, free, done, k, budget)
             pipe.push()
             ran += k
         pipe.drain()
@@ -732,6 +773,17 @@ class GumbelMCTS:
                            cand[:, 0]).contiguous()
 
     @torch.no_grad()
+    def _phase(self, tree: DeviceTree, g: torch.Tensor, cand: torch.Tensor,
+               j0: int, count: int, k: int, ran0: int,
+               budget: torch.Tensor | None) -> DeviceTree:
+        for i in range(count):
+            self.base.simulate(tree,
+                               self.forced_candidate(g, cand, (j0 + i) % k),
+                               None if budget is None
+                               else budget > ran0 + i)
+        return tree
+
+    @track("device_mcts.run_phase")
     def run_phase(self, tree: DeviceTree, g: torch.Tensor,
                   cand: torch.Tensor, j0: int, count: int, k: int,
                   ran0: int = 0,
@@ -740,12 +792,15 @@ class GumbelMCTS:
         forces candidate slot ``(j0 + i) % k``. ``budget`` (i32 ``[B]``)
         counts the plan's simulations globally (``ran0`` already run):
         a row past its budget keeps its slab bit for bit."""
-        for i in range(count):
-            self.base.simulate(tree,
-                               self.forced_candidate(g, cand, (j0 + i) % k),
-                               None if budget is None
-                               else budget > ran0 + i)
-        return tree
+        return self._phase(tree, g, cand, j0, count, k, ran0, budget)
+
+    # the chunk loop's call under the playout caps: the reference's
+    # run_phase_budget_donated
+    @track("device_mcts.run_phase_budget")
+    def _run_phase_budget(self, tree: DeviceTree, g: torch.Tensor,
+                          cand: torch.Tensor, j0: int, count: int, k: int,
+                          ran0: int, budget: torch.Tensor) -> DeviceTree:
+        return self._phase(tree, g, cand, j0, count, k, ran0, budget)
 
     @torch.no_grad()
     def __call__(self, roots: GoState, generator: torch.Generator | None = None,
@@ -801,7 +856,11 @@ class GumbelMCTS:
                 count = min(chunk, total - j0)
                 if n is not None:
                     count = min(count, n - ran)
-                self.run_phase(tree, g, cand, j0, count, k, ran, budget)
+                if budget is None:
+                    self.run_phase(tree, g, cand, j0, count, k, ran)
+                else:
+                    self._run_phase_budget(tree, g, cand, j0, count, k, ran,
+                                           budget)
                 pipe.push()
                 ran += count
             cand = self.rerank(tree, g, cand, k)

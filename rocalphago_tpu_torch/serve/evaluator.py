@@ -118,6 +118,22 @@ def take_rows(states: GoState, idx: torch.Tensor) -> GoState:
     return GoState(*(x[idx] for x in states))
 
 
+def _next_run(queue: deque, max_batch: int) -> tuple[list, int]:
+    """Pop the next single-version run of whole requests that fits
+    ``max_batch`` off ``queue`` (which the caller has locked):
+    ``(requests, rows)``."""
+    take, total = [], 0
+    while queue and total + queue[0].rows <= max_batch:
+        if take and queue[0].version != take[0].version:
+            # never coalesce across a version edge: one device batch,
+            # one net
+            break
+        req = queue.popleft()
+        take.append(req)
+        total += req.rows
+    return take, total
+
+
 class _Pending:
     """A submitted evaluation request: rows in, a future out. ``komi``
     is None (the pool's pinned komi) or the request's own komi -- a
@@ -414,22 +430,6 @@ class BatchingEvaluator:
                 return s
         return self.max_batch
 
-    def _take(self):
-        """Pop the next single-version run of whole requests that fits
-        ``max_batch``; called with ``_cond`` held."""
-        take, total = [], 0
-        while self._queue and (
-                total + self._queue[0].rows <= self.max_batch):
-            if take and self._queue[0].version != take[0].version:
-                # never coalesce across a version edge: one device
-                # batch, one net
-                break
-            req = self._queue.popleft()
-            take.append(req)
-            total += req.rows
-        self._pending_rows -= total
-        return take, total
-
     def _loop(self) -> None:
         # grad mode is per thread: the dispatcher sets its own
         with torch.no_grad():
@@ -453,7 +453,8 @@ class BatchingEvaluator:
                         if age >= self.max_wait_s:
                             break
                         self._cond.wait(self.max_wait_s - age)
-                    take, total = self._take()
+                    take, total = _next_run(self._queue, self.max_batch)
+                    self._pending_rows -= total
                     depth = self._pending_rows
                 self._depth_g.set(depth)
                 if take:
@@ -678,7 +679,8 @@ class BatchingEvaluator:
     def drain_once(self) -> None:
         """Tests (``start=False``): run one dispatch round inline."""
         with self._cond:
-            take, total = self._take()
+            take, total = _next_run(self._queue, self.max_batch)
+            self._pending_rows -= total
         if take:
             self._dispatch(take, total)
 

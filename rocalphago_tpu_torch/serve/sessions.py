@@ -55,6 +55,7 @@ import torch
 from rocalphago_tpu_torch.engine import torchgo
 from rocalphago_tpu_torch.models.nn_util import working_copy
 from rocalphago_tpu_torch.obs import registry as obs_registry
+from rocalphago_tpu_torch.obs.torchobs import track
 from rocalphago_tpu_torch.runtime.deadline import Deadline
 from rocalphago_tpu_torch.serve.admission import AdmissionController
 from rocalphago_tpu_torch.serve.evaluator import BatchingEvaluator
@@ -386,11 +387,16 @@ class ServePool:
             cache = None
         self.eval_cache = cache
         # version 0: working copies of the nets, cast once
+        # the evaluator's two programs, tracked under the reference's
+        # entry names (obs.torchobs)
         self.evaluator = BatchingEvaluator(
-            self.search.eval_with, working_copy(policy_net.module),
+            track("device_mcts.eval_batch", self.search.eval_with),
+            working_copy(policy_net.module),
             working_copy(value_net.module),
             batch_sizes=batch_sizes, max_wait_us=max_wait_us,
-            admission=self.admission, eval_komi_fn=self.search.eval_with,
+            admission=self.admission,
+            eval_komi_fn=track("device_mcts.eval_batch_komi",
+                               self.search.eval_with),
             default_komi=self.cfg.komi, cache=cache,
             key_fn=self.search.eval_key, board=self.board)
         self.warmed = False

@@ -116,7 +116,10 @@ class DispatchGang:
         gang."""
         if self._mesh is None:
             with self._lock:
-                return fn(*args, **kwargs)
+                # the callback IS the protected resource (an atomic
+                # device section), not a re-entrancy hazard: sections
+                # never touch the gang from inside
+                return fn(*args, **kwargs)  # jaxlint: disable=callback-under-lock
         import torch
 
         code = zlib.crc32(name.encode())
@@ -124,7 +127,8 @@ class DispatchGang:
             with self._lock:
                 self._mesh.broadcast(torch.tensor(
                     [code], dtype=torch.int64, device=self._mesh.device))
-                return fn(*args, **kwargs)
+                # as above: the section is what the gang protects
+                return fn(*args, **kwargs)  # jaxlint: disable=callback-under-lock
         self._await_ticket(code)
         try:
             return fn(*args, **kwargs)

@@ -90,6 +90,7 @@ from rocalphago_tpu_torch.models.weights import (
 )
 from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.obs.torchobs import flush_untracked, track
 from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults, retries
 from rocalphago_tpu_torch.runtime.pipeline import ChunkPipeline
@@ -269,6 +270,17 @@ class RLIteration:
                               self.move_limit, self.temperature,
                               device=self.device, mesh=self.mesh)
 
+    @track("rl.replay_segment")
+    def replay_segment(self, states: GoState, z: torch.Tensor,
+                       result: SelfplayResult, live: torch.Tensor,
+                       offset: int, end: int) -> GoState:
+        """Replay plies ``offset .. end - 1``, accumulating into
+        ``.grad``; returns the stepped states."""
+        for t in range(offset, end):
+            states = self.replay_ply(states, z, result.actions[t], live[t],
+                                     t)
+        return states
+
     def replay(self, result: SelfplayResult) -> torch.Tensor:
         """Accumulate the iteration's gradient in the module's
         ``.grad`` (summed over the ranks); returns the learner's outcomes
@@ -283,9 +295,8 @@ class RLIteration:
                 else None)
         with trace.span("rl.replay", plies=plies):
             for offset in range(0, plies, span):
-                for t in range(offset, min(offset + span, plies)):
-                    states = self.replay_ply(states, z, result.actions[t],
-                                             live[t], t)
+                states = self.replay_segment(states, z, result, live, offset,
+                                             min(offset + span, plies))
                 if pipe is not None:
                     pipe.push()
             if pipe is not None:
@@ -515,6 +526,7 @@ class RLTrainer:
                         self.ckpt.save(it + 1, self.state.state_dict())
                         faults.barrier("rl.post_save", it)
         # the run's counter and histogram state, for obs_report
+        flush_untracked()
         obs_registry.log_to(self.metrics)
         self.metrics.close()
         return final

@@ -64,6 +64,7 @@ from rocalphago_tpu_torch.io.metrics import MetricsLogger
 from rocalphago_tpu_torch.models.nn_util import NeuralNetBase
 from rocalphago_tpu_torch.obs import registry as obs_registry
 from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.obs.torchobs import flush_untracked, track
 from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults
 from rocalphago_tpu_torch.training.symmetries import (
@@ -326,9 +327,11 @@ class SLTrainer:
     def make_steps(self, module, optimizer, lr_at):
         size = self.net.board
         mesh = self.mesh if self.mesh.sharded else None
-        return (make_train_step(module, optimizer, lr_at, size,
-                                self.cfg.symmetries, mesh=mesh),
-                make_eval_step(module, size * size, mesh=mesh))
+        return (track("sl.train_step", make_train_step(
+                    module, optimizer, lr_at, size, self.cfg.symmetries,
+                    mesh=mesh)),
+                track("sl.eval_step", make_eval_step(module, size * size,
+                                                     mesh=mesh)))
 
     # ----------------------------------------------------------- resume
 
@@ -433,6 +436,7 @@ class SLTrainer:
             meta.update(**fields)
             self.metrics.log("test", **test)
         # the run's counter and histogram state, for obs_report
+        flush_untracked()
         obs_registry.log_to(self.metrics)
         self.metrics.close()
         return final

@@ -25,6 +25,7 @@ import sys
 
 import torch
 
+from rocalphago_tpu_torch.obs.torchobs import track
 from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.training.sl import (
     SLConfig,
@@ -112,9 +113,10 @@ class ValueTrainer(SLTrainer):
 
     def make_steps(self, module, optimizer, lr_at):
         mesh = self.mesh if self.mesh.sharded else None
-        return (make_train_step(module, optimizer, lr_at,
-                                self.cfg.symmetries, mesh=mesh),
-                make_eval_step(module, mesh=mesh))
+        return (track("value.train_step", make_train_step(
+                    module, optimizer, lr_at, self.cfg.symmetries,
+                    mesh=mesh)),
+                track("value.eval_step", make_eval_step(module, mesh=mesh)))
 
 
 def run_training(argv=None) -> dict:

@@ -112,7 +112,7 @@ from rocalphago_tpu_torch.features.pyfeatures import (
     output_planes,
 )
 from rocalphago_tpu_torch.obs import registry as obs_registry
-from rocalphago_tpu_torch.obs import trace
+from rocalphago_tpu_torch.obs import torchobs, trace
 from rocalphago_tpu_torch.ops.labels import terminal_labels
 from rocalphago_tpu_torch.parallel import mesh as meshlib
 from rocalphago_tpu_torch.runtime import faults
@@ -381,6 +381,20 @@ class ZeroIteration:
             stats = torch.stack([p.detach() for p in parts])
             return step(cfg, states, actions_t, gd), stats
 
+    @torchobs.track("zero.replay_segment")
+    def replay_segment(self, state: ZeroState, states, stats, winners,
+                       finished, aux_labels, record, offset: int, end: int):
+        """Replay plies ``offset .. end - 1`` of ``record`` (``(actions,
+        live, visits, full)``, time-major) into ``.grad``; returns
+        ``(stepped states, stats plus the plies' stats)``."""
+        actions, live_f, visits, full_f = record
+        for t in range(offset, end):
+            states, st = self.replay_ply(
+                state, states, winners, finished, aux_labels, actions[t],
+                live_f[t], visits[t], None if full_f is None else full_f[t])
+            stats = stats + st
+        return states, stats
+
     def _record(self, games: ZeroGames):
         """The record's tensors on the device, cast as the loss wants."""
         dev = self.device
@@ -429,13 +443,10 @@ class ZeroIteration:
         pipe = ChunkPipeline(self.device, runner="zero.replay")
         with trace.span("zero.replay", plies=plies), torch.enable_grad():
             for offset in range(0, plies, self.replay_chunk):
-                for t in range(offset, min(offset + self.replay_chunk,
-                                           plies)):
-                    states, st = self.replay_ply(
-                        state, states, wf, finished, aux_labels, actions[t],
-                        live_f[t], visits[t],
-                        None if full_f is None else full_f[t])
-                    stats = stats + st
+                states, stats = self.replay_segment(
+                    state, states, stats, wf, finished, aux_labels,
+                    (actions, live_f, visits, full_f), offset,
+                    min(offset + self.replay_chunk, plies))
                 pipe.push()
             pipe.finish()
         if self.mesh is not None:
@@ -449,6 +460,7 @@ class ZeroIteration:
             return self.apply_updates(state, stats, winners, finished,
                                       num_moves)
 
+    @torchobs.track("zero.apply_updates")
     def apply_updates(self, state: ZeroState, stats, winners, finished,
                       num_moves):
         """One SGD step per net, the metrics, and the chain stepped."""
@@ -753,33 +765,6 @@ def _parser() -> argparse.ArgumentParser:
 PROFILE_TRACE = "zero.trace.json"
 
 
-def start_profile(out_dir: str, device: torch.device):
-    """Start the ``--profile-dir`` capture (host operations, and the
-    card's kernels when ``device`` is CUDA); emits the reference's
-    ``profiler`` start event. Returns the running profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(out_dir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
-    trace.emit("profiler", action="start", out_dir=out_dir)
-    print(f"zero: profiler capture -> {out_dir}", file=sys.stderr)
-    return prof
-
-
-def stop_profile(prof, out_dir: str) -> str:
-    """Stop the capture, write its Chrome trace into ``out_dir`` and emit
-    the ``profiler`` stop event; returns the trace's path."""
-    prof.stop()
-    path = os.path.join(out_dir, PROFILE_TRACE)
-    prof.export_chrome_trace(path)
-    trace.emit("profiler", action="stop", out_dir=out_dir)
-    return path
-
-
 def run_training(argv=None) -> dict:
     """CLI: ``python -m rocalphago_tpu_torch.training.zero policy.json
     value.json out_dir [...]`` -- the reference's flags and artifacts:
@@ -881,8 +866,7 @@ def run_training(argv=None) -> dict:
         echo=coord)
     # spans share the metrics stream; the opt-in capture brackets the run
     trace.configure(metrics)
-    profiler = (start_profile(a.profile_dir, dev) if a.profile_dir
-                else None)
+    torchobs.maybe_start_profiler(a.profile_dir, dev, PROFILE_TRACE)
     meta = MetadataWriter(
         os.path.join(a.out_dir, "metadata.json"),
         header={"cmd": " ".join(sys.argv), "config": vars(a),
@@ -1184,8 +1168,7 @@ def run_training(argv=None) -> dict:
                 restarts=sum(h.restarts for h in sup.handles()),
                 games_played=sum(h.worker.games_played for h in
                                  sup.handles() if h.worker is not None))
-        if profiler is not None:
-            stop_profile(profiler, a.profile_dir)
+        torchobs.stop_profiler()
     if drained:
         # commit the drain point (no export: exports happen at save
         # boundaries, which the resumed run reproduces); a drain exits 0
@@ -1195,13 +1178,17 @@ def run_training(argv=None) -> dict:
                     reason=sup.drain_reason)
     if watchdog is not None:
         watchdog.stop()
+    # launches outside every tracked entry, so the registry's
+    # kernel_launches_total accounts for each launch of the run
+    torchobs.flush_untracked()
     if mesh.sharded:
-        from rocalphago_tpu_torch.ops import chase, labels, tree
-
-        print(f"zero: rank {mesh.rank} of {mesh.width} on {dev} "
-              f"({mesh.backend}): kernel launches " + json.dumps(
-                  {"labels": labels.launches, "chase": chase.launches,
-                   "tree": tree.launches}), file=sys.stderr, flush=True)
+        # one write per line (see parallel.mesh.distributed_init)
+        sys.stderr.write(
+            f"zero: rank {mesh.rank} of {mesh.width} on {dev} "
+            f"({mesh.backend}): kernel launches "
+            + json.dumps(torchobs.registry_launches()) + " process "
+            + json.dumps(torchobs.process_launches()) + "\n")
+        sys.stderr.flush()
     # the run's counter and histogram state, for obs_report
     obs_registry.log_to(metrics)
     metrics.close()

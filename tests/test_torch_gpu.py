@@ -148,6 +148,29 @@ def test_card_encode_equals_cpu_encode(cuda_device):
     assert torch.equal(gpu.cpu(), cpu)
 
 
+def test_tracked_encode_counts_the_launches_the_process_made(cuda_device):
+    from rocalphago_tpu_torch.obs import registry, torchobs
+
+    cfg = torchgo.GoConfig(size=19)
+    states = torchgo.from_pygo(cfg, random_positions(19, 32, 20, 220, 3),
+                               device=cuda_device)
+    pre = Preprocess(cfg=cfg, device=cuda_device)
+    key = 'kernel_launches_total{{entry="encode.batch",kernel="{}"}}'
+
+    def counts():
+        snap = registry.snapshot()["counters"]
+        return ({k: snap.get(key.format(k), 0) for k in torchobs.KERNELS},
+                torchobs.process_launches())
+
+    (reg0, proc0) = counts()
+    for _ in range(3):
+        pre.states_to_tensor(states)
+    reg1, proc1 = counts()
+    grown = {k: proc1[k] - proc0[k] for k in torchobs.KERNELS}
+    assert grown["chase"] > 0
+    assert {k: reg1[k] - reg0[k] for k in torchobs.KERNELS} == grown
+
+
 def test_genmove_launches_both_kernels(cuda_device):
     net = CNNPolicy(board=19, layers=3, filters_per_layer=16, seed=0,
                     device=cuda_device)

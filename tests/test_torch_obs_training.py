@@ -75,8 +75,20 @@ ROWS = [
     ("data/replay.py", "data/replay.py"),
     ("runtime/supervisor.py", "runtime/supervisor.py"),
     ("interface/selfplay_cli.py", "interface/selfplay_cli.py"),
+    ("obs/jaxobs.py", "obs/torchobs.py"),
 ]
 METRIC_KINDS = ("counter", "gauge", "histogram")
+
+#: the divergences of a row: the reference's names the port drops and
+#: the port's own. The port compiles nothing at run time, so the
+#: reference's compile series go, and each tracked call counts its
+#: kernel launches instead.
+DIVERGENT = {
+    "obs/jaxobs.py": (
+        {("counter", "jax_compiles_total", ("entry",), None),
+         ("histogram", "jax_compile_seconds", ("entry",), None)},
+        {("counter", "kernel_launches_total", ("entry", "kernel"), None)}),
+}
 
 
 def _name_pattern(node):
@@ -137,8 +149,13 @@ def test_inventory_is_the_references(ref, port):
     want = inventory(os.path.join(REF, ref))
     got = expand(inventory(os.path.join(PORT, port)), phase)
     assert want, ref
-    assert got == want, (sorted(want - got, key=str),
-                         sorted(got - want, key=str))
+    dropped, added = DIVERGENT.get(ref, (set(), set()))
+    # each listed divergence is real: in one package and not the other
+    assert dropped <= want and not dropped & got, dropped
+    assert added <= got and not added & want, added
+    assert got - added == want - dropped, (
+        sorted((want - dropped) - got, key=str),
+        sorted((got - added) - want, key=str))
 
 
 def test_inventory_of_obs():
@@ -212,9 +229,17 @@ def test_sl_trainer_span_records_and_registry(tmp_path):
     snaps = [records(str(tmp_path / side / "metrics.jsonl"),
                      "registry")[-1]["snapshot"] for side in ("ref", "port")]
     for kind in ("counters", "gauges", "histograms"):
-        keys = [{k for k in s[kind] if not k.startswith("jax_")}
-                for s in snaps]
+        keys = [{k for k in s[kind] if not k.startswith(
+            ("jax_", "kernel_launches_total"))} for s in snaps]
         assert keys[0] == keys[1], kind
+    # the port's launch series in their place: each tracked step and the
+    # untracked rest, every kernel at 0 on the CPU
+    launches = {k: v for k, v in snaps[1]["counters"].items()
+                if k.startswith("kernel_launches_total")}
+    assert launches == {
+        f'kernel_launches_total{{entry="{e}",kernel="{k}"}}': 0
+        for e in ("sl.train_step", "sl.eval_step", "untracked")
+        for k in ("labels", "chase", "tree")}
     key = 'train_data_wait_seconds{trainer="sl"}'
     counts = [s["histograms"][key]["count"] for s in snaps]
     assert counts[0] == counts[1] == 4     # 3 steps, and the 4th batch
