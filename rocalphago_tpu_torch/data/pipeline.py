@@ -6,7 +6,9 @@ it stands, so that a seed gives the reference's split files and batch
 orders bit for bit (the same permutations, the same ``skip`` cursor).
 :func:`device_prefetch` stages batches on the card from a worker
 thread: pinned host copies, ``non_blocking`` transfers on a side CUDA
-stream, and an event per batch that the consumer's stream waits on.
+stream, and an event per batch that the consumer's stream waits on;
+it counts its own work in the registry (:mod:`..obs.registry`): each
+stage of the worker, and the consumer's gets that found nothing staged.
 Dihedral augmentation runs on the device in the train step
 (:mod:`..training.symmetries`), not per sample on the host.
 """
@@ -17,10 +19,13 @@ import json
 import os
 import queue
 import threading
+import time
 import zipfile
 
 import numpy as np
 import torch
+
+from rocalphago_tpu_torch.obs import registry as obs_registry
 
 
 class ShardedDataset:
@@ -164,7 +169,7 @@ def batch_iterator(dataset, indices: np.ndarray, batch_size: int,
         epoch += 1
 
 
-def device_prefetch(host_iter, device, size: int = 2):
+def device_prefetch(host_iter, device, size: int = 2, registry=None):
     """Stage host batches (tuples of numpy arrays) on ``device`` ahead
     of consumption; yields tuples of tensors.
 
@@ -181,6 +186,21 @@ def device_prefetch(host_iter, device, size: int = 2):
     pending ``put`` sees the stop within its 100 ms poll, and the
     worker is joined (5 s cap -- it may be inside one last host batch
     read).
+
+    Every batch is counted in ``registry`` (the process default when
+    None), on CUDA and on the CPU alike. The worker times each staged
+    batch's stages in ``prefetch_stage_seconds{stage=}`` (wall) and
+    ``prefetch_stage_cpu_seconds_total{stage=}`` (its own thread's CPU,
+    ``read`` and ``pin`` only): ``read`` is the ``next()`` on
+    ``host_iter`` (batch order, gather, shard loads), ``pin`` the host
+    tensors, the pinned copies and the event queued on the side stream
+    (host time only), ``put`` the time blocked on a full queue (the
+    worker's slack). The consumer counts the batches it hands out
+    (``prefetch_batches_total``), the gets that found the queue empty
+    (``prefetch_starved_total``) and their wait
+    (``prefetch_starved_seconds_total``). CPU seconds are the worker
+    thread's alone: a wait for a core or the GIL, and torch's intra-op
+    helper threads in the pin copy, read as wall time without CPU.
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -188,6 +208,15 @@ def device_prefetch(host_iter, device, size: int = 2):
     q: queue.Queue = queue.Queue(maxsize=size)
     stop = threading.Event()
     _END = object()
+    reg = registry or obs_registry.REGISTRY
+    read_s, pin_s, put_s = (reg.histogram("prefetch_stage_seconds",
+                                          stage=name)
+                            for name in ("read", "pin", "put"))
+    read_cpu, pin_cpu = (reg.counter("prefetch_stage_cpu_seconds_total",
+                                     stage=name) for name in ("read", "pin"))
+    handed = reg.counter("prefetch_batches_total")
+    starved = reg.counter("prefetch_starved_total")
+    starved_s = reg.counter("prefetch_starved_seconds_total")
 
     def stage(item):
         host = [torch.from_numpy(np.ascontiguousarray(a)) for a in item]
@@ -215,9 +244,32 @@ def device_prefetch(host_iter, device, size: int = 2):
         try:
             if cuda and device.index is not None:
                 torch.cuda.set_device(device)
-            for item in host_iter:
-                if not put(stage(item)):
+            it = iter(host_iter)
+            # a stage's CPU clock pair lies inside its wall clock pair,
+            # so its CPU seconds never exceed its wall seconds (a
+            # tick-based thread clock keeps that only over many batches)
+            w0 = time.monotonic()
+            while True:
+                c0 = time.thread_time()
+                item = next(it, _END)
+                if item is _END:
+                    break
+                c1 = time.thread_time()
+                w1 = time.monotonic()
+                c2 = time.thread_time()
+                staged = stage(item)
+                c3 = time.thread_time()
+                w2 = time.monotonic()
+                queued = put(staged)
+                w3 = time.monotonic()
+                read_s.observe(w1 - w0)
+                read_cpu.inc(c1 - c0)
+                pin_s.observe(w2 - w1)
+                pin_cpu.inc(c3 - c2)
+                put_s.observe(w3 - w2)
+                if not queued:
                     return
+                w0 = w3
             put(_END)
         except BaseException as e:  # noqa: BLE001 — relayed to consumer
             put(e)
@@ -226,7 +278,12 @@ def device_prefetch(host_iter, device, size: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item, waited = q.get_nowait(), None
+            except queue.Empty:
+                t0 = time.monotonic()
+                item = q.get()
+                waited = time.monotonic() - t0
             if item is _END:
                 return
             if isinstance(item, BaseException):
@@ -237,6 +294,10 @@ def device_prefetch(host_iter, device, size: int = 2):
                 consumer.wait_event(ready)
                 for x in tensors:
                     x.record_stream(consumer)
+            handed.inc()
+            if waited is not None:
+                starved.inc()
+                starved_s.inc(waited)
             yield tensors
     finally:
         stop.set()

@@ -18,17 +18,16 @@ entry ``untracked`` when :func:`flush_untracked` runs (the CLIs call it
 before they write the registry): then the series of a kernel sum to its
 process total (``ops.<kernel>.launches``). The counts are per thread
 (``ops._build.THREAD``), so the fleet's, the gang's and the serve
-pool's threads each count only their own launches. A call costs two
-clock reads and the three integer reads before and after; it never
-syncs with the card.
+pool's threads each count only their own launches. A call costs the
+three integer reads before and after; it reads no clock, takes no lock
+and never syncs with the card.
 
-As in the reference, the wrapper keeps ``calls``, ``first_call_s``
-(the first call's wall, which includes building the kernels at first
-use) and ``steady_ema_s`` (an EMA, 0.9/0.1, of the later calls' walls:
-host dispatch time, since nothing waits for the card), and delegates
-every other attribute to the wrapped callable. The reference's compile
-series (``jax_compiles_total``, ``jax_compile_seconds``) and its
-``compile`` event have no counterpart: nothing compiles.
+The wrapper delegates every other attribute to the wrapped callable.
+Unlike the reference's, it keeps no per-call timing (no ``calls``,
+``first_call_s``, ``steady_ema_s`` or ``stats()``: nothing read them).
+The reference's compile series (``jax_compiles_total``,
+``jax_compile_seconds``) and its ``compile`` event have no
+counterpart: nothing compiles.
 
 PROFILER CAPTURE -- :func:`maybe_start_profiler` starts a
 ``torch.profiler`` capture (host operations, and the card's kernels
@@ -46,7 +45,6 @@ import contextlib
 import os
 import sys
 import threading
-import time
 import types
 
 from rocalphago_tpu_torch.obs import registry as _registry
@@ -60,40 +58,24 @@ UNTRACKED = "untracked"
 
 
 class TrackedFunction:
-    """Callable wrapper; see module docstring. Attributes: ``entry``
-    (name), ``calls``, ``first_call_s``, ``steady_ema_s``; everything
-    else delegates to the wrapped callable. As a class attribute it
-    binds like a method."""
+    """Callable wrapper; see module docstring. Attribute: ``entry``
+    (name); everything else delegates to the wrapped callable. As a
+    class attribute it binds like a method."""
 
     def __init__(self, entry: str, fn, registry=None):
         self._fn = fn
         self.entry = entry
         #: where the series go (None: the process default at each call)
         self.registry = registry
-        self._lock = threading.Lock()
-        self.calls = 0                  # guarded-by: self._lock
-        self.first_call_s = None        # guarded-by: self._lock
-        self.steady_ema_s = None        # guarded-by: self._lock
 
     def __call__(self, *args, **kwargs):
         thread = _build.THREAD
         before = list(thread.counts)
         thread.frames.append([0] * len(KERNELS))
-        t0 = time.monotonic()
         try:
-            out = self._fn(*args, **kwargs)
-            dt = time.monotonic() - t0
+            return self._fn(*args, **kwargs)
         finally:
             self._count(thread, before, thread.frames.pop())
-        with self._lock:
-            self.calls += 1
-            if self.calls == 1:
-                self.first_call_s = dt
-            else:
-                ema = self.steady_ema_s
-                self.steady_ema_s = (dt if ema is None
-                                     else 0.9 * ema + 0.1 * dt)
-        return out
 
     def _count(self, thread, before: list, nested: list) -> None:
         """Record this call's own launches (those of nested tracked
@@ -119,16 +101,8 @@ class TrackedFunction:
             raise AttributeError(item)
         return getattr(self._fn, item)
 
-    def stats(self) -> dict:
-        with self._lock:
-            return {"entry": self.entry, "calls": self.calls,
-                    "first_call_s": self.first_call_s,
-                    "steady_ema_s": self.steady_ema_s}
-
     def __repr__(self) -> str:
-        with self._lock:
-            calls = self.calls
-        return f"TrackedFunction({self.entry!r}, calls={calls})"
+        return f"TrackedFunction({self.entry!r})"
 
 
 def track(entry: str, fn=None, registry=None):

@@ -23,10 +23,18 @@ Span durations are host wall time. CUDA work is queued, not waited
 for, so a span around a phase that only launches kernels closes when
 the host has queued them; a phase's device remainder lands in the
 first span that reads a result back (the trainers' metrics read).
+
+While a ``torch.profiler`` capture records the calling thread, a span
+also opens a ``torch.profiler.record_function`` range of its name, so
+the program's phases sit on the capture's timeline beside the card's
+kernels (``start`` and the profiler read the same epoch clock). The
+record written to the sink is the same with or without a capture. The
+module never imports torch: it looks for it among the loaded modules.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 
@@ -75,12 +83,13 @@ class span:
     an ``error`` string (the exception is NOT swallowed).
     """
 
-    __slots__ = ("name", "tags", "_frame", "_ident")
+    __slots__ = ("name", "tags", "_frame", "_ident", "_range")
 
     def __init__(self, name: str, **tags):
         self.name = name
         self.tags = tags
         self._frame = None
+        self._range = None
 
     def __enter__(self) -> "span":
         f = _Frame()
@@ -98,11 +107,14 @@ class span:
             stack.append(f)
         self._frame = f
         self._ident = ident
+        self._range = _profiler_range(self.name)
         return self
 
     def __exit__(self, et, ev, tb):
         f = self._frame
         dur = time.monotonic() - f.t0
+        if self._range is not None:
+            self._range.__exit__(et, ev, tb)
         with _lock:
             stack = _stacks.get(self._ident)
             if stack and stack[-1] is f:
@@ -122,6 +134,17 @@ class span:
         fields.update(self.tags)
         emit("span", **fields)
         return False
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` when a
+    ``torch.profiler`` capture records this thread, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 def current_path() -> str | None:

@@ -911,8 +911,9 @@ def test_zero_iterations_on_the_card_repeat_bit_for_bit(cuda_device):
 def test_zero_cli_profile_dir_traces_the_kernels(cuda_device, tmp_path):
     """``--profile-dir`` on a 5×5 zero CLI run on the card (48- and
     49-plane nets, so every encode reads ladders): the Chrome trace it
-    writes holds chase launches, and the run's stream the profiler's
-    start and stop records."""
+    writes holds chase, labels and tree launches beside the zero loop's
+    spans as ranges, and the run's stream the profiler's start and stop
+    records."""
     import json
 
     from rocalphago_tpu_torch.models import CNNValue
@@ -930,8 +931,11 @@ def test_zero_cli_profile_dir_traces_the_kernels(cuda_device, tmp_path):
                        "--gate-games", "2", "--profile-dir", str(prof)])
     with open(prof / zero.PROFILE_TRACE) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("cat") == "kernel" and "chase_kernel" in e["name"]
-               for e in events)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for name in ("chase_kernel", "labels_kernel", "descend_kernel"):
+        assert any(name in k for k in kernels), name
+    assert {"zero.iteration", "zero.selfplay", "zero.replay"} <= {
+        e["name"] for e in events if e.get("cat") == "user_annotation"}
     with open(out / "metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
     assert [r["action"] for r in records if r["event"] == "profiler"] == [

@@ -2,8 +2,8 @@
 tracking (``obs/jaxobs.py``), on the CPU.
 
 * ``track``: the reference's call shapes (``track("name", fn)`` and the
-  decorator), its ``stats()`` keys less the compile fields, delegation,
-  and the same first-call / EMA timings under one scripted clock.
+  decorator) and delegation; the reference's wrapper times its calls,
+  the port's keeps no timing (no ``calls``, ``stats()`` or EMA).
 * The wrapped entry points: an ``ast`` scan of both packages finds the
   same entry names (the reference's donated programs share theirs, and
   have no attribute of their own in the port).
@@ -15,15 +15,20 @@ tracking (``obs/jaxobs.py``), on the CPU.
   device search, and through the zero CLI's ``metrics.jsonl``.
 * The profiler helpers moved out of the zero CLI: idempotent, their
   ``profiler`` events, ``--profile-dir`` still writing
-  ``zero.trace.json``.
+  ``zero.trace.json``, with the zero loop's spans in it.
+* The span mirror: inside a capture a span is a profiler range on the
+  capture's clock, outside one it opens none, its record is the same
+  either way, and ``obs/trace.py`` still runs without torch.
 """
 
 import ast
 import copy
 import json
 import os
+import subprocess
 import sys
 import threading
+import time
 import types
 
 import pytest
@@ -95,9 +100,10 @@ def launch(mod, n: int = 1) -> None:
 
 
 def test_track_matches_the_references_shapes_stats_and_timing(monkeypatch):
-    steps = [0.0, 2.0, 0.0, 0.5, 0.0, 0.25, 0.0, 1.0]
-    for mod in (jaxobs, torchobs):
-        monkeypatch.setattr(mod, "time", Clock(steps))
+    """The reference's call shapes and delegation; its wrapper times
+    each call, the port's keeps no timing at all."""
+    monkeypatch.setattr(jaxobs, "time", Clock(
+        [0.0, 2.0, 0.0, 0.5, 0.0, 0.25, 0.0, 1.0]))
     regs = (ref_registry.Registry(), registry.Registry())
     out = []
     for mod, reg in zip((jaxobs, torchobs), regs):
@@ -114,13 +120,19 @@ def test_track_matches_the_references_shapes_stats_and_timing(monkeypatch):
         with pytest.raises(AttributeError):
             direct.missing  # noqa: B018 - delegation reaches fn
         assert direct.entry == "t.direct"
-        out.append((direct.stats(), decorated.stats()))
-    (ref_d, ref_dec), (got_d, got_dec) = out
-    for want, got in ((ref_d, got_d), (ref_dec, got_dec)):
-        assert set(got) == set(want) - {"compiles"}
-        assert {k: want[k] for k in got} == got
-    assert got_d["calls"] == 3 and got_d["first_call_s"] == 2.0
-    assert got_d["steady_ema_s"] == pytest.approx(0.9 * 0.5 + 0.1 * 1.0)
+        assert decorated.entry == "t.decorated"
+        out.append(direct)
+    ref_d, got_d = out
+    want = ref_d.stats()
+    assert want["calls"] == 3 and want["first_call_s"] == 2.0
+    assert want["steady_ema_s"] == pytest.approx(0.9 * 0.5 + 0.1 * 1.0)
+    # the divergence: each timing field of the reference's is absent
+    # here, so a read of it reaches the wrapped function and fails
+    for name in ("calls", "first_call_s", "steady_ema_s", "stats"):
+        assert hasattr(ref_d, name)
+        with pytest.raises(AttributeError):
+            getattr(got_d, name)
+    assert not hasattr(got_d, "_lock")
     # the reference's compile series have no counterpart
     assert 'jax_compiles_total{entry="t.direct"}' in \
         regs[0].snapshot()["counters"]
@@ -143,7 +155,6 @@ def test_a_tracked_method_binds_and_copies(monkeypatch):
 
     assert isinstance(Search.run, torchobs.TrackedFunction)
     assert [Search(2).run(3), Search(1).run(5)] == [6, 5]
-    assert Search.run.calls == 2
     assert series(reg, "t.method") == {"labels": 0, "chase": 0, "tree": 3}
     clone = copy.copy(Search.run)
     assert clone.entry == "t.method" and clone(Search(1), 4) == 4
@@ -304,17 +315,20 @@ def test_the_encoder_and_the_device_search_count_their_launches(
                                device="cpu")
     pre = Preprocess(("board", "ones", "ladder_capture", "ladder_escape"),
                      cfg=cfg, device="cpu")
-    for _ in range(2):
-        pre.states_to_tensor(states)
+    pre.states_to_tensor(states)
+    first = series(reg, "encode.batch")["chase"]
+    pre.states_to_tensor(states)
     pre.state_signature(states)
     got = series(reg, "encode.batch")
-    assert got["chase"] == chase.launches > 0
+    # both encodes went through the batch entry, launching alike
+    assert got["chase"] == chase.launches == 2 * first > 0
     assert got["labels"] == got["tree"] == 0
     assert series(reg, "encode.signature") == dict.fromkeys(KERNELS, 0)
     one = torchgo.GoState(*(x[:1] for x in states))
     pre.advance(one)
     assert series(reg, "encode.delta")["chase"] > 0
-    assert pre._one.calls == 0 and pre._batch.calls == 2
+    # the single-position entry was never called: it made no series
+    assert series(reg, "encode.one") == dict.fromkeys(KERNELS)
 
     feats = ("board", "ones")
     pol = CNNPolicy(feats, board=size, layers=1, filters_per_layer=4,
@@ -363,6 +377,9 @@ def test_the_zero_cli_writes_its_launches_and_trace(stub_kernels,
         recs = [json.loads(line) for line in f]
     assert [r["action"] for r in recs if r["event"] == "profiler"] == [
         "start", "stop"]
+    with open(prof / zero.PROFILE_TRACE) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"zero.iteration", "zero.selfplay", "zero.replay"} <= names
     snap = [r for r in recs if r["event"] == "registry"][-1]["snapshot"]
     entries = {}
     for key, v in snap["counters"].items():
@@ -405,3 +422,60 @@ def test_the_profiler_helpers_are_idempotent_and_emit_events(tmp_path):
     assert [e for e in seen if e[0] == "profiler"] == [
         ("profiler", "start"), ("profiler", "stop"),
         ("profiler", "start"), ("profiler", "stop")]
+
+
+def kineto_ranges(prof, name: str) -> list:
+    """``(start_ns, end_ns)`` of the host ranges named ``name``."""
+    return [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.name() == name]
+
+
+def test_a_span_is_a_profiler_range_on_the_captures_clock(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    opened = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    records = []
+    trace.configure(types.SimpleNamespace(
+        log=lambda event, **kw: records.append(kw)))
+    try:
+        with trace.span("x.outside", tag=1):
+            torch.ones(2).sum()
+        assert opened == []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            lo = time.time_ns()
+            with trace.span("x.y", tag=1):
+                torch.ones(2).sum()
+            mid = time.time_ns()
+            with pytest.raises(ValueError):
+                with trace.span("x.raises"):
+                    raise ValueError("boom")
+            hi = time.time_ns()
+        with trace.span("x.after"):
+            pass
+    finally:
+        trace.configure(None)
+    assert opened == ["x.y", "x.raises"]
+    (start, end), = kineto_ranges(prof, "x.y")
+    assert lo <= start <= end <= mid
+    (start, end), = kineto_ranges(prof, "x.raises")
+    assert mid <= start <= end <= hi
+    # the record is the same inside a capture as outside one
+    assert [sorted(r) for r in records[:2]] == [
+        ["depth", "dur_s", "name", "ok", "parent", "path", "start",
+         "tag"]] * 2
+    assert records[2]["ok"] is False and "boom" in records[2]["error"]
+
+
+def test_the_trace_module_runs_a_span_without_torch():
+    code = ("import sys\n"
+            "from rocalphago_tpu_torch.obs import trace\n"
+            "with trace.span('x.y'):\n"
+            "    pass\n"
+            "assert 'torch' not in sys.modules\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr

@@ -228,10 +228,14 @@ def test_sl_trainer_span_records_and_registry(tmp_path):
     assert got == want
     snaps = [records(str(tmp_path / side / "metrics.jsonl"),
                      "registry")[-1]["snapshot"] for side in ("ref", "port")]
+    # the port's own families: launch counts, and the prefetcher's
+    port_only = ("jax_", "kernel_launches_total", "prefetch_")
     for kind in ("counters", "gauges", "histograms"):
-        keys = [{k for k in s[kind] if not k.startswith(
-            ("jax_", "kernel_launches_total"))} for s in snaps]
+        keys = [{k for k in s[kind] if not k.startswith(port_only)}
+                for s in snaps]
         assert keys[0] == keys[1], kind
+    assert not [k for kind in ("counters", "gauges", "histograms")
+                for k in snaps[0][kind] if k.startswith("prefetch_")]
     # the port's launch series in their place: each tracked step and the
     # untracked rest, every kernel at 0 on the CPU
     launches = {k: v for k, v in snaps[1]["counters"].items()
@@ -243,6 +247,11 @@ def test_sl_trainer_span_records_and_registry(tmp_path):
     key = 'train_data_wait_seconds{trainer="sl"}'
     counts = [s["histograms"][key]["count"] for s in snaps]
     assert counts[0] == counts[1] == 4     # 3 steps, and the 4th batch
+    # the prefetcher handed out those 4 batches and staged at least them
+    assert snaps[1]["counters"]["prefetch_batches_total"] == 4
+    staged = [snaps[1]["histograms"][f'prefetch_stage_seconds{{stage="{s}"}}']
+              ["count"] for s in ("read", "pin", "put")]
+    assert staged[0] == staged[1] == staged[2] >= 4
 
 
 # -------------------------------------------------------- chunk pipeline
