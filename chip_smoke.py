@@ -5,11 +5,12 @@ and check it end to end.
     python3 chip_smoke.py
     python3 chip_smoke.py --host-reads DIR   # the port found in DIR:
     #   one zero iteration's host reads (phase 18's count), as JSON
+    python3 chip_smoke.py --conv-epilogue    # phases 1 and 24 alone
 
 Phases, in order; any failure exits non-zero before the result line:
 
 1. card: name and power limit (``nvidia-smi``), kernel build time (the
-   three sources, one ``nvcc`` each, in parallel);
+   four sources, one ``nvcc`` each, in parallel);
 2. tree kernel vs its plain version: search trees grown at 9×9 and
    19×19, batch 1, 7 and 64, with terminal nodes, forced first edges, a
    slab that fills, the main path's slab (batch 1, 200 nodes, 100
@@ -363,7 +364,21 @@ Phases, in order; any failure exits non-zero before the result line:
     rank's card memory, and on rank 0 a one-rank NCCL group (an
     all_reduce, a broadcast, an SL step through it equal to one without
     it, the step and the all-reduce timed). Two ranks on one card
-    measure overhead, not scaling.
+    measure overhead, not scaling;
+24. the trunk convolutions' epilogue (``ops/conv_epilogue.py``) at the
+    SL benchmark cell's shape, 2,048 x 192 x 19 x 19 bfloat16
+    channels_last: the forward and the ReLU's gradient bit for bit the
+    plain versions', the float32 bias gradient within ``EPI_SUM_RTOL``
+    of the float64 sum (of each channel's absolute sum); card ms of each
+    direction beside its bytes bound, the plain version's ms and, for
+    the backward, PyTorch's bfloat16 reduction in its place (the path
+    before the kernel); the same checks and times, with a random
+    nonzero bias, at the smoke's own shapes, batch 1, 8 and 256 x 128
+    filters x 19 x 19 in bfloat16 and float32 (fresh nets have zero
+    biases, so their forwards alone would not see a bias dropped); the
+    launches of one SL step of the cell's net
+    (13 layers x 192, minibatch 2,048), one a convolution forward and
+    two backward.
 
 Every phase's wall time is logged. To keep the whole run well inside
 its 1,200 s clock with phase 23 in, timing-free child processes run at
@@ -458,6 +473,16 @@ TOURNEY_GAMES, TOURNEY_PLAYOUTS, TOURNEY_MOVES = 2, 8, 12  # (move limit
 FORWARD_ATOL = 1e-3      # float32 card vs CPU, TF32 off: summation
 FORWARD_RTOL = 1e-4      # order only, over 12 layers of 1,152-term dots
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# phase 24: the SL benchmark cell's activations and net
+EPI_SHAPE = (2048, 192, 19, 19)
+EPI_LAYERS = 13
+# ... and the smoke's own paths: batch 1 (GTP), 8 (search), 256
+# (self-play) on its 12 x 128 nets
+EPI_PATH_BATCHES = (1, 8, 256)
+EPI_PATH_FILTERS = 128
+# the bias gradient's float32 sum against the float64 one, relative to
+# each channel's absolute sum (float32 reordering: ~1e-6 observed scale)
+EPI_SUM_RTOL = 1e-5
 SCALAR_OPS_PER_S = 67e12           # float32 outside the tensor cores
 # The bounds' work is the reference's, whatever kernel implements it.
 # Chase: integer operations per board point per rung of the reference's
@@ -2142,7 +2167,7 @@ def sl_convert(root: str, work: str, counters):
     # the registry's series over the conversion: every launch counted
     # once, every chase launch inside the encoder's tracked batch
     series = launches_since(before)
-    check(by_kernel(series) == {"tree": 0, **launches}
+    check(by_kernel(series) == {"tree": 0, "conv_epilogue": 0, **launches}
           and series.get(("encode.batch", "chase")) == launches["chase"],
           f"convert: kernel_launches_total grew by {series}, the process "
           f"by {launches}")
@@ -2322,9 +2347,13 @@ def sl_train(dev, work: str, corpus: str):
     waits = snap["histograms"]['train_data_wait_seconds{trainer="sl"}']
     steps = {k: v for (e, k), v in launch_series(snap).items()
              if e == "sl.train_step"}
-    check(steps == {"labels": 0, "chase": 0, "tree": 0},
-          f"sl: kernel_launches_total of sl.train_step {steps} (training "
-          "reads stored planes)")
+    epilogue = steps.pop("conv_epilogue", 0)
+    check(steps == {"labels": 0, "chase": 0, "tree": 0}
+          and epilogue > 0 and epilogue % (3 * 11) == 0,
+          f"sl: kernel_launches_total of sl.train_step {steps}, "
+          f"conv_epilogue {epilogue} (training reads stored planes; each "
+          "step 11 convolutions, one forward and two backward launches "
+          "each)")
     check(len(spans["sl.epoch"]) == 2
           and waits["count"] >= 2 * SL_EPOCH_LENGTH,
           f"sl: {len(spans['sl.epoch'])} epoch spans, {waits['count']} "
@@ -3729,7 +3758,9 @@ def launches_since(before: dict) -> dict:
 def by_kernel(series: dict, tracked_only: bool = False) -> dict:
     """Per-kernel sums of :func:`launch_series`-shaped ``series``, with or
     without the ``untracked`` entry."""
-    out = dict.fromkeys(("labels", "chase", "tree"), 0)
+    from rocalphago_tpu_torch.obs import torchobs
+
+    out = dict.fromkeys(torchobs.KERNELS, 0)
     for (entry, kernel), v in series.items():
         if not (tracked_only and entry == "untracked"):
             out[kernel] += v
@@ -3768,6 +3799,7 @@ def zero_cli(work: str, paths, card: str):
     checkpoint, exports, pool and metric rows bit for bit. Returns the
     walls, the host-reads count and the record's path."""
     from rocalphago_tpu_torch.io.checkpoint import TrainCheckpointer
+    from rocalphago_tpu_torch.obs import torchobs
     from rocalphago_tpu_torch.training import zero
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3800,8 +3832,6 @@ def zero_cli(work: str, paths, card: str):
                 raise KeyboardInterrupt(f"killed after iteration {last}")
 
         t0 = time.perf_counter()
-        from rocalphago_tpu_torch.obs import torchobs
-
         torchobs.flush_untracked()
         series0 = launch_series()
         process0 = torchobs.process_launches()
@@ -3866,7 +3896,7 @@ def zero_cli(work: str, paths, card: str):
     entries = {e for e, _ in series}
     check({"zero.replay_segment", "zero.apply_updates", "device_mcts.init",
            "device_mcts.run_sims", "untracked"} <= entries
-          and len(series) == 3 * len(entries)
+          and len(series) == len(torchobs.KERNELS) * len(entries)
           and series[("device_mcts.run_sims", "tree")] > 0
           and series[("zero.apply_updates", "chase")] == 0,
           f"zero straight run: kernel_launches_total {series}")
@@ -7154,6 +7184,147 @@ def host_reads_main(root: str) -> int:
     return 0
 
 
+def epilogue_at(E, dev, g, shape, dtype) -> dict:
+    """The convolution epilogue's kernel at one channels_last shape and
+    type, with a random nonzero float32 bias: its forward and ``gz`` bit
+    for bit the plain versions', its float32 bias gradient within
+    ``EPI_SUM_RTOL`` of the float64 sum (of each channel's absolute
+    sum); card ms of each direction beside its bytes bound and the plain
+    version's ms."""
+    cl = torch.channels_last
+    z = torch.randn(shape, generator=g, device=dev).to(dtype).contiguous(
+        memory_format=cl)
+    b = torch.randn(shape[1], generator=g, device=dev) * 0.5
+    gy = (torch.randn(shape, generator=g, device=dev) + 0.5).to(
+        dtype).contiguous(memory_format=cl)
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    where = f"{'x'.join(map(str, shape))} {dtype}"
+    y = E.bias_relu_(z.clone(), b)
+    check(torch.equal(y.view(as_int), E.bias_relu_plain(z.clone(), b).view(
+        as_int)), f"conv_epilogue forward differs from the plain version "
+        f"at {where}")
+    gz, gb = E.bias_relu_backward(gy, y)
+    pgz, _ = E.bias_relu_backward_plain(gy, y)
+    check(torch.equal(gz.view(as_int), pgz.view(as_int)),
+          f"conv_epilogue: gz differs from threshold_backward's at {where}")
+    exact = pgz.double().sum(dim=(0, 2, 3))
+    scale = pgz.double().abs().sum(dim=(0, 2, 3))
+    err = float(((gb.double() - exact).abs() / scale).max())
+    check(err <= EPI_SUM_RTOL, f"conv_epilogue bias gradient at {where}: "
+          f"{err:.3g} of the absolute sum off the float64 sum (limit "
+          f"{EPI_SUM_RTOL})")
+    out = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+           "sum_err": err, "plain_sum_err": float((
+               (pgz.sum(dim=(0, 2, 3)).double() - exact).abs()
+               / scale).max()), "gy": gy, "y": y}
+    act = z.numel() * z.element_size()
+    work = z.clone()
+    for name, fn, plain_fn, moved in (
+            ("forward", lambda: E.bias_relu_(work, b),
+             lambda: E.bias_relu_plain(work, b), 2 * act),
+            ("backward", lambda: E.bias_relu_backward(gy, y),
+             lambda: E.bias_relu_backward_plain(gy, y), 3 * act)):
+        ms, plain_ms, (bound_ms, by) = kernel_row(fn, plain_fn, moved, 0,
+                                                  reps=50)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by}
+    return out
+
+
+def phase_conv_epilogue(dev, card) -> list:
+    """Phase 24: the kernel rows of the trunk convolutions' epilogue
+    (forward, backward) at the SL benchmark cell's shape, each with the
+    same reading at the shapes of the smoke's own paths."""
+    from rocalphago_tpu_torch.models import CNNPolicy
+    from rocalphago_tpu_torch.ops import conv_epilogue as E
+    from rocalphago_tpu_torch.training import sl
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 240)
+    cell = epilogue_at(E, dev, g, EPI_SHAPE, torch.bfloat16)
+    gy, y = cell.pop("gy"), cell.pop("y")
+    rows = []
+    for name in ("forward", "backward"):
+        rows.append({"name": f"conv_epilogue.{name}", "route": "cuda",
+                     "source": "rocalphago_tpu_torch/csrc/conv_epilogue.cu",
+                     "replaces": "none (XLA fuses the bias and ReLU into "
+                     "the convolution)", **cell[name], "library_ms": None,
+                     "max_abs_err": 0.0, "paths": []})
+    rows[1]["library_ms"] = cuda_ms(lambda: torch.ops.aten.threshold_backward(
+        gy, y, 0).sum(dim=(0, 2, 3)), 20)
+    rows[1]["max_abs_err"] = cell["sum_err"]
+    del gy, y
+    # the shapes the smoke's other phases run the kernel at: the 12 x 128
+    # nets of the GTP sessions (batch 1), search (8) and self-play (256)
+    for batch in EPI_PATH_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            at = epilogue_at(E, dev, g, (batch, EPI_PATH_FILTERS,
+                                         EPI_SHAPE[2], EPI_SHAPE[3]), dtype)
+            del at["gy"], at["y"]
+            for r in rows:
+                r["paths"].append({
+                    "shape": at["shape"], "dtype": at["dtype"],
+                    **at[r["name"].split(".")[1]]})
+            rows[1]["paths"][-1]["sum_err"] = at["sum_err"]
+            rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                         at["sum_err"])
+            log(f"conv_epilogue at {'x'.join(map(str, at['shape']))} "
+                f"{at['dtype']}: forward {at['forward']['ms']:.4f} ms "
+                f"(bound {at['forward']['bound_ms']:.4f}, plain "
+                f"{at['forward']['plain_ms']:.4f}), backward "
+                f"{at['backward']['ms']:.4f} ms (bound "
+                f"{at['backward']['bound_ms']:.4f}, plain "
+                f"{at['backward']['plain_ms']:.4f}); bias gradient "
+                f"{at['sum_err']:.3g} off float64 (plain "
+                f"{at['plain_sum_err']:.3g})")
+    # one SL step of the cell's net
+    net = CNNPolicy(board=EPI_SHAPE[2], layers=EPI_LAYERS,
+                    filters_per_layer=EPI_SHAPE[1], head="bias", seed=SEED,
+                    device=dev)
+    opt, lr_at = sl.make_optimizer(sl.SLConfig(learning_rate=0.003),
+                                   net.module.parameters())
+    step = sl.make_train_step(net.module, opt, lr_at, EPI_SHAPE[2], True)
+    state = sl.TrainState(net.module, opt, g)
+    planes = torch.randint(0, 2, (EPI_SHAPE[0], EPI_SHAPE[2], EPI_SHAPE[3],
+                                  48), generator=g, device=dev,
+                           dtype=torch.uint8)
+    actions = torch.randint(0, 361, (EPI_SHAPE[0],), generator=g, device=dev,
+                            dtype=torch.int32)
+    step(state, planes, actions)
+    before = E.launches
+    step(state, planes, actions)
+    torch.cuda.synchronize()
+    per_step = E.launches - before
+    convs = EPI_LAYERS - 1
+    check(per_step == 3 * convs, f"conv_epilogue: {per_step} launches an SL "
+          f"step of a {EPI_LAYERS}-layer net (want {3 * convs})")
+    for r in rows:
+        r["launches"] = per_step // 3 * (1 if r["name"].endswith(
+            "forward") else 2)
+    log(f"conv_epilogue at {'x'.join(map(str, EPI_SHAPE))} bf16 "
+        f"channels_last: forward {rows[0]['ms']:.4f} ms (bound "
+        f"{rows[0]['bound_ms']:.4f}, plain {rows[0]['plain_ms']:.4f}), "
+        f"backward {rows[1]['ms']:.4f} ms (bound {rows[1]['bound_ms']:.4f}, "
+        f"plain {rows[1]['plain_ms']:.4f}, bf16 reduction path "
+        f"{rows[1]['library_ms']:.4f}); bias gradient {cell['sum_err']:.3g} "
+        f"of the absolute sum off float64 (bf16 reduction "
+        f"{cell['plain_sum_err']:.3g}); "
+        f"{per_step} launches an SL step on {card}")
+    return rows
+
+
+def conv_epilogue_main() -> int:
+    """Phases 1 and 24 alone; prints their kernel rows."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = phase_card()
+    rows = phase_conv_epilogue(dev, card)
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7164,6 +7335,8 @@ def main() -> int:
         return ranks_probe(*sys.argv[2:])
     if len(sys.argv) > 3 and sys.argv[1] == "--zero-ranks":
         return zero_ranks_main(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:] == ["--conv-epilogue"]:
+        return conv_epilogue_main()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from rocalphago_tpu_torch.engine import pygo, torchgo
@@ -7238,6 +7411,7 @@ def main() -> int:
                                                       sv["corpus"]),
                 zr["paths"], os.path.join(os.path.dirname(os.path.abspath(
                     __file__)), ZERO_DIR, "straight"), zr["record"])
+    epilogue = phase(24, phase_conv_epilogue, dev, card)
     # the launches of phases 11-22's paths: policy self-play (labels,
     # chase), search self-play (all three), the converter (labels,
     # chase), the RL iteration and the generator (labels, chase), the
@@ -7272,6 +7446,7 @@ def main() -> int:
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
+    kernels += epilogue
     log(f"device-search session "
         f"launches {main_path['launches']}; policy self-play launches "
         f"{sp['launches']}; search self-play launches {ss['launches']}")

@@ -7,8 +7,11 @@ architecture kwargs, weights file) is the reference's, and the weights
 file is the reference's Flax msgpack, read and written by
 :mod:`.weights` -- a spec saved by either package loads in the other.
 
-The trunk stays ``torch.nn.functional.conv2d``: the reference leaves
-its convolutions to XLA outside any Pallas kernel.
+The trunk's convolutions stay ``torch.nn.functional.conv2d`` (cuDNN
+on the card), as the reference leaves them to XLA outside any Pallas
+kernel; their bias and ReLU, and those ops' backward, go through
+:func:`..ops.conv_epilogue.conv_bias_relu`, one CUDA pass each way on
+the card (XLA fuses them into the convolution on the TPU).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from rocalphago_tpu_torch.models.weights import (
     read_flax_msgpack,
     write_flax_msgpack,
 )
+from rocalphago_tpu_torch.ops.conv_epilogue import conv_bias_relu
 from rocalphago_tpu_torch.training.symmetries import (
     inverse_transform_planes,
     transform_planes,
@@ -106,9 +110,8 @@ class ConvTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         for i, conv in enumerate(self.convs):
-            x = F.relu(F.conv2d(x, conv.weight.to(self.dtype),
-                                conv.bias.to(self.dtype),
-                                padding=conv.padding))
+            x = conv_bias_relu(x, conv.weight, conv.bias, conv.padding,
+                               self.dtype)
             j = self.pool_after.get(i + 1)
             if j is not None:
                 x = getattr(self, f"gpool{j}")(x)

@@ -126,10 +126,10 @@ def flush_untracked(registry=None) -> None:
 
 def process_launches() -> dict:
     """``{kernel: launches}``, the process totals of the wrappers."""
-    from rocalphago_tpu_torch.ops import chase, labels, tree
+    from rocalphago_tpu_torch.ops import chase, conv_epilogue, labels, tree
 
     return {"labels": labels.launches, "chase": chase.launches,
-            "tree": tree.launches}
+            "tree": tree.launches, "conv_epilogue": conv_epilogue.launches}
 
 
 def registry_launches(registry=None) -> dict:

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 PyTorch headers: a build takes seconds, not minutes). Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of the
 source, so an edited kernel is rebuilt and an unchanged one is reused.
-All sources build at once, one ``nvcc`` process each, on the first
-request for any of them; nothing is built when a module is imported.
+A source builds on the first request for it, and only it;
+:meth:`KernelLibraries.build_all` builds every source at once, one
+``nvcc`` process each. Nothing is built when a module is imported.
 
 Launch accounting: each kernel wrapper keeps its process total (the
 module's ``launches``) and calls :func:`count_launch` where it
@@ -14,7 +15,11 @@ launches, which counts the launch on the calling thread
 (:data:`THREAD`) and, when no tracked entry is open on that thread, in
 :data:`UNTRACKED`. :mod:`..obs.torchobs` reads the thread's counts
 around each tracked call, so a launch on one thread is never another
-thread's, and nothing here syncs with the card.
+thread's, and nothing here syncs with the card. The one exception is
+named: autograd runs a CUDA backward on a device thread of its own
+while the thread that called ``backward()`` waits, so a backward's
+launches are counted for the thread that ran the forward
+(:func:`launch_owner`).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("labels", "chase", "tree")
+SOURCES = ("labels", "chase", "tree", "conv_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,11 +59,19 @@ THREAD = ThreadLaunches()
 UNTRACKED = [0] * len(SOURCES)
 
 
-def count_launch(kernel: int) -> None:
-    """Count one launch of kernel ``SOURCES[kernel]`` on this thread."""
-    thread = THREAD
-    thread.counts[kernel] += 1
-    if not thread.frames:
+def launch_owner() -> tuple[list, list]:
+    """The calling thread's ``(counts, frames)``, for
+    :func:`count_launch` to count a launch that another thread makes
+    for this one."""
+    return THREAD.counts, THREAD.frames
+
+
+def count_launch(kernel: int, owner: tuple | None = None) -> None:
+    """Count one launch of kernel ``SOURCES[kernel]`` on this thread,
+    or on the thread whose :func:`launch_owner` is ``owner``."""
+    counts, frames = owner or launch_owner()
+    counts[kernel] += 1
+    if not frames:
         UNTRACKED[kernel] += 1
 
 
@@ -90,16 +103,18 @@ class KernelLibraries:
                 NVCC_FLAGS).encode()).hexdigest()[:16]
         return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
-    def build_all(self) -> None:
-        """Compile every source that has no up-to-date library, all in
-        parallel; raise with ``nvcc``'s output if any build fails."""
+    def build(self, names) -> None:
+        """Load each of ``names`` (sources in ``SOURCES``), compiling,
+        all in parallel, those that have no up-to-date library; raise
+        with ``nvcc``'s output if any build fails."""
         with self._lock:
-            if len(self._libs) == len(SOURCES):
+            names = [n for n in names if n not in self._libs]
+            if not names:
                 return
             os.makedirs(BUILD_DIR, exist_ok=True)
             t0 = time.monotonic()
             procs = {}
-            for name in SOURCES:
+            for name in names:
                 src, out = self._target(name)
                 if os.path.exists(out):
                     continue
@@ -119,12 +134,16 @@ class KernelLibraries:
             if failed:
                 raise RuntimeError("nvcc failed for " + ", ".join(
                     f"{n}.cu:\n{self.log[n]}" for n in failed))
-            for name in SOURCES:
+            for name in names:
                 self._libs[name] = ctypes.CDLL(self._target(name)[1])
+
+    def build_all(self) -> None:
+        """Load every source, building those that need it at once."""
+        self.build(SOURCES)
 
     def library(self, name: str) -> ctypes.CDLL:
         if name not in self._libs:
-            self.build_all()
+            self.build((name,))
         return self._libs[name]
 
 

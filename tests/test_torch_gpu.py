@@ -10,7 +10,9 @@ there without the conftest::
         tests/test_torch_gpu.py -m gpu
 
 This file imports only torch, numpy and the port. Tolerance: exact for
-the kernels and the encode (integer and boolean outputs).
+the kernels and the encode (integer and boolean outputs), and for the
+convolution epilogue's outputs; its bias gradient, a float32 sum in the
+kernel's own order, within float32 reordering of the float64 sum.
 """
 
 import io
@@ -24,7 +26,7 @@ from rocalphago_tpu_torch.engine import pygo, torchgo
 from rocalphago_tpu_torch.features import Preprocess
 from rocalphago_tpu_torch.interface.gtp import run_gtp, vertex_to_move
 from rocalphago_tpu_torch.models import CNNPolicy
-from rocalphago_tpu_torch.ops import chase, labels, tree
+from rocalphago_tpu_torch.ops import chase, conv_epilogue, labels, tree
 from rocalphago_tpu_torch.search.players import GreedyPolicyPlayer
 
 pytestmark = pytest.mark.gpu
@@ -532,6 +534,184 @@ def test_sl_steps_on_the_card_repeat_bit_for_bit(cuda_device):
     assert a[0] == b[0]
     for k in a[1]:
         assert torch.equal(a[1][k], b[1][k]), k
+
+
+def epilogue_inputs(device, batch, channels, size, layout, dtype, seed):
+    """A convolution's output ``z`` in ``dtype`` and ``layout``, a float32
+    bias, and an upstream gradient with a nonzero mean (so each
+    channel's sum is far from 0), seeded."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    shape = (batch, channels, size, size)
+    z = torch.randn(shape, generator=g, device=device).to(dtype)
+    b = torch.randn(channels, generator=g, device=device) * 0.5
+    gy = (torch.randn(shape, generator=g, device=device) + 0.5).to(dtype)
+    return (z.contiguous(memory_format=layout), b,
+            gy.contiguous(memory_format=layout))
+
+
+def bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_epilogue(device, batch, channels, size, layout, dtype, seed):
+    """The kernel against the plain versions on one shape, or, for a
+    layout that is not channels_last, both wrappers' refusal."""
+    z, b, gy = epilogue_inputs(device, batch, channels, size, layout, dtype,
+                               seed)
+    before = conv_epilogue.launches
+    if not z.is_contiguous(memory_format=torch.channels_last):
+        with pytest.raises(ValueError, match="channels_last"):
+            conv_epilogue.bias_relu_(z.clone(), b)
+        with pytest.raises(ValueError, match="channels_last"):
+            conv_epilogue.bias_relu_backward(gy, z)
+        assert conv_epilogue.launches == before
+        return
+    for bias in (b, b.to(dtype)):
+        y = conv_epilogue.bias_relu_(z.clone(), bias)
+        assert torch.equal(bits(y), bits(conv_epilogue.bias_relu_plain(
+            z.clone(), bias))), bias.dtype
+    assert y.stride() == z.stride()
+    gz, gb = conv_epilogue.bias_relu_backward(gy, y)
+    assert conv_epilogue.launches == before + 2 + 2
+    pgz, pgb = conv_epilogue.bias_relu_backward_plain(gy, y)
+    assert gz.stride() == y.stride()
+    assert torch.equal(bits(gz), bits(pgz))
+    # the float32 sum in the kernel's order against the float64 sum:
+    # reordering only, and never further off than PyTorch's own
+    # reduction in the working type
+    exact = pgz.double().sum(dim=(0, 2, 3))
+    tol = 1e-5 * pgz.double().abs().sum(dim=(0, 2, 3))
+    assert gb.dtype == torch.float32
+    assert ((gb.double() - exact).abs() <= tol).all()
+    plain = pgz.sum(dim=(0, 2, 3)).double()
+    assert ((gb.double() - exact).abs()
+            <= (plain - exact).abs() + tol).all()
+    # the same shape gives the same bits
+    gz2, gb2 = conv_epilogue.bias_relu_backward(gy, y)
+    assert torch.equal(bits(gz2), bits(gz)) and torch.equal(bits(gb2),
+                                                            bits(gb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [torch.channels_last,
+                                    torch.contiguous_format])
+@pytest.mark.parametrize("size", [9, 19])
+@pytest.mark.parametrize("channels", [48, 192])
+@pytest.mark.parametrize("batch", [1, 7])
+def test_conv_epilogue_kernel_matches_plain(cuda_device, batch, channels,
+                                            size, layout, dtype):
+    check_epilogue(cuda_device, batch, channels, size, layout, dtype,
+                   seed=batch * 1000 + channels + size)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_epilogue_kernel_at_the_benchmark_shape(cuda_device, dtype):
+    """2,048 x 192 x 19 x 19 channels_last, the SL cell's activations."""
+    check_epilogue(cuda_device, 2048, 192, 19, torch.channels_last, dtype,
+                   seed=20)
+
+
+def test_conv_epilogue_odd_shapes_and_views(cuda_device):
+    """Channel counts that are no multiple of the vector (scalar path),
+    one channel, one point (where contiguous NCHW is channels_last too),
+    a misaligned view, and a ``gy`` in the other layout (copied into
+    ``y``'s)."""
+    for batch, channels, size in ((3, 5, 7), (2, 1, 9), (5, 24, 1)):
+        for layout in (torch.channels_last, torch.contiguous_format):
+            check_epilogue(cuda_device, batch, channels, size, layout,
+                           torch.bfloat16, seed=channels)
+    z, b, gy = epilogue_inputs(cuda_device, 9, 16, 5, torch.channels_last,
+                               torch.bfloat16, 3)
+    # channels_last, starting one value (2 bytes) into its storage
+    store = torch.empty(z.numel() + 1, dtype=z.dtype, device=cuda_device)
+    view = store[1:].view(9, 5, 5, 16).permute(0, 3, 1, 2)
+    view.copy_(z)
+    assert view.is_contiguous(memory_format=torch.channels_last)
+    want = conv_epilogue.bias_relu_plain(z.clone(), b)
+    assert torch.equal(bits(conv_epilogue.bias_relu_(view, b)), bits(want))
+    # gy contiguous NCHW against a channels_last y
+    gz, gb = conv_epilogue.bias_relu_backward(gy.contiguous(), view)
+    pgz, _ = conv_epilogue.bias_relu_backward_plain(gy, want)
+    assert torch.equal(bits(gz), bits(pgz))
+    assert gz.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        conv_epilogue.bias_relu_(z.transpose(2, 3).contiguous().transpose(
+            1, 2), b[:5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bias_relu_on_the_card_is_the_plain_twin(cuda_device, dtype):
+    """The seam against ``relu(conv2d(x, w, b))`` on the card: the output
+    and the gradients of ``x`` and ``w`` bit for bit (the same cuDNN
+    calls, the same epilogue values), the bias gradient within float32
+    reordering; under ``no_grad`` the same output, nothing saved."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(5)
+        x = torch.randn(64, 48, 19, 19, generator=g, device=cuda_device).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        w = torch.randn(192, 48, 5, 5, generator=g, device=cuda_device) * 0.05
+        b = torch.randn(192, generator=g, device=cuda_device) * 0.1
+        gy = torch.randn(64, 192, 19, 19, generator=g,
+                         device=cuda_device).to(dtype).contiguous(
+                             memory_format=torch.channels_last)
+        for x_grad in (True, False):
+            xs = x.clone().requires_grad_(x_grad)
+            ws, bs = w.clone().requires_grad_(), b.clone().requires_grad_()
+            before = conv_epilogue.launches
+            y = conv_epilogue.conv_bias_relu(xs, ws, bs, (2, 2), dtype)
+            y.backward(gy)
+            assert conv_epilogue.launches == before + 3
+            xt = x.clone().requires_grad_(x_grad)
+            wt, bt = w.clone().requires_grad_(), b.clone().requires_grad_()
+            yt = torch.relu(torch.nn.functional.conv2d(
+                xt, wt.to(dtype), bt.to(dtype), padding=(2, 2)))
+            yt.backward(gy)
+            assert torch.equal(bits(y.detach()), bits(yt.detach()))
+            assert torch.equal(bits(ws.grad), bits(wt.grad))
+            if x_grad:
+                assert torch.equal(bits(xs.grad), bits(xt.grad))
+            else:
+                assert xs.grad is None
+            gz = torch.ops.aten.threshold_backward(gy, yt.detach(), 0)
+            exact = gz.double().sum(dim=(0, 2, 3))
+            tol = 1e-5 * gz.double().abs().sum(dim=(0, 2, 3))
+            assert ((bs.grad.double() - exact).abs() <= tol).all()
+        with torch.no_grad():
+            before = conv_epilogue.launches
+            y = conv_epilogue.conv_bias_relu(x, w, b, (2, 2), dtype)
+            assert conv_epilogue.launches == before + 1
+            assert y.grad_fn is None
+            assert torch.equal(bits(y), bits(yt.detach()))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def test_sl_step_launches_the_epilogue_for_each_convolution(cuda_device):
+    """Each SL step sends every trunk convolution through the kernel:
+    11 forward launches and 22 backward ones for a 12-layer net, and
+    its registry series counts them all."""
+    from rocalphago_tpu_torch.obs import torchobs
+
+    before = conv_epilogue.launches
+    before_thread = _build_counts()
+    sl_step_run(cuda_device, 3, dtype=torch.bfloat16)
+    assert conv_epilogue.launches - before == 3 * (11 + 22)
+    assert _build_counts() - before_thread == 3 * (11 + 22)
+    assert torchobs.process_launches()["conv_epilogue"] == \
+        conv_epilogue.launches
+
+
+def _build_counts():
+    from rocalphago_tpu_torch.ops import _build
+
+    return _build.THREAD.counts[conv_epilogue.KERNEL]
 
 
 def test_device_prefetch_on_the_card_stages_every_batch(cuda_device):

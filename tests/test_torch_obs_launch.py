@@ -40,7 +40,7 @@ from rocalphago_tpu_torch.engine import torchgo
 from rocalphago_tpu_torch.features import Preprocess
 from rocalphago_tpu_torch.models import CNNPolicy, CNNValue
 from rocalphago_tpu_torch.obs import registry, torchobs, trace
-from rocalphago_tpu_torch.ops import _build, chase, labels, tree
+from rocalphago_tpu_torch.ops import _build, chase, conv_epilogue, labels, tree
 from rocalphago_tpu_torch.search import device_mcts
 from rocalphago_tpu_torch.training import zero
 from torch_port_helpers import one_torch_thread, random_games  # noqa: F401
@@ -48,7 +48,9 @@ from torch_port_helpers import one_torch_thread, random_games  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("labels", "chase", "tree")
+KERNELS = ("labels", "chase", "tree", "conv_epilogue")
+#: each kernel's wrapper module, in ``KERNELS`` order
+MODULES = (labels, chase, tree, conv_epilogue)
 
 
 class Clock:
@@ -74,9 +76,10 @@ def stub_kernels(monkeypatch):
     """Each op's wrapper replaced by its plain version plus the
     wrapper's counting, as a launch on the card counts; the process and
     untracked totals start from 0 and are restored afterwards."""
-    monkeypatch.setattr(_build, "UNTRACKED", [0, 0, 0])
+    monkeypatch.setattr(_build, "UNTRACKED", [0] * len(KERNELS))
     for mod, names in ((labels, ("labels",)), (chase, ("chase",)),
-                       (tree, ("descend", "backup"))):
+                       (tree, ("descend", "backup")),
+                       (conv_epilogue, ("bias_relu_", "bias_relu_backward"))):
         monkeypatch.setattr(mod, "launches", 0)
         for name in names:
             monkeypatch.setattr(mod, name, launching(mod, getattr(mod, name)))
@@ -141,7 +144,7 @@ def test_track_matches_the_references_shapes_stats_and_timing(monkeypatch):
 
 
 def test_a_tracked_method_binds_and_copies(monkeypatch):
-    monkeypatch.setattr(_build, "UNTRACKED", [0, 0, 0])
+    monkeypatch.setattr(_build, "UNTRACKED", [0] * len(KERNELS))
     reg = registry.Registry()
 
     class Search:
@@ -155,7 +158,8 @@ def test_a_tracked_method_binds_and_copies(monkeypatch):
 
     assert isinstance(Search.run, torchobs.TrackedFunction)
     assert [Search(2).run(3), Search(1).run(5)] == [6, 5]
-    assert series(reg, "t.method") == {"labels": 0, "chase": 0, "tree": 3}
+    assert series(reg, "t.method") == {"labels": 0, "chase": 0, "tree": 3,
+                                       "conv_epilogue": 0}
     clone = copy.copy(Search.run)
     assert clone.entry == "t.method" and clone(Search(1), 4) == 4
 
@@ -232,14 +236,15 @@ def test_the_tracked_entries_are_the_references():
 
 
 def test_launches_land_in_the_innermost_entry_of_their_thread(monkeypatch):
-    monkeypatch.setattr(_build, "UNTRACKED", [0, 0, 0])
-    for mod in (labels, chase, tree):
+    monkeypatch.setattr(_build, "UNTRACKED", [0] * len(KERNELS))
+    for mod in MODULES:
         monkeypatch.setattr(mod, "launches", 0)
     reg = registry.Registry()
 
     @torchobs.track("t.inner", registry=reg)
     def inner():
         launch(chase, 3)
+        launch(conv_epilogue, 2)
 
     @torchobs.track("t.outer", registry=reg)
     def outer():
@@ -253,32 +258,68 @@ def test_launches_land_in_the_innermost_entry_of_their_thread(monkeypatch):
         torchobs.track("t.raises", lambda: (launch(labels),
                                             {}["k"]), registry=reg)()
     torchobs.flush_untracked(reg)
-    assert series(reg, "t.outer") == {"labels": 2, "chase": 1, "tree": 0}
-    assert series(reg, "t.inner") == {"labels": 0, "chase": 3, "tree": 0}
-    assert series(reg, "t.raises") == {"labels": 1, "chase": 0, "tree": 0}
-    assert series(reg, "untracked") == {"labels": 0, "chase": 0, "tree": 4}
+    assert series(reg, "t.outer") == {"labels": 2, "chase": 1, "tree": 0,
+                                      "conv_epilogue": 0}
+    assert series(reg, "t.inner") == {"labels": 0, "chase": 3, "tree": 0,
+                                      "conv_epilogue": 2}
+    assert series(reg, "t.raises") == {"labels": 1, "chase": 0, "tree": 0,
+                                       "conv_epilogue": 0}
+    assert series(reg, "untracked") == {"labels": 0, "chase": 0, "tree": 4,
+                                        "conv_epilogue": 0}
     assert torchobs.registry_launches(reg) == torchobs.process_launches() \
-        == {"labels": 3, "chase": 4, "tree": 4}
+        == {"labels": 3, "chase": 4, "tree": 4, "conv_epilogue": 2}
     torchobs.flush_untracked(reg)            # idempotent
     assert series(reg, "untracked")["tree"] == 4
     assert not _build.THREAD.frames
 
 
+def test_a_launch_made_for_another_thread_counts_in_its_entry(monkeypatch):
+    """A launch counted for another thread's ``launch_owner`` (as a CUDA
+    backward runs on autograd's device thread while the thread that
+    called ``backward()`` waits) lands in that thread's innermost entry,
+    or in ``untracked`` when it has none open, never in the launching
+    thread's counts."""
+    monkeypatch.setattr(_build, "UNTRACKED", [0] * len(KERNELS))
+    reg = registry.Registry()
+    k = conv_epilogue.KERNEL
+    own = []
+
+    def device_thread(owner):
+        before = _build.THREAD.counts[k]
+        _build.count_launch(k, owner)
+        _build.count_launch(k, owner)
+        own.append(_build.THREAD.counts[k] - before)
+
+    def for_this_thread():
+        t = threading.Thread(target=device_thread,
+                             args=(_build.launch_owner(),))
+        t.start()
+        t.join()
+
+    torchobs.track("t.caller", for_this_thread, registry=reg)()
+    for_this_thread()                        # no entry open: untracked
+    torchobs.flush_untracked(reg)
+    assert series(reg, "t.caller")["conv_epilogue"] == 2
+    assert series(reg, "untracked")["conv_epilogue"] == 2
+    assert own == [0, 0]
+
+
 def test_threads_count_only_their_own_launches(monkeypatch):
-    monkeypatch.setattr(_build, "UNTRACKED", [0, 0, 0])
+    monkeypatch.setattr(_build, "UNTRACKED", [0] * len(KERNELS))
     reg = registry.Registry()
     n_threads = 2 * (os.cpu_count() or 2) + 2
     calls = 60
     start = threading.Barrier(n_threads)
-    mods = (labels, chase, tree)
+    mods = MODULES
+    k = len(mods)
 
     def worker(i):
         fn = torchobs.track(f"t.thread{i}", registry=reg)(
-            lambda: launch(mods[i % 3], 1 + i % 4))
+            lambda: launch(mods[i % k], 1 + i % 4))
         start.wait(timeout=30)
         for _ in range(calls):
             fn()
-            launch(mods[(i + 1) % 3])      # between calls: untracked
+            launch(mods[(i + 1) % k])      # between calls: untracked
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -294,11 +335,11 @@ def test_threads_count_only_their_own_launches(monkeypatch):
     assert not any(t.is_alive() for t in threads)
     for i in range(n_threads):
         want = dict.fromkeys(KERNELS, 0)
-        want[KERNELS[i % 3]] = calls * (1 + i % 4)
+        want[KERNELS[i % k]] = calls * (1 + i % 4)
         assert series(reg, f"t.thread{i}") == want, i
-    untracked = [0, 0, 0]
+    untracked = [0] * k
     for i in range(n_threads):
-        untracked[(i + 1) % 3] += calls
+        untracked[(i + 1) % k] += calls
     assert _build.UNTRACKED == untracked
 
 

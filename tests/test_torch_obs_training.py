@@ -243,7 +243,7 @@ def test_sl_trainer_span_records_and_registry(tmp_path):
     assert launches == {
         f'kernel_launches_total{{entry="{e}",kernel="{k}"}}': 0
         for e in ("sl.train_step", "sl.eval_step", "untracked")
-        for k in ("labels", "chase", "tree")}
+        for k in ("labels", "chase", "tree", "conv_epilogue")}
     key = 'train_data_wait_seconds{trainer="sl"}'
     counts = [s["histograms"][key]["count"] for s in snaps]
     assert counts[0] == counts[1] == 4     # 3 steps, and the 4th batch
